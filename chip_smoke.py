@@ -18,10 +18,19 @@ line is not printed:
   5. the same port at 64x32 for 4 frames on cuda and on cpu (plain
      versions): image means within 3 combined standard errors, fewer than
      1% of reservoirs holding a different sample.
-  6. one JSON line of kernel results, then {"ok": true, "device": ...}.
+  6. the differentiable path: the JAX bench's forward+backward step,
+     value_and_grad of mean(img^2) w.r.t. diffuse, specular, shininess and
+     emission through one bench-config frame (seed 1, fresh state) at
+     1920x1080; 28 traced rays/pixel, finite gradients, K1-K4 all
+     launched; ms/step, Mrays/s fwd+bwd and peak device memory printed.
+  7. value and gradients at 64x32 on cuda and on cpu, allclose.
+  8. 3 Adam steps of optimize_materials at 1080p from a perturbed white
+     albedo against the render with the true one: the loss must fall.
+  9. one JSON line of kernel results, then {"ok": true, "device": ...}.
 
---profile=PATH also profiles two 1080p frames (torch.profiler) and writes
-the table of device time by kernel to PATH.
+--profile=PATH also profiles two 1080p frames and one 1080p fwd+bwd step
+(torch.profiler) and writes the tables of device time by kernel to PATH
+and to PATH with _fwd_bwd before its extension.
 
 The script imports nothing of JAX or of the JAX package (tpu_restir),
 and checks so at its end.
@@ -29,6 +38,7 @@ and checks so at its end.
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -100,8 +110,9 @@ def phase_device():
 def phase_build():
     from tpu_restir_torch.kernels import build, local_gather, ray_tri
     t0 = time.perf_counter()
-    ray_tri._lib()
-    build.load("local_gather", local_gather._SIGNATURES)
+    build.load_all([("ray_tri", ray_tri._SIGNATURES, ray_tri.FLAGS),
+                    ("local_gather", local_gather._SIGNATURES, ()),
+                    ("local_scatter", local_gather._SCATTER_SIGNATURES, ())])
     total = time.perf_counter() - t0
     for name, info in build.BUILD_INFO.items():
         regs = [ln.strip() for ln in info["ptxas"].splitlines()
@@ -231,6 +242,38 @@ def phase_kernels(dev):
               f"plain {plain:.3f} ms", flush=True)
         require(equal, f"K3 {label}: gather differs from the plain version")
         record("gather_local", err, ms, plain)
+
+    # K4: the backward of the spatial taps (K=5, r=5, disk_r2=30), taps
+    # drawn from the pass's own disk-offset table and clamped to the screen
+    from tpu_restir_torch.render.sampling import disk_int_from_uniform
+    k4, r4, disk_r2 = 5, 5, 30
+    off = disk_int_from_uniform(
+        torch.rand((k4, HEIGHT, WIDTH), generator=gen, device=dev), 30.0)
+    tys = (ys[None] + off[..., 1]).clamp(0, HEIGHT - 1).to(torch.int32)
+    txs = (xs[None] + off[..., 0]).clamp(0, WIDTH - 1).to(torch.int32)
+    for c in (24, 32):
+        gi = torch.randint(-64, 65, (k4, HEIGHT, WIDTH, c), generator=gen,
+                           device=dev).to(torch.float32)
+        got = lg.scatter_local(gi, tys, txs, r4, disk_r2)
+        want = lg.scatter_local_ref(gi, tys, txs)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        gn = torch.randn((k4, HEIGHT, WIDTH, c), generator=gen, device=dev)
+        got = lg.scatter_local(gn, tys, txs, r4, disk_r2)
+        want = lg.scatter_local_ref(gn, tys, txs)
+        err = float((got - want).abs().max())
+        ms = cuda_ms(lambda: lg.scatter_local(gn, tys, txs, r4, disk_r2), 10)
+        plain = cuda_ms(lambda: lg.scatter_local_ref(gn, tys, txs), 10)
+        print(f"[K4 scatter_local] spatial taps: K={k4} r={r4} "
+              f"disk_r2={disk_r2} C={c} at {HEIGHT}x{WIDTH}; integer "
+              f"cotangents bit-identical {equal}; normal cotangents max "
+              f"|err| {err:.3g} (tolerance 1e-5: the plain index_add_ sums "
+              f"in atomic order); kernel {ms:.3f} ms, plain {plain:.3f} ms",
+              flush=True)
+        require(equal, f"K4 C={c}: differs from the plain version on "
+                "integer cotangents")
+        require(err <= 1e-5, f"K4 C={c}: max error {err}")
+        record("scatter_local", err, ms, plain)
     return results
 
 
@@ -280,8 +323,6 @@ def phase_main_path(dev, small_mean, small_se, smi):
     import torch
 
     from tpu_restir_torch import cornell_box, metrics
-    from tpu_restir_torch.kernels import local_gather as lg
-    from tpu_restir_torch.kernels import ray_tri
     from tpu_restir_torch.render import intersect
     from tpu_restir_torch.renderer import Renderer
 
@@ -290,16 +331,15 @@ def phase_main_path(dev, small_mean, small_se, smi):
     Renderer(scene, cfg, device=dev).run(1)      # warm-up (allocator, libs)
     torch.cuda.synchronize()
     renderer = Renderer(scene, cfg, device=dev)
-    for counts in (ray_tri.LAUNCHES, lg.LAUNCHES):
-        for key in counts:
-            counts[key] = 0
+    _zero_launches()
     intersect.QUERY_LOG = qlog = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     img = renderer.run(N_FRAMES)                  # ends in a synchronize
     dt = time.perf_counter() - t0
     intersect.QUERY_LOG = None
-    launches = {**ray_tri.LAUNCHES, **lg.LAUNCHES}
+    launches = {k: v for k, v in _launches().items()
+                if k != "scatter_local"}    # the forward has no backward
     rays = sum(e["rays"] for e in qlog)
     traced_rpp = rays / float(WIDTH * HEIGHT * N_FRAMES)
     analytic = metrics.rays_per_pixel(cfg)
@@ -350,27 +390,168 @@ def phase_passes(dev):
           f"frame {prev:.2f}", flush=True)
 
 
-def phase_profile(dev, path):
-    """Two 1080p frames under torch.profiler: device time summed over the
-    CUDA kernels only (operator rows repeat their kernels' time), the
-    share of K1-K3, and the busy share against the wall time of the same
-    two frames run without the profiler."""
+def _zero_launches():
+    from tpu_restir_torch.kernels import local_gather as lg
+    from tpu_restir_torch.kernels import ray_tri
+    for counts in (ray_tri.LAUNCHES, lg.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def _launches():
+    from tpu_restir_torch.kernels import local_gather as lg
+    from tpu_restir_torch.kernels import ray_tri
+    return {**ray_tri.LAUNCHES, **lg.LAUNCHES}
+
+
+def bench_step(dev, width, height):
+    """The JAX bench's forward+backward step (bench.py:114-126): a callable
+    params -> (loss, grads) and the parameters at the scene's values."""
+    import torch
+
+    from tpu_restir_torch import cornell_box
+    from tpu_restir_torch.diff.params import extract_params
+    from tpu_restir_torch.diff.render import make_value_and_grad
+    from tpu_restir_torch.render import camera as cam_mod
+    cfg = bench_cfg(width, height)
+    scene = cornell_box(dev)
+    cam = cam_mod.make_camera(cfg.camera, dev)
+    target = torch.zeros((height, width, 3), device=dev)
+    return (make_value_and_grad(scene, cam, cfg, (1,), target),
+            extract_params(scene))
+
+
+def phase_fwd_bwd(dev, smi):
+    """value_and_grad through one 1080p bench frame: warm-up, then the
+    median of 3 timed steps; the launches and traced rays of the last."""
+    import torch
+
+    from tpu_restir_torch import metrics
+    from tpu_restir_torch.render import intersect
+    vg, params = bench_step(dev, WIDTH, HEIGHT)
+    vg(params)                                   # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for i in range(3):
+        last = i == 2
+        if last:
+            torch.cuda.reset_peak_memory_stats()
+            _zero_launches()
+            intersect.QUERY_LOG = qlog = []
+        t0 = time.perf_counter()
+        loss, grads = vg(params)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    intersect.QUERY_LOG = None
+    launches = _launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    rays = sum(e["rays"] for e in qlog)
+    rpp = rays / float(WIDTH * HEIGHT)
+    dt = statistics.median(times)
+    finite = {k: bool(torch.isfinite(g).all()) for k, g in grads.items()}
+    print(f"[fwd+bwd] {WIDTH}x{HEIGHT}, value_and_grad w.r.t. "
+          f"{sorted(grads)}: {dt * 1e3:.2f} ms/step (median of "
+          f"{[round(t * 1e3, 2) for t in times]}), {rays / dt / 1e6:.2f} "
+          f"Mrays/s fwd+bwd, peak memory {peak_gib:.2f} GiB ({smi}); "
+          f"traced rays/pixel {rpp} (analytic "
+          f"{metrics.rays_per_pixel(bench_cfg(WIDTH, HEIGHT))}), {rays} "
+          f"rays; loss {float(loss):.6f}; gradients finite {finite}; "
+          f"launches {launches}", flush=True)
+    require(rays == 28 * WIDTH * HEIGHT,
+            f"traced {rays} rays, want 28/pixel = {28 * WIDTH * HEIGHT}")
+    require(all(finite.values()), f"non-finite gradients: {finite}")
+    require(math.isfinite(float(loss)), "non-finite loss")
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel of the path never launched: {launches}")
+    return launches
+
+
+def phase_grad_small():
+    """Value and gradients at 64x32 on cuda and on cpu (plain versions)."""
+    import torch
+    out = {}
+    for dev in ("cuda", "cpu"):
+        vg, params = bench_step(torch.device(dev), SMALL_W, SMALL_H)
+        loss, grads = vg(params)
+        out[dev] = (float(loss), {k: g.cpu() for k, g in grads.items()})
+    (lc, gc), (lp, gp) = out["cuda"], out["cpu"]
+    worst = 0.0
+    for k in gp:
+        # rtol 1e-3 of each entry plus 1e-3 of the field's largest entry:
+        # CUDA and CPU round sin, pow and exp differently, which can move
+        # a reservoir decision of a pixel or two
+        scale = float(gp[k].abs().max())
+        bad = (gc[k] - gp[k]).abs() - (1e-3 * gp[k].abs() + 1e-3 * scale)
+        worst = max(worst, float(bad.max()))
+    print(f"[grad cross-device] {SMALL_W}x{SMALL_H}, 1 frame: loss cuda "
+          f"{lc:.7f} cpu {lp:.7f}; gradients within rtol 1e-3 + 1e-3 x "
+          f"field max: {worst <= 0.0} (worst excess {worst:.3g})",
+          flush=True)
+    require(abs(lc - lp) <= 1e-4 * abs(lp), "cuda and cpu losses disagree")
+    require(worst <= 0.0, "cuda and cpu gradients disagree")
+
+
+def phase_optimize(dev):
+    """3 Adam steps of optimize_materials at 1080p from a perturbed white
+    albedo, against the render with the true albedo. Each step renders
+    with a fresh seed, so its loss carries that frame's noise; the loss is
+    compared at the target's own seed (common random numbers, 0 at the
+    true albedo) before and after the steps."""
+    import torch
+
+    from tpu_restir_torch import cornell_box
+    from tpu_restir_torch.diff.optimize import optimize_materials
+    from tpu_restir_torch.diff.params import apply_params, extract_params
+    from tpu_restir_torch.diff.render import loss_fn, render_with_params
+    from tpu_restir_torch.render import camera as cam_mod
+    cfg = bench_cfg(WIDTH, HEIGHT)
+    scene = cornell_box(dev)
+    cam = cam_mod.make_camera(cfg.camera, dev)
+    seeds = (5,)
+    with torch.no_grad():
+        target = render_with_params(extract_params(scene, ("diffuse",)),
+                                    scene, cam, cfg, seeds)
+        wrong = scene.materials.diffuse.clone()
+        wrong[0] = torch.tensor([0.3, 0.5, 0.4], device=dev)
+        scene_wrong = apply_params(scene, {"diffuse": wrong})
+        before = float(loss_fn({"diffuse": wrong}, scene, cam, cfg, seeds,
+                               target))
+    t0 = time.perf_counter()
+    params, hist = optimize_materials(scene_wrong, cam, cfg, target,
+                                      fields=("diffuse",), n_steps=3,
+                                      lr=0.06, seed0=seeds[0])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    with torch.no_grad():
+        after = float(loss_fn(params, scene, cam, cfg, seeds, target))
+    white = [round(v, 4) for v in params["diffuse"][0].tolist()]
+    print(f"[optimize] {WIDTH}x{HEIGHT}, 3 Adam steps (lr 0.06) in "
+          f"{dt:.2f} s: step losses {[round(h, 6) for h in hist]}; loss at "
+          f"the target's seed {before:.6f} -> {after:.6f}; white albedo "
+          f"(0.3, 0.5, 0.4) -> {white} (true 0.73)", flush=True)
+    require(all(math.isfinite(h) for h in hist + [after]), "non-finite loss")
+    require(after < before, f"the loss did not fall: {before} -> {after}")
+
+
+def _profile(label, fn, path):
+    """fn() under torch.profiler, after a warm-up and a timed run without
+    it: device time summed over the CUDA kernels only (operator rows
+    repeat their kernels' time), the share of K1-K4, and the busy share
+    against the wall time of the run without the profiler. Writes the
+    table of device time by kernel to path."""
     import torch
     from torch.autograd import DeviceType
 
-    from tpu_restir_torch import cornell_box
-    cfg = bench_cfg(WIDTH, HEIGHT)
-    scene = cornell_box(dev)
-    run_frames(scene, cfg, dev, 1)
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run_frames(scene, cfg, dev, 2)
+    fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        run_frames(scene, cfg, dev, 2)
+        fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -381,16 +562,31 @@ def phase_profile(dev, path):
                       if f"(anonymous namespace)::{tag}" in e.key) / 1e3
             for name, tag in (("closest_hit", "closest_kernel"),
                               ("any_hit", "any_kernel"),
-                              ("gather_local", "gather_kernel"))}
+                              ("gather_local", "gather_kernel"),
+                              ("scatter_local", "scatter_"))}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=80))
-    print(f"[profile] 2 frames: wall {wall_ms:.1f} ms without the profiler; "
-          f"device kernels {device_ms:.1f} ms in {sum(e.count for e in kernels)}"
-          f" launches, busy share {device_ms / wall_ms:.3f}; K1-K3 ms "
+    print(f"[profile] {label}: wall {wall_ms:.1f} ms without the profiler; "
+          f"device kernels {device_ms:.1f} ms in "
+          f"{sum(e.count for e in kernels)} launches, busy share "
+          f"{device_ms / wall_ms:.3f}; K1-K4 ms "
           f"{ {k: round(v, 3) for k, v in ours.items()} } "
           f"({sum(ours.values()) / device_ms:.3f} of device time); table in "
           f"{path}", flush=True)
+
+
+def phase_profile(dev, path):
+    """Two 1080p forward frames, and one 1080p fwd+bwd step (its table in
+    PATH with _fwd_bwd before the extension), under torch.profiler."""
+    from tpu_restir_torch import cornell_box
+    cfg = bench_cfg(WIDTH, HEIGHT)
+    scene = cornell_box(dev)
+    _profile("2 forward frames", lambda: run_frames(scene, cfg, dev, 2),
+             path)
+    vg, params = bench_step(dev, WIDTH, HEIGHT)
+    root, ext = os.path.splitext(path)
+    _profile("1 fwd+bwd step", lambda: vg(params), f"{root}_fwd_bwd{ext}")
 
 
 def main():
@@ -404,6 +600,9 @@ def main():
     small_mean, small_se = phase_small()
     launches = phase_main_path(dev, small_mean, small_se, smi)
     phase_passes(dev)
+    launches.update(scatter_local=phase_fwd_bwd(dev, smi)["scatter_local"])
+    phase_grad_small()
+    phase_optimize(dev)
     profile = [a.split("=", 1)[1] for a in sys.argv[1:]
                if a.startswith("--profile=")]
     if profile:
@@ -419,6 +618,8 @@ def main():
                     "tpu_restir/kernels/ray_tri.py:90"),
         "gather_local": ("tpu_restir_torch/csrc/local_gather.cu",
                          "tpu_restir/kernels/local_gather.py:50"),
+        "scatter_local": ("tpu_restir_torch/csrc/local_scatter.cu",
+                          "tpu_restir/kernels/local_gather.py:167"),
     }
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[k],

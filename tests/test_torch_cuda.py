@@ -8,10 +8,19 @@ are absent:
 Tolerances: hit ids, occlusion masks and gathered values are exact, and so
 are t, u, v: the ray/triangle kernels are built with --fmad=false and keep
 the plain version's operation order, and PyTorch runs each operation of
-the plain version as its own kernel, so both round every step alike.
+the plain version as its own kernel, so both round every step alike. K4
+(scatter_local) is exact on integer cotangents (exact in any summation
+order) and within 1e-5 on normal ones (its plain version, index_add_, sums
+in atomic order). Gradients on cuda and cpu: closest_hit's (go, gd) at
+rtol 1e-6 (the same ops on bit-identical hits); a whole 64x32 frame at
+rtol 1e-3 plus 1e-3 of each field's largest entry (CUDA and the CPU round
+sin, pow and exp differently, which can move a pixel's reservoir choice).
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -131,3 +140,131 @@ def test_small_frame_cuda_matches_cpu(cuda):
     pix = imgs[1].mean(-1)
     assert abs(float(imgs[0].mean() - imgs[1].mean())) \
         <= float(pix.std()) / pix.numel() ** 0.5
+
+
+def _disk_taps(dev, k, h, w, r, disk_r2, seed):
+    """Tap coordinates whose offsets lie in the window of r and disk_r2,
+    clamped to the image (clamping only shrinks an offset)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    dy = torch.randint(-r, r + 1, (k, h, w), generator=g, device=dev)
+    dx = torch.randint(-r, r + 1, (k, h, w), generator=g, device=dev)
+    out = dy * dy + dx * dx > disk_r2
+    dy, dx = torch.where(out, 0, dy), torch.where(out, 0, dx)
+    ys = torch.arange(h, device=dev)[None, :, None]
+    xs = torch.arange(w, device=dev)[None, None, :]
+    return ((ys + dy).clamp(0, h - 1).to(torch.int32).contiguous(),
+            (xs + dx).clamp(0, w - 1).to(torch.int32).contiguous())
+
+
+@pytest.mark.parametrize("h,w,c,k,r,disk_r2", [(7, 13, 5, 3, 3, None),
+                                               (32, 48, 24, 5, 5, 30),
+                                               (17, 33, 32, 2, 4, None),
+                                               (9, 200, 8, 1, 1, 1)])
+def test_scatter_local_kernel_matches_plain(cuda, h, w, c, k, r, disk_r2):
+    tys, txs = _disk_taps(cuda, k, h, w, r,
+                          2 * r * r if disk_r2 is None else disk_r2, h * c)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(w)
+    gi = torch.randint(-50, 51, (k, h, w, c), generator=g,
+                       device=cuda).to(torch.float32)
+    before = lg.LAUNCHES["scatter_local"]
+    got = lg.scatter_local(gi, tys, txs, r, disk_r2)
+    assert lg.LAUNCHES["scatter_local"] == before + 1
+    assert torch.equal(got, lg.scatter_local_ref(gi, tys, txs))
+    gn = torch.randn((k, h, w, c), generator=g, device=cuda)
+    torch.testing.assert_close(lg.scatter_local(gn, tys, txs, r, disk_r2),
+                               lg.scatter_local_ref(gn, tys, txs),
+                               rtol=0.0, atol=1e-5)
+
+
+def test_gather_local_backward_launches_k4(cuda):
+    tys, txs = _disk_taps(cuda, 5, 24, 40, 5, 30, 3)
+    payload = torch.randn((24, 40, 24), device=cuda, requires_grad=True)
+    before = lg.LAUNCHES["scatter_local"]
+    out = lg.gather_local(payload, tys, txs, 5, top=0, disk_r2=30)
+    gi = torch.randint(-9, 10, out.shape, device=cuda).to(torch.float32)
+    out.backward(gi)
+    assert lg.LAUNCHES["scatter_local"] == before + 1
+    assert torch.equal(payload.grad, lg.scatter_local_ref(gi, tys, txs))
+
+
+_TRAP = """
+import torch
+from tpu_restir_torch.kernels import local_gather as lg
+dev = torch.device("cuda")
+h, w, r = 16, 16, 2
+ys = torch.arange(h, device=dev)[None, :, None].expand(1, h, w)
+xs = torch.arange(w, device=dev)[None, None, :].expand(1, h, w)
+tys = ys.to(torch.int32).contiguous()
+txs = (xs + {dx}).clamp(0, w - 1).to(torch.int32).contiguous()
+g = torch.ones((1, h, w, 4), device=dev)
+lg.scatter_local(g, tys, txs, r)
+torch.cuda.synchronize()
+print("finished")
+"""
+
+
+@pytest.mark.parametrize("dx,traps", [(2, False), (3, True)])
+def test_scatter_local_traps_out_of_window_taps(cuda, dx, traps):
+    """A tap outside the window faults the device (in a subprocess: a trap
+    leaves its CUDA context unusable)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _TRAP.format(dx=dx)],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=300)
+    if traps:
+        assert proc.returncode != 0 and "finished" not in proc.stdout
+    else:
+        assert proc.returncode == 0 and "finished" in proc.stdout, \
+            proc.stderr
+
+
+def test_closest_hit_gradient_cuda_matches_cpu(cuda):
+    scene = {dev: cornell_box(dev) for dev in ("cuda", "cpu")}
+    o, d, tn, _tf = _rays(cuda, 20_000, 11)
+    tf = torch.full_like(tn, float("inf"))
+    g = torch.Generator(device=cuda)
+    g.manual_seed(5)
+    wts = torch.randn((3, o.shape[0]), generator=g, device=cuda)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        oo = o.to(dev).requires_grad_(True)
+        dd = d.to(dev).requires_grad_(True)
+        t, u, v, tri = ray_tri.closest_hit(scene[dev], oo, dd, tn.to(dev),
+                                           tf.to(dev))
+        w = wts.to(dev)
+        hit = tri >= 0
+        loss = (torch.where(hit, t, 0.0) * w[0] + u * w[1] + v * w[2]).sum()
+        grads[dev] = [x.cpu() for x in torch.autograd.grad(loss, (oo, dd))]
+    assert float(grads["cpu"][0].abs().max()) > 0.0
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_small_frame_gradients_cuda_match_cpu(cuda):
+    from tpu_restir_torch.diff.params import extract_params
+    from tpu_restir_torch.diff.render import make_value_and_grad
+    cfg = RenderConfig(
+        camera=CameraConfig(width=64, height=32, fov_y_deg=45.0,
+                            view_from=(0.0, -3.9, 1.0),
+                            view_at=(0.0, 0.0, 1.0), pixel_sampler="random"),
+        params=RenderParams(use_skybox=False),
+        restir=RestirParams(m_area=1, m_brdf=1, do_temporal_reuse=True,
+                            do_spatial_reuse=True, spatial_mis="pairwise"),
+        integrator="restir")
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        scene = cornell_box(dev)
+        vg = make_value_and_grad(scene, cam_mod.make_camera(cfg.camera, dev),
+                                 cfg, (1,), torch.zeros((32, 64, 3),
+                                                        device=dev))
+        loss, grads = vg(extract_params(scene))
+        out[dev.type] = (float(loss), {k: v.cpu() for k, v in grads.items()})
+    (lc, gc), (lp, gp) = out["cuda"], out["cpu"]
+    assert abs(lc - lp) <= 1e-4 * abs(lp)
+    for k in gp:
+        assert torch.isfinite(gc[k]).all()
+        scale = float(gp[k].abs().max())
+        assert bool(((gc[k] - gp[k]).abs()
+                     <= 1e-3 * gp[k].abs() + 1e-3 * scale).all()), k

@@ -1,5 +1,6 @@
-"""The port never imports JAX: a fresh interpreter imports tpu_restir_torch
-and renders a 16x16 frame on the CPU, and neither JAX nor the JAX package
+"""The port never imports JAX: a fresh interpreter imports tpu_restir_torch,
+renders a 16x16 frame on the CPU and takes its gradient w.r.t. the
+material table (`diff`), and neither JAX nor the JAX package
 (`tpu_restir`) may be loaded. It runs in a subprocess because the test
 session itself has JAX loaded (the root conftest configures it).
 
@@ -32,6 +33,14 @@ r = Renderer(cornell_box("cpu"), cfg, device="cpu")
 r.run(2)
 mean, var = r.stats()
 assert mean > 0.0 and var >= 0.0, (mean, var)
+import torch
+from tpu_restir_torch.diff import optimize, params, render
+from tpu_restir_torch.render.camera import make_camera
+scene = cornell_box("cpu")
+loss, grads = render.make_value_and_grad(
+    scene, make_camera(cfg.camera, "cpu"), cfg, (1,),
+    torch.zeros((16, 16, 3)))(params.extract_params(scene))
+assert torch.isfinite(loss) and len(grads) == 4
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "tpu_restir"))
 print("LOADED", bad)

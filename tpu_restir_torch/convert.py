@@ -3,8 +3,10 @@
 `from_tree` maps a numpy tree of a JAX pytree (the JAX object with its
 leaves passed through `np.asarray`, e.g. `jax.tree.map(np.asarray, x)`)
 to the port's dataclass on a device; `to_numpy` maps a port dataclass to
-nested dicts of numpy arrays. Leaves are read by field name, so this
-module never sees a JAX array or imports JAX.
+nested dicts of numpy arrays. `params_from_numpy` and `params_to_numpy`
+carry a parameter dict of the differentiable path (`diff.params`) both
+ways. Leaves are read by field name, so this module never sees a JAX
+array or imports JAX.
 """
 
 from __future__ import annotations
@@ -59,3 +61,16 @@ def to_numpy(obj):
     if isinstance(obj, torch.Tensor):
         return obj.detach().cpu().numpy()
     return obj
+
+
+def params_from_numpy(tree, device):
+    """{field: numpy array} -> {field: float32 leaf on device that
+    requires grad}, the form `diff.params.extract_params` returns."""
+    return {k: torch.tensor(np.asarray(v), dtype=torch.float32,
+                            device=device).requires_grad_(True)
+            for k, v in tree.items()}
+
+
+def params_to_numpy(params):
+    """{field: tensor} (parameters or gradients) -> {field: numpy array}."""
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}

@@ -9,6 +9,7 @@ edited source rebuilds. A failed build raises.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -72,3 +73,11 @@ def load(name: str, signatures: dict, extra_flags=()) -> ctypes.CDLL:
     _LIBS[name] = lib
     BUILD_INFO[name] = {"seconds": seconds, "ptxas": report, "path": str(out)}
     return lib
+
+
+def load_all(specs) -> list:
+    """Build and load several libraries at once, one nvcc each, all
+    started together. specs: (name, signatures, extra_flags) tuples."""
+    with concurrent.futures.ThreadPoolExecutor(max(len(specs), 1)) as ex:
+        futures = [ex.submit(load, *spec) for spec in specs]
+        return [f.result() for f in futures]

@@ -1,11 +1,16 @@
-"""Per-pixel tap gather: K3, the counterpart of
-`tpu_restir.kernels.local_gather.gather_local`.
+"""Per-pixel tap gather (K3) and its transpose (K4), the counterparts of
+`tpu_restir.kernels.local_gather.gather_local` and its custom VJP.
 
 ReSTIR's spatial reuse reads, for every pixel, K neighbour rows of the
 packed reuse payload, and temporal reuse reads one reprojected row. On
 CUDA tensors `gather_local` launches the kernel of `csrc/local_gather.cu`;
 on CPU tensors it takes the plain version `gather_local_ref` (advanced
-indexing). Forward only: the backward is kernel K4, not ported yet.
+indexing). Its backward routes as `_gather_local_bwd` of the JAX package:
+a same-shape payload (top == 0) takes `scatter_local`, the windowed
+transpose of `csrc/local_scatter.cu` on CUDA tensors and its plain version
+`scatter_local_ref` (index_add_) on CPU tensors; a halo-extended payload
+(top != 0, the sharded case) takes index_add_ on both, as the JAX package
+takes XLA's scatter-add there.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from tpu_restir_torch.kernels import build
 PAD = 8   # the JAX kernel's window bound on tap offsets
 
 # kernel launches (the plain version does not count)
-LAUNCHES = {"gather_local": 0}
+LAUNCHES = {"gather_local": 0, "scatter_local": 0}
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -27,6 +32,13 @@ _SIGNATURES = {
                      + [ctypes.c_longlong, ctypes.c_int, _P, _P],
                      ctypes.c_int),
     "local_gather_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+_SCATTER_SIGNATURES = {
+    "local_scatter_keys": ([_P] * 2 + [ctypes.c_int] * 5 + [_P] * 2,
+                           ctypes.c_int),
+    "local_scatter": ([_P] * 2 + [ctypes.c_int] * 7 + [_P] * 2,
+                      ctypes.c_int),
+    "local_scatter_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
 
@@ -63,9 +75,77 @@ def _gather_cuda(payload, tys, txs):
     return out
 
 
+def _index_add(g, tys, txs, eh, w):
+    """g (K, H, W, C) summed into (EH, W, C) rows tys * W + txs."""
+    c = g.shape[-1]
+    idx = (tys.long() * w + txs.long()).reshape(-1)
+    return g.new_zeros((eh * w, c)).index_add_(
+        0, idx, g.reshape(-1, c)).reshape(eh, w, c)
+
+
+def scatter_local_ref(g, tys, txs):
+    """Plain version of K4: the transpose of `gather_local_ref` for a
+    same-shape payload, g (K, H, W, C) -> (H, W, C) by index_add_ (on
+    CUDA, atomics in no fixed order)."""
+    return _index_add(g, tys, txs, tys.shape[1], tys.shape[2])
+
+
+def _scatter_cuda(g, tys, txs, r, disk_r2):
+    k, h, w, c = g.shape
+    for name, x, dtype in (("g", g, torch.float32),
+                           ("tys", tys, torch.int32),
+                           ("txs", txs, torch.int32)):
+        if x.device != g.device or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(
+                f"scatter_local: {name} must be a contiguous {dtype} tensor "
+                f"on {g.device}; got {x.dtype} on {x.device}")
+    out = torch.empty((h, w, c), dtype=torch.float32, device=g.device)
+    if out.numel() == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    keys = torch.empty((k, h, w), dtype=torch.int32, device=g.device)
+    vec4 = c % 4 == 0 and c <= 32 and g.data_ptr() % 16 == 0 \
+        and out.data_ptr() % 16 == 0
+    lib = build.load("local_scatter", _SCATTER_SIGNATURES)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = lib.local_scatter_keys(tys.data_ptr(), txs.data_ptr(), k, h, w,
+                                     r, disk_r2, keys.data_ptr(), stream)
+        if not err:
+            err = lib.local_scatter(g.data_ptr(), keys.data_ptr(), k, h, w, c,
+                                    r, disk_r2, int(vec4), out.data_ptr(),
+                                    stream)
+    if err:
+        raise RuntimeError("scatter_local: launch failed: "
+                           f"{lib.local_scatter_error_string(err).decode()}")
+    LAUNCHES["scatter_local"] += 1
+    return out
+
+
+def scatter_local(g, tys, txs, r: int, disk_r2=None):
+    """K4: g (K, H, W, C) float32 cotangents of a same-shape gather ->
+    payload cotangent (H, W, C), summed per destination pixel over the
+    offsets |dy|, |dx| <= r with dy^2 + dx^2 <= disk_r2 (default 2 r^2).
+    On CUDA a tap outside that window traps (a device fault)."""
+    if g.dim() != 4 or tys.shape != g.shape[:3] or txs.shape != tys.shape:
+        raise ValueError(
+            f"scatter_local: g (K, H, W, C) and taps (K, H, W) expected; got "
+            f"{tuple(g.shape)}, {tuple(tys.shape)}, {tuple(txs.shape)}")
+    disk_r2 = 2 * r * r if disk_r2 is None else int(disk_r2)
+    if g.device.type == "cuda":
+        return _scatter_cuda(g.contiguous(), tys, txs, r, disk_r2)
+    if g.device.type != "cpu":
+        raise ValueError(f"scatter_local: unsupported device {g.device}")
+    return scatter_local_ref(g, tys, txs)
+
+
 class _GatherLocal(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, payload, tys, txs):
+    def forward(ctx, payload, tys, txs, r, top, disk_r2):
+        ctx.save_for_backward(tys, txs)
+        ctx.r, ctx.top, ctx.disk_r2 = r, top, disk_r2
+        ctx.payload_shape = tuple(payload.shape)
         if payload.device.type == "cuda":
             return _gather_cuda(payload, tys, txs)
         if payload.device.type != "cpu":
@@ -75,10 +155,13 @@ class _GatherLocal(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "the backward of gather_local is kernel K4 "
-            "(tpu_restir/kernels/local_gather.py _scatter_kernel), not "
-            "ported yet (ROADMAP item 6)")
+        tys, txs = ctx.saved_tensors
+        eh, w, _c = ctx.payload_shape
+        if ctx.top == 0 and eh == tys.shape[1]:
+            gp = scatter_local(g, tys, txs, ctx.r, ctx.disk_r2)
+        else:
+            gp = _index_add(g, tys, txs, eh, w)
+        return gp, None, None, None, None, None
 
 
 def gather_local(payload, tys, txs, r: int, top: int = 0, disk_r2=None):
@@ -88,8 +171,9 @@ def gather_local(payload, tys, txs, r: int, top: int = 0, disk_r2=None):
     The signature is the JAX function's: there the taps satisfy
     |tys - (row + top)| <= r <= PAD, `top` is the payload row of output
     row 0, and `disk_r2` bounds the offsets for the backward. The CUDA
-    gather has no window, so these bound nothing here: any in-range
-    coordinate is served."""
+    gather has no window, so the forward serves any in-range coordinate;
+    the backward of a same-shape payload (K4) holds the taps to the window
+    of r and disk_r2, and traps on CUDA where one lies outside it."""
     if payload.dim() != 3 or tys.dim() != 3 or tys.shape != txs.shape:
         raise ValueError(
             f"gather_local: payload (EH, W, C) and taps (K, H, W) expected; "
@@ -100,4 +184,4 @@ def gather_local(payload, tys, txs, r: int, top: int = 0, disk_r2=None):
         raise ValueError(f"gather_local: r={r}, top={top} do not fit taps "
                          f"{tuple(tys.shape)} into payload "
                          f"{tuple(payload.shape)}")
-    return _GatherLocal.apply(payload, tys, txs)
+    return _GatherLocal.apply(payload, tys, txs, r, top, disk_r2)

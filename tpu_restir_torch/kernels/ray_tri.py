@@ -5,9 +5,14 @@ Every ray is tested against every triangle by the Woop affine test
 (`kernels/woop.py`). On CUDA tensors the wrappers launch the kernels of
 `csrc/ray_tri.cu`; on CPU tensors they take the plain PyTorch versions
 `closest_hit_ref` / `any_hit_ref` below, which compute the same test in
-the same operation order. Forward only: the analytic closest-hit
-derivative of the JAX package comes with the differentiable path
-(ROADMAP item 6).
+the same operation order.
+
+`closest_hit` is differentiable in the ray origins and directions by the
+analytic derivative of the winning triangle's Woop map
+(`tpu_restir.kernels.ray_tri._closest_bwd`, XLA code in the JAX package,
+plain PyTorch here); the winner and the geometry are treated as data.
+`any_hit` returns a detached bool, as the JAX package's `_any_bwd` gives
+zero cotangents.
 """
 
 from __future__ import annotations
@@ -96,8 +101,12 @@ _SIGNATURES = {
 }
 
 
+# K1/K2 keep the plain version's rounding: no contracted multiply-adds
+FLAGS = ("--fmad=false",)
+
+
 def _lib():
-    return build.load("ray_tri", _SIGNATURES, extra_flags=["--fmad=false"])
+    return build.load("ray_tri", _SIGNATURES, extra_flags=FLAGS)
 
 
 def _check_args(w, o, d, tnear, tfar):
@@ -137,10 +146,7 @@ def _on_cuda(o) -> bool:
     return o.device.type == "cuda"
 
 
-def closest_hit(scene, o, d, tnear, tfar):
-    """K1, closest-hit query -> (t, u, v, tri int32) flat tensors (tri = -1,
-    t = inf on a miss). o, d (N, 3); tnear, tfar (N,)."""
-    w = woop_rows(scene)
+def _closest_forward(w, o, d, tnear, tfar):
     if not _on_cuda(o):
         return closest_hit_ref(w, o, d, tnear, tfar)
     n = o.shape[0]
@@ -152,14 +158,70 @@ def closest_hit(scene, o, d, tnear, tfar):
     return t, u, v, tri
 
 
+def closest_hit_bwd(w, d, t, tri, gt, gu, gv):
+    """Analytic d(t, u, v)/d(o, d) for the detached winning triangle, as
+    `tpu_restir.kernels.ray_tri._closest_bwd`. With W the winner's Woop
+    rows (w_u, w_v, w_w | translations):
+      t = -(w_w.o + c_w) / (w_w.d),  u = (w_u.o + c_u) + t (w_u.d),
+    v likewise with w_v; so with L_x = w_x.d and
+    a = (gt + gu L_u + gv L_v) / L_w:
+      dL/do = gu w_u + gv w_v - a w_w,   dL/dd = t dL/do.
+    Misses (tri < 0 or t = inf) get zero. -> (go, gd), each (N, 3)."""
+    from tpu_restir_torch import mathx
+
+    rows = mathx.take_rows(w, torch.clamp(tri, min=0).long())   # (N, 12)
+    wu, wv, ww = rows[:, 0:3], rows[:, 4:7], rows[:, 8:11]
+    lw = mathx.dot(ww, d)
+    lu = mathx.dot(wu, d)
+    lv = mathx.dot(wv, d)
+    inv_lw = torch.where(torch.abs(lw) > 1e-18, 1.0 / lw, 0.0)
+    fin = torch.isfinite(t)
+    live = ((tri >= 0) & fin).to(torch.float32)
+    tt = torch.where(fin, t, 0.0)
+    a = (gu * lu + gv * lv + gt) * inv_lw * live
+    go = (gu * live)[:, None] * wu + (gv * live)[:, None] * wv \
+        - a[:, None] * ww
+    return go, tt[:, None] * go
+
+
+class _ClosestHit(torch.autograd.Function):
+    """K1 on CUDA, the plain version on the CPU, either computed with no
+    graph; the backward is `closest_hit_bwd`."""
+
+    @staticmethod
+    def forward(ctx, w, o, d, tnear, tfar):
+        t, u, v, tri = _closest_forward(w, o, d, tnear, tfar)
+        ctx.save_for_backward(w, d, t, tri)
+        ctx.mark_non_differentiable(tri)
+        return t, u, v, tri
+
+    @staticmethod
+    def backward(ctx, gt, gu, gv, _gtri):
+        w, d, t, tri = ctx.saved_tensors
+        go, gd = closest_hit_bwd(w, d, t, tri, gt, gu, gv)
+        return None, go, gd, None, None
+
+
+def closest_hit(scene, o, d, tnear, tfar):
+    """K1, closest-hit query -> (t, u, v, tri int32) flat tensors (tri = -1,
+    t = inf on a miss). o, d (N, 3); tnear, tfar (N,). Differentiable in
+    o and d (see `closest_hit_bwd`)."""
+    return _ClosestHit.apply(woop_rows(scene), o, d, tnear, tfar)
+
+
 def any_hit(scene, o, d, tnear, tfar):
-    """K2, occlusion query: True where any triangle blocks [tnear, tfar]."""
+    """K2, occlusion query: True where any triangle blocks [tnear, tfar].
+    Detached: the mask carries no gradient (the JAX package's `_any_bwd`
+    returns zero cotangents), and the plain version runs without a graph
+    even when the rays require grad."""
     w = woop_rows(scene)
     if not _on_cuda(o):
-        return any_hit_ref(w, o, d, tnear, tfar)
+        with torch.no_grad():
+            return any_hit_ref(w, o, d, tnear, tfar)
     occ = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
     if o.shape[0]:
-        _launch("any_hit", w, o, d, tnear, tfar, (occ,))
+        _launch("any_hit", w, o.detach(), d.detach(), tnear.detach(),
+                tfar.detach(), (occ,))
     return occ
 
 

@@ -7,6 +7,8 @@ XLA reduces a length-3 axis, so that the two packages round alike.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from tpu_restir_torch.mathx.color import aces, srgb_compress  # noqa: F401
@@ -15,10 +17,65 @@ from tpu_restir_torch.mathx.special import calc_i_m  # noqa: F401
 _EPS = 1e-30
 
 
+# tables of at most this many rows take the masked-sum backward
+_MASKSUM_MAX_ROWS = 128
+
+
+class _TakeRows(torch.autograd.Function):
+    """`table[idx]` with the backward of `tpu_restir.mathx._rows_bwd`.
+
+    Autograd's own backward of a row select is an `index_add_` of millions
+    of rows into a few (a material table has 4-7): on CUDA, atomics on a
+    few addresses, summed in no fixed order. For T <= 128 rows the table
+    cotangent is T masked row sums instead, deterministic on every device;
+    larger tables take `index_add_`."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        flat = idx.reshape(-1)
+        ctx.save_for_backward(flat)
+        ctx.rows = table.shape[0]
+        return table.index_select(0, flat).reshape(
+            idx.shape + table.shape[-1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        (ix,) = ctx.saved_tensors
+        gf = g.reshape(ix.shape[0], -1)
+        if ctx.rows <= _MASKSUM_MAX_ROWS:
+            gt = torch.stack([torch.where((ix == r)[:, None], gf, 0.0).sum(0)
+                              for r in range(ctx.rows)])
+        else:
+            gt = gf.new_zeros((ctx.rows, gf.shape[1])).index_add_(0, ix, gf)
+        return gt, None
+
+
 def take_rows(table, idx):
-    """Row select `table[idx]` -> idx.shape + (C,), exact (a gather)."""
-    return table.index_select(0, idx.reshape(-1)).reshape(
-        idx.shape + table.shape[-1:])
+    """Row select `table[idx]` -> idx.shape + (C,), exact (a gather);
+    differentiable in `table` (see `_TakeRows`)."""
+    return _TakeRows.apply(table, idx)
+
+
+@functools.lru_cache(maxsize=None)
+def _bound(c: float, dtype):
+    # a 0-dim CPU tensor: binary ops take it as a scalar on any device
+    return torch.tensor(c, dtype=dtype)
+
+
+def maximum(x, c: float):
+    """max(x, c) for a constant c with jnp.maximum's gradient: at a tie
+    x == c the cotangent splits 0.5/0.5 (torch.clamp passes all of it)."""
+    return torch.maximum(x, _bound(float(c), x.dtype))
+
+
+def minimum(x, c: float):
+    """min(x, c), splitting the cotangent at a tie as jnp.minimum does."""
+    return torch.minimum(x, _bound(float(c), x.dtype))
+
+
+def clip(x, lo: float, hi: float):
+    """jnp.clip(x, lo, hi) with its tie gradients (0.5 at either bound)."""
+    return minimum(maximum(x, lo), hi)
 
 
 def bary_interp(rows, w):
@@ -42,7 +99,7 @@ def dot1(a, b):
 
 def length(v):
     """|v|, 0 for the zero vector (the AD-safe form of the reference)."""
-    s = torch.clamp(dot(v, v), min=0.0)
+    s = maximum(dot(v, v), 0.0)
     pos = s > 0.0
     return torch.where(pos, torch.sqrt(torch.where(pos, s, 1.0)), 0.0)
 
@@ -63,7 +120,7 @@ def safe_pow(base, exp):
 
 def normalize(v):
     """Safe normalize: zero vectors map to zero (not NaN)."""
-    return v * torch.rsqrt(torch.clamp(dot1(v, v), min=_EPS))
+    return v * torch.rsqrt(maximum(dot1(v, v), _EPS))
 
 
 def cross(a, b):

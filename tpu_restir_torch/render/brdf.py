@@ -40,7 +40,7 @@ def _phong_eval(d_refl, s_refl, shininess, n, d, omega_i, inv_i_m=None):
     if inv_i_m is None:
         inv_i_m = 1.0 / calc_i_m(mathx.dot(-d, n), shininess)
     lobe = mathx.safe_pow(
-        torch.clamp(mathx.dot(omega_i, omega_r), min=0.0), shininess)
+        mathx.maximum(mathx.dot(omega_i, omega_r), 0.0), shininess)
     return d_refl * _INV_PI + s_refl * (inv_i_m * lobe)[..., None]
 
 
@@ -49,7 +49,7 @@ def _phong_pdf(d_refl, s_refl, shininess, n, d, omega_i):
     (pg/MaterialPhong.cpp:94-119)."""
     max_d = mathx.max_component(d_refl)
     max_s = mathx.max_component(s_refl)
-    pdf_factor = max_d / torch.clamp(max_d + max_s, min=_EPS)
+    pdf_factor = max_d / mathx.maximum(max_d + max_s, _EPS)
     omega_r = mathx.normalize(mathx.reflect(d, n))
     pdf = sampling.pdf_cosine_hemisphere(n, omega_i) * pdf_factor
     return pdf + sampling.pdf_cosine_lobe(omega_i, omega_r, shininess) \
@@ -61,7 +61,7 @@ def _phong_sample_u(u5, d_refl, s_refl, shininess, n, d, inv_i_m=None):
     u5: (..., 5) uniforms [lobe pick, diff r1, diff r2, spec r1, spec r2]."""
     max_d = mathx.max_component(d_refl)
     max_s = mathx.max_component(s_refl)
-    total = torch.clamp(max_d + max_s, min=_EPS)
+    total = mathx.maximum(max_d + max_s, _EPS)
     diffuse_branch = u5[..., 0] * total < max_d
 
     omega_r = mathx.normalize(mathx.reflect(d, n))
@@ -73,7 +73,7 @@ def _phong_sample_u(u5, d_refl, s_refl, shininess, n, d, inv_i_m=None):
     if inv_i_m is None:
         inv_i_m = 1.0 / calc_i_m(mathx.dot(-d, n), shininess)
     lobe = mathx.safe_pow(
-        torch.clamp(mathx.dot(omega_i, omega_r), min=0.0), shininess)
+        mathx.maximum(mathx.dot(omega_i, omega_r), 0.0), shininess)
     f_r = torch.where(diffuse_branch[..., None], d_refl * _INV_PI,
                       s_refl * (inv_i_m * lobe)[..., None])
 

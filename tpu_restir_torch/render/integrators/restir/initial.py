@@ -32,13 +32,13 @@ def _mis_m_area(pdf_area, pdf_brdf, m_area, m_brdf):
     (pg/ReSTIRIntegrator.h:62-67)."""
     denom = m_area * pdf_area + m_brdf * pdf_brdf
     return torch.where(denom > 0.0,
-                       pdf_area / torch.clamp(denom, min=1e-30), 0.0)
+                       pdf_area / mathx.maximum(denom, 1e-30), 0.0)
 
 
 def _mis_m_brdf(pdf_brdf, pdf_area, m_area, m_brdf):
     denom = m_area * pdf_area + m_brdf * pdf_brdf
     return torch.where(denom > 0.0,
-                       pdf_brdf / torch.clamp(denom, min=1e-30), 0.0)
+                       pdf_brdf / mathx.maximum(denom, 1e-30), 0.0)
 
 
 def _area_candidate(u3, scene, gb, cfg):
@@ -50,14 +50,14 @@ def _area_candidate(u3, scene, gb, cfg):
     seg = ls["point"] - gb.pos
     r_sqr = mathx.dot(seg, seg)
     wi = mathx.normalize(seg)
-    cos_y = torch.clamp(mathx.dot(-wi, ls["normal"]), min=0.0)
+    cos_y = mathx.maximum(mathx.dot(-wi, ls["normal"]), 0.0)
     area_factor = torch.where(r_sqr > 0.0,
-                              cos_y / torch.clamp(r_sqr, min=1e-20), 0.0)
+                              cos_y / mathx.maximum(r_sqr, 1e-20), 0.0)
     pdf_if_brdf_area = brdf.gbuf_eval_pdf(gb, wi) * area_factor
     cand = rsv.LightSample(point=ls["point"], normal=ls["normal"],
                            l_i=ls["l_i"],
                            valid=torch.any(ls["l_i"] > 0.0, dim=-1))
-    w_c = 1.0 / torch.clamp(pdf_area, min=1e-30)
+    w_c = 1.0 / mathx.maximum(pdf_area, 1e-30)
     mis = _mis_m_area(pdf_area, pdf_if_brdf_area, r.m_area, r.m_brdf)
     return cand, w_c, mis
 
@@ -111,9 +111,9 @@ def _brdf_candidate(u5, scene, gb, cfg):
     seg = hi.point - gb.pos
     r_sqr = mathx.dot(seg, seg)
     wi = mathx.normalize(seg)
-    cos_y = torch.clamp(mathx.dot(-wi, hi.normal), min=0.0)
+    cos_y = mathx.maximum(mathx.dot(-wi, hi.normal), 0.0)
     area_factor = torch.where(r_sqr > 0.0,
-                              cos_y / torch.clamp(r_sqr, min=1e-20), 0.0)
+                              cos_y / mathx.maximum(r_sqr, 1e-20), 0.0)
     pdf_brdf_area = s.pdf * area_factor
     pdf_area = lights_mod.pdf_for_any_light_point(scene, gb.depth.shape)
 
@@ -123,7 +123,7 @@ def _brdf_candidate(u5, scene, gb, cfg):
                            l_i=torch.where(e3, m2.emission, 0.0),
                            valid=emissive)
     w_c = torch.where(emissive & (pdf_brdf_area > 0.0),
-                      1.0 / torch.clamp(pdf_brdf_area, min=1e-30), 0.0)
+                      1.0 / mathx.maximum(pdf_brdf_area, 1e-30), 0.0)
     mis = torch.where(emissive,
                       _mis_m_brdf(pdf_brdf_area, pdf_area, r.m_area,
                                   r.m_brdf), 0.0)
@@ -171,7 +171,7 @@ def initial_pass(frame_seed, scene, gb, cfg, ys, xs) -> rsv.Reservoir:
     p_hat_best = evaluate_p_hat(res.sample, scene, gb, test_vis, p,
                                 cfg.intersector)
     res = dataclasses.replace(res, w=torch.where(
-        p_hat_best > 0.0, res.w_sum / torch.clamp(p_hat_best, min=1e-30),
+        p_hat_best > 0.0, res.w_sum / mathx.maximum(p_hat_best, 1e-30),
         0.0))
     res = rsv.cap_confidence(res, r.confidence_cap)
     # emissive pixels get an empty reservoir (pg/ReSTIRIntegrator.cpp:241-244)

@@ -19,10 +19,10 @@ def evaluate_f(sample, scene, gb, test_visibility, params, intersector):
     seg = sample.point - gb.pos
     r_sqr = mathx.dot(seg, seg)
     wi = mathx.normalize(seg)
-    cos_i = torch.clamp(mathx.dot(wi, gb.normal), min=0.0)
+    cos_i = mathx.maximum(mathx.dot(wi, gb.normal), 0.0)
     cos_y = torch.abs(mathx.dot(-wi, sample.normal))
     g = torch.where(r_sqr > 0.0,
-                    cos_i * cos_y / torch.clamp(r_sqr, min=1e-20), 0.0)
+                    cos_i * cos_y / mathx.maximum(r_sqr, 1e-20), 0.0)
     f = sample.l_i * brdf.gbuf_eval_brdf(gb, wi) * g[..., None]
     if test_visibility:
         # pixels whose f is already 0 get a zero-length segment, which

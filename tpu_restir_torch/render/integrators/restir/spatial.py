@@ -31,7 +31,7 @@ from tpu_restir_torch.render.sampling import disk_int_from_uniform
 
 
 def _safe_div(num, denom):
-    return torch.where(denom > 0.0, num / torch.clamp(denom, min=1e-30),
+    return torch.where(denom > 0.0, num / mathx.maximum(denom, 1e-30),
                        0.0)
 
 
@@ -84,7 +84,7 @@ def spatial_pass(frame_seed, pass_idx: int, scene, gb, res_in, cfg, ys,
                 >= r.min_normal_similarity
             depth_ratio = torch.where(
                 gbs[i].depth > 0.0,
-                gb.depth / torch.clamp(gbs[i].depth, min=1e-20), 0.0)
+                gb.depth / mathx.maximum(gbs[i].depth, 1e-20), 0.0)
             half = r.max_depth_difference * 0.5
             ok &= (depth_ratio >= 1.0 - half) & (depth_ratio <= 1.0 + half)
         valid.append(ok)
@@ -122,7 +122,7 @@ def spatial_pass(frame_seed, pass_idx: int, scene, gb, res_in, cfg, ys,
     elif r.spatial_mis == SpatialMis.PAIRWISE:
         # O(M) pairwise against the canonical (centre) candidate
         # (pg/ReSTIRIntegrator.cpp:427-467)
-        safe_conf_sum = torch.clamp(conf_sum, min=1e-30)
+        safe_conf_sum = mathx.maximum(conf_sum, 1e-30)
         p_hat_c = p_center[0] * conf[0]
         acc = torch.zeros(shape, device=dev)
         for j in range(1, n_cand):
@@ -131,7 +131,7 @@ def spatial_pass(frame_seed, pass_idx: int, scene, gb, res_in, cfg, ys,
             acc = acc + torch.where(
                 (denom > 0.0) & valid[j],
                 (conf[j] / safe_conf_sum)
-                * (p_hat_c / torch.clamp(denom, min=1e-30)), 0.0)
+                * (p_hat_c / mathx.maximum(denom, 1e-30)), 0.0)
         mis = [torch.where(conf_sum > 0.0, conf[0] / safe_conf_sum + acc,
                            0.0)]
         # p_hat of sample i at the canonical surface is p_center[i]
@@ -142,7 +142,7 @@ def spatial_pass(frame_seed, pass_idx: int, scene, gb, res_in, cfg, ys,
             mis.append(torch.where(
                 (denom > 0.0) & (conf_sum > 0.0),
                 (conf[i] / safe_conf_sum)
-                * (p_hat_i / torch.clamp(denom, min=1e-30)), 0.0))
+                * (p_hat_i / mathx.maximum(denom, 1e-30)), 0.0))
     else:
         mis = [rcp_m] * n_cand
 
@@ -166,8 +166,8 @@ def spatial_pass(frame_seed, pass_idx: int, scene, gb, res_in, cfg, ys,
                                            cfg.intersector)
             z = z + torch.where(valid[i] & ~occ, 1.0, 0.0)
         corr = torch.where((z > 0.0) & (m_count > 0.0),
-                           (1.0 / torch.clamp(z, min=1e-30))
-                           / torch.clamp(rcp_m, min=1e-30), 1.0)
+                           (1.0 / mathx.maximum(z, 1e-30))
+                           / mathx.maximum(rcp_m, 1e-30), 1.0)
         w_final = corr * base_w
     elif r.spatial_mis == SpatialMis.CONSTANT_DEBIAS_CONTRIB:
         nom = torch.zeros(shape, device=dev)
@@ -177,7 +177,7 @@ def spatial_pass(frame_seed, pass_idx: int, scene, gb, res_in, cfg, ys,
             denom = denom + p_sel_i * conf[i]
             nom = torch.where(sel_idx == i, p_sel_i * conf[i], nom)
         corr = torch.where(m_count > 0.0, _safe_div(nom, denom)
-                           / torch.clamp(rcp_m, min=1e-30), 0.0)
+                           / mathx.maximum(rcp_m, 1e-30), 0.0)
         w_final = corr * base_w
     else:
         w_final = base_w

@@ -32,7 +32,10 @@ def _reproject_tap(payload, tys, txs):
     The JAX function picks, under lax.cond (temporal.py:53-56), between
     its windowed Pallas gather (every offset within PAD) and an XLA row
     gather; both return payload[tys, txs]. The CUDA gather (K3) has no
-    window bound, so it serves every tap, of any length, unconditionally."""
+    window bound, so it serves every tap, of any length, unconditionally.
+    Its payloads carry no gradient (the previous G-buffer is detached
+    state; positions come from camera rays), so K4's window never binds
+    these taps."""
     return lg.gather_local(payload, tys[None], txs[None], lg.PAD)[0]
 
 
@@ -55,8 +58,8 @@ def temporal_pass(frame_seed, scene, gb, gb_prev, res_cur, res_prev, cfg,
 
     cur_depth = mathx.length(gb.pos - gb.cam_pos)
     prev_depth = mathx.length(prev_elem.pos - gb_prev.cam_pos)
-    depth_ok = torch.minimum(cur_depth, prev_depth) / torch.clamp(
-        torch.maximum(cur_depth, prev_depth), min=1e-20) >= 0.9
+    depth_ok = torch.minimum(cur_depth, prev_depth) / mathx.maximum(
+        torch.maximum(cur_depth, prev_depth), 1e-20) >= 0.9
 
     # forward: last frame's surface at this pixel into the current camera
     fx, fy, valid_f = cam_mod.project_to_screen(
@@ -67,8 +70,8 @@ def temporal_pass(frame_seed, scene, gb, gb_prev, res_cur, res_prev, cfg,
     fw_elem_pos = _reproject_tap(gb.pos, fyc, fxc)
     cur_depth_p = mathx.length(gb_prev.pos - gb_prev.cam_pos)
     prev_depth_p = mathx.length(fw_elem_pos - gb.cam_pos)
-    depth_ok_p = torch.minimum(cur_depth_p, prev_depth_p) / torch.clamp(
-        torch.maximum(cur_depth_p, prev_depth_p), min=1e-20) >= 0.9
+    depth_ok_p = torch.minimum(cur_depth_p, prev_depth_p) / mathx.maximum(
+        torch.maximum(cur_depth_p, prev_depth_p), 1e-20) >= 0.9
 
     accept = rel_b & depth_ok & rel_f & depth_ok_p
 
@@ -82,7 +85,7 @@ def temporal_pass(frame_seed, scene, gb, gb_prev, res_cur, res_prev, cfg,
     def balance(p_num, conf_num, p_c, p_p):
         denom = p_c * conf_c + p_p * conf_p
         return torch.where(denom > 0.0, p_num * conf_num
-                           / torch.clamp(denom, min=1e-30), 0.0)
+                           / mathx.maximum(denom, 1e-30), 0.0)
 
     p_cur_cs = ph(cur_s, gb)          # current sample at current surface
     p_prev_cs = ph(cur_s, prev_elem)  # current sample at previous surface
@@ -104,7 +107,7 @@ def temporal_pass(frame_seed, scene, gb, gb_prev, res_cur, res_prev, cfg,
     final_p_hat = ph(out.sample, gb)
     out = dataclasses.replace(out, w=torch.where(
         final_p_hat > 0.0,
-        out.w_sum / torch.clamp(final_p_hat, min=1e-30), 0.0))
+        out.w_sum / mathx.maximum(final_p_hat, 1e-30), 0.0))
 
     result = rsv.select(accept, out, res_cur)
     if not return_reasons:

@@ -99,7 +99,7 @@ def cosine_hemisphere_from_uniforms(u, normal):
 
 def pdf_cosine_hemisphere(normal, omega_i):
     """max(n.wi, 0)/pi (CosineWeightedDistribution::getPdf)."""
-    return torch.clamp(mathx.dot(normal, omega_i), min=0.0) / math.pi
+    return mathx.maximum(mathx.dot(normal, omega_i), 0.0) / math.pi
 
 
 def cosine_lobe_from_uniforms(u, omega_r, gamma):
@@ -108,7 +108,7 @@ def cosine_lobe_from_uniforms(u, omega_r, gamma):
     r1, r2 = u[..., 0], u[..., 1]
     gamma = torch.as_tensor(gamma, dtype=torch.float32,
                             device=omega_r.device).expand(omega_r.shape[:-1])
-    z = torch.pow(torch.clamp(r2, min=1e-30), 1.0 / (gamma + 1.0))
+    z = torch.pow(mathx.maximum(r2, 1e-30), 1.0 / (gamma + 1.0))
     sq = mathx.safe_sqrt(1.0 - z * z)
     local = torch.stack([torch.cos(_TWO_PI * r1) * sq,
                          torch.sin(_TWO_PI * r1) * sq, z], dim=-1)
@@ -119,5 +119,5 @@ def cosine_lobe_from_uniforms(u, omega_r, gamma):
 
 def pdf_cosine_lobe(omega_i, omega_r, gamma):
     """(gamma+1)/(2 pi) * max(0, wi.wr)^gamma (CosineLobeDistribution::getPdf)."""
-    c = torch.clamp(mathx.dot(omega_i, omega_r), min=0.0)
+    c = mathx.maximum(mathx.dot(omega_i, omega_r), 0.0)
     return (gamma + 1.0) / _TWO_PI * mathx.safe_pow(c, gamma)

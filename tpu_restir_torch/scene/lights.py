@@ -67,7 +67,7 @@ def light_point_from_uniforms(u3, scene):
     packed = torch.cat([
         scene.tri_v[li].reshape(nl, 9),
         scene.vtx_normal[li].reshape(nl, 9),
-        scene.materials.emission[scene.tri_mat[li].long()],
+        mathx.take_rows(scene.materials.emission, scene.tri_mat[li].long()),
         li.to(torch.float32)[:, None]], dim=1)            # (L, 22)
     r = mathx.take_rows(packed, k)
     point = mathx.bary_interp(r[..., 0:9], w)
