@@ -6,10 +6,15 @@
 Phases; any failure raises, so the exit code is non-zero and the final
 line is not printed:
   1. device: require CUDA; print the card and its power limit; TF32 off.
-  2. build the CUDA kernels from csrc/ (nvcc, sm_90a) and print the time.
+  2. build the CUDA kernels from csrc/ (four nvcc, sm_90a, started
+     together) and the host BVH builder (g++); print times and registers.
   3. each kernel against its plain PyTorch version on the card, at the
      main path's shapes: exact ids, masks and copies; float error printed
      with the tolerance stated; kernel and plain times (CUDA events).
+     K5/K6 run on whole 1080p queries of a terrain100k and a lights1k
+     bench frame and their plain versions on 96 packets spread over the
+     frame; factor 4 (superclusters) must equal factor 1 on
+     terrain_scene(20_000).
   4. the main path: Renderer on the Cornell box at 1920x1080, the bench
      config (m_area=1, m_brdf=1, temporal, 5-neighbour pairwise spatial),
      8 frames; the traced rays per pixel must equal the analytic 28, every
@@ -26,11 +31,19 @@ line is not printed:
   7. value and gradients at 64x32 on cuda and on cpu, allclose.
   8. 3 Adam steps of optimize_materials at 1080p from a perturbed white
      albedo against the render with the true one: the loss must fall.
-  9. one JSON line of kernel results, then {"ok": true, "device": ...}.
+  9. the clustered scenes, terrain100k (terrain_scene(100_000), the JAX
+     bench's terrain camera) and lights1k (many_lights_scene(1000)): phase
+     5 for each, then the main path at 1920x1080 for 4 frames after a
+     warm-up, every scene query through K5/K6 (one launch per chunk of
+     every logged query), K1 on the emissive subset; then phase 7 on
+     terrain100k.
+ 10. one JSON line of kernel results (K1-K6; K5/K6 launches are those of
+     the two clustered paths), then {"ok": true, "device": ...}.
 
---profile=PATH also profiles two 1080p frames and one 1080p fwd+bwd step
-(torch.profiler) and writes the tables of device time by kernel to PATH
-and to PATH with _fwd_bwd before its extension.
+--profile=PATH also profiles two 1080p frames, one 1080p fwd+bwd step
+and one 1080p frame of each clustered scene (torch.profiler) and writes
+the tables of device time by kernel to PATH and to PATH with _fwd_bwd,
+_terrain100k and _lights1k before its extension.
 
 The script imports nothing of JAX or of the JAX package (tpu_restir),
 and checks so at its end.
@@ -48,6 +61,13 @@ import time
 WIDTH, HEIGHT = 1920, 1080
 N_FRAMES = 8
 SMALL_W, SMALL_H, SMALL_FRAMES = 64, 32, 4
+LARGE_FRAMES = 4          # timed frames per clustered scene, after 1 warm-up
+SAMPLE_PACKETS = 96       # packets of a 1080p query held against K5/K6's plain
+                          # versions (all 8100 would take the plain minutes)
+# (view_from, view_at): the Cornell camera, and the JAX bench's terrain
+# camera (bench.py:141-145)
+CORNELL_VIEW = ((0.0, -3.9, 1.0), (0.0, 0.0, 1.0))
+TERRAIN_VIEW = ((0.0, -7.0, 4.0), (0.0, 0.0, 0.5))
 
 
 def require(cond, msg):
@@ -55,13 +75,13 @@ def require(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def bench_cfg(width, height):
+def bench_cfg(width, height, view=CORNELL_VIEW):
     from tpu_restir_torch.config import (CameraConfig, RenderConfig,
                                          RenderParams, RestirParams)
     return RenderConfig(
         camera=CameraConfig(width=width, height=height, fov_y_deg=45.0,
-                            view_from=(0.0, -3.9, 1.0),
-                            view_at=(0.0, 0.0, 1.0), pixel_sampler="random"),
+                            view_from=view[0], view_at=view[1],
+                            pixel_sampler="random"),
         params=RenderParams(use_skybox=False),
         restir=RestirParams(m_area=1, m_brdf=1, do_temporal_reuse=True,
                             do_spatial_reuse=True, spatial_neighbor_count=5,
@@ -108,12 +128,22 @@ def phase_device():
 
 
 def phase_build():
-    from tpu_restir_torch.kernels import build, local_gather, ray_tri
+    """The four CUDA libraries (one nvcc each, all started together) and
+    the host BVH builder of the clustered scenes (g++)."""
+    from tpu_restir_torch.accel import bvh
+    from tpu_restir_torch.kernels import build, cluster_trace, local_gather
+    from tpu_restir_torch.kernels import ray_tri
     t0 = time.perf_counter()
     build.load_all([("ray_tri", ray_tri._SIGNATURES, ray_tri.FLAGS),
                     ("local_gather", local_gather._SIGNATURES, ()),
-                    ("local_scatter", local_gather._SCATTER_SIGNATURES, ())])
+                    ("local_scatter", local_gather._SCATTER_SIGNATURES, ()),
+                    ("cluster_trace", cluster_trace._SIGNATURES,
+                     cluster_trace.FLAGS)])
     total = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    bvh._lib()
+    print(f"[build] BVH builder (g++ {' '.join(bvh.FLAGS)}): "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
     for name, info in build.BUILD_INFO.items():
         regs = [ln.strip() for ln in info["ptxas"].splitlines()
                 if "registers" in ln]
@@ -277,6 +307,165 @@ def phase_kernels(dev):
     return results
 
 
+_SCENES = {}
+
+
+def large_scene(label, dev):
+    """terrain100k (terrain_scene(100_000), the bench camera of bench.py)
+    or lights1k (many_lights_scene(1000), the Cornell camera), built once
+    per device -> (scene, camera view)."""
+    import torch
+
+    from tpu_restir_torch.scene.cornell import many_lights_scene
+    from tpu_restir_torch.scene.procedural import terrain_scene
+    key = (label, str(torch.device(dev)))
+    if key not in _SCENES:
+        build, view = {
+            "terrain100k": (lambda d: terrain_scene(d, 100_000),
+                            TERRAIN_VIEW),
+            "lights1k": (lambda d: many_lights_scene(d, 1000),
+                         CORNELL_VIEW)}[label]
+        t0 = time.perf_counter()
+        scene = build(torch.device(dev))
+        if key[1] != "cpu":
+            print(f"[scene] {label}: {scene.num_tris} triangles, "
+                  f"{scene.cluster_tris.shape[0]} clusters of "
+                  f"{scene.cluster_size}, {scene.lights.count} lights; built "
+                  f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        _SCENES[key] = (scene, view)
+    return _SCENES[key]
+
+
+def capture_packets(scene, cfg, dev):
+    """The packed rays of two queries of one bench frame: the first
+    closest-hit query (the G-buffer's primary rays) and the first any-hit
+    query of a whole frame (the area candidate's shadow rays)."""
+    from tpu_restir_torch.kernels import cluster_trace as ct
+    n = cfg.camera.width * cfg.camera.height
+    got = {}
+    orig = {"closest": ct.closest_packets, "any": ct.any_packets}
+
+    def recorder(kind):
+        def call(ctris, cmin, cmax, pk):
+            if kind not in got and pk.n_rays == n:
+                got[kind] = pk
+            return orig[kind](ctris, cmin, cmax, pk)
+        return call
+
+    ct.closest_packets, ct.any_packets = recorder("closest"), recorder("any")
+    try:
+        run_frames(scene, cfg, dev, 1)
+    finally:
+        ct.closest_packets, ct.any_packets = orig["closest"], orig["any"]
+    require(set(got) == {"closest", "any"},
+            f"a 1080p frame made no full-frame query of kind "
+            f"{ {'closest', 'any'} - set(got)}")
+    return got["closest"], got["any"]
+
+
+def phase_ptrace_kernels(dev, results):
+    """K5/K6 against their plain versions on the card: the kernels on the
+    whole of 1080p queries of a bench frame, the plain versions on
+    SAMPLE_PACKETS packets spread over the frame. terrain100k: the G-buffer
+    query (K5), the area candidate's shadow query (K6; few occluded, the
+    sun stands above the terrain) and the G-buffer rays as an occlusion
+    query (K6, cull mode 5, every hit occluded); lights1k: its G-buffer and
+    shadow queries. Then factor 4 against factor 1 on
+    terrain_scene(20_000). Adds the JSON entries (terrain100k's first
+    check of each kernel) to results."""
+    import torch
+
+    from tpu_restir_torch.kernels import cluster_trace as ct
+    from tpu_restir_torch.scene.procedural import terrain_scene
+    checks = []
+    for name in ("terrain100k", "lights1k"):
+        scene, view = large_scene(name, dev)
+        closest_pk, any_pk = capture_packets(
+            scene, bench_cfg(WIDTH, HEIGHT, view), dev)
+        checks += [(name, scene, "trace_closest", "G-buffer primary rays",
+                    closest_pk),
+                   (name, scene, "trace_any", "area-candidate shadow rays",
+                    any_pk)]
+        if name == "terrain100k":
+            checks.append((name, scene, "trace_any",
+                           "G-buffer rays as occlusion rays", closest_pk))
+    for name, scene, kind, label, pk in checks:
+        ctris, cmin, cmax = scene.cluster_tris, scene.cluster_min, \
+            scene.cluster_max
+        rp = pk.count.shape[0]
+        idx = torch.linspace(0, rp - 1, SAMPLE_PACKETS,
+                             device=dev).round().long().unique()
+        rows = (idx[:, None] * ct.P
+                + torch.arange(ct.P, device=dev)[None]).reshape(-1)
+        sample = pk.take(idx)
+        closest = kind == "trace_closest"
+        kernel = ct.closest_packets if closest else ct.any_packets
+        plain = ct.trace_closest_ref if closest else ct.trace_any_ref
+        got = kernel(ctris, cmin, cmax, pk)
+        want = plain(ctris, sample)
+        torch.cuda.synchronize()
+        if closest:
+            got = [x[rows] for x in got]
+            mis = int((got[3] != want[3]).sum())
+            hit = want[3] >= 0
+            err = max(float((g[hit] - w[hit]).abs().max()) if hit.any()
+                      else 0.0 for g, w in zip(got[:3], want[:3]))
+            what = f"tri mismatches {mis}; hits {int(hit.sum())}; max " \
+                f"|t,u,v err| {err:.3g} (tolerance 1e-6; both keep the " \
+                f"test's operation order without contractions, so 0 is " \
+                f"expected)"
+        else:
+            got = got[rows]
+            mis = int((got != want).sum())
+            err = float((got.float() - want.float()).abs().max())
+            what = f"mask mismatches {mis}; occluded {int(want.sum())}"
+        ms = cuda_ms(lambda: kernel(ctris, cmin, cmax, pk), 5)
+        plain_ms = cuda_ms(lambda: plain(ctris, sample), 1)
+        dead = int((pk.tfar[:pk.n_rays] < pk.tnear[:pk.n_rays]).sum())
+        mode = ct._skip_for("closest" if closest else "any",
+                            ctris.shape[0], pk.factor)
+        print(f"[K5/K6 {kind}] {name} {label}: {pk.n_rays} rays in "
+              f"{rp} packets, {dead} dead after the scene-box clamp; C="
+              f"{ctris.shape[0]} clusters, mean shortlist "
+              f"{float(pk.count.float().mean()):.1f}, cull mode {mode}; "
+              f"{idx.numel()} sampled packets ({rows.numel()} rays): {what} "
+              f"(must be 0 mismatches); kernel {ms:.3f} ms on the whole "
+              f"query, plain {plain_ms:.3f} ms on the sample", flush=True)
+        require(mis == 0, f"{kind} {name} {label}: kernel and plain version "
+                f"differ on {mis} sampled rays")
+        require(err <= 1e-6, f"{kind} {name} {label}: t/u/v differ by {err}")
+        e = results.setdefault(kind, {"max_abs_err": 0.0, "ms": ms,
+                                      "plain_ms": plain_ms})
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+
+    # superclusters: factor 4 forced against factor 1 (closest-hit cull
+    # mode 5 at factor > 1); random rays, so no exact t ties between
+    # clusters, whose order the grouping may change
+    small = terrain_scene(dev, 20_000)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(35)
+    n = 1 << 18
+    o = (torch.rand((n, 3), generator=gen, device=dev) - 0.5) * 10.0
+    d = torch.randn((n, 3), generator=gen, device=dev)
+    d = d / d.norm(dim=-1, keepdim=True)
+    tn = torch.full((n,), 1e-3, device=dev)
+    args = (small.cluster_tris, small.cluster_min, small.cluster_max, o, d,
+            tn)
+    c1 = ct.trace_closest(*args, torch.full((n,), 1e4, device=dev), factor=1)
+    c4 = ct.trace_closest(*args, torch.full((n,), 1e4, device=dev), factor=4)
+    a1 = ct.trace_any(*args, torch.full((n,), 3.0, device=dev), factor=1)
+    a4 = ct.trace_any(*args, torch.full((n,), 3.0, device=dev), factor=4)
+    same_c = all(torch.equal(x, y) for x, y in zip(c1, c4))
+    same_a = bool(torch.equal(a1, a4))
+    c = small.cluster_tris.shape[0]
+    print(f"[K5/K6 factor] terrain_scene(20_000), C={c}: {n} random rays, "
+          f"factor 4 (cull mode {ct._skip_for('closest', c, 4)}) "
+          f"against factor 1: closest identical {same_c} "
+          f"({int((c1[3] >= 0).sum())} hits), any identical {same_a} "
+          f"({int(a1.sum())} occluded)", flush=True)
+    require(same_c and same_a, "factor 4 differs from factor 1")
+
+
 def run_frames(scene, cfg, dev, n_frames, seed=0):
     from tpu_restir_torch import rng
     from tpu_restir_torch.render import camera as cam_mod
@@ -293,29 +482,38 @@ def run_frames(scene, cfg, dev, n_frames, seed=0):
     return acc, state
 
 
-def phase_small():
+def scene_and_view(label, dev):
+    """(scene on dev, camera view) of "cornell" or a clustered scene."""
+    from tpu_restir_torch import cornell_box
+    if label == "cornell":
+        return cornell_box(dev), CORNELL_VIEW
+    return large_scene(label, dev)
+
+
+def phase_small(label="cornell"):
     """The port at 64x32 on cuda and on cpu; returns (mean, stderr) of the
     cuda image."""
     import torch
 
-    from tpu_restir_torch import cornell_box
-    cfg = bench_cfg(SMALL_W, SMALL_H)
     out = {}
     for dev in ("cuda", "cpu"):
-        img, state = run_frames(cornell_box(dev), cfg, torch.device(dev),
-                                SMALL_FRAMES)
+        scene, view = scene_and_view(label, torch.device(dev))
+        cfg = bench_cfg(SMALL_W, SMALL_H, view)
+        img, state = run_frames(scene, cfg, torch.device(dev), SMALL_FRAMES)
         pix = img.mean(-1).cpu()
         out[dev] = (float(pix.mean()), float(pix.std() / pix.numel() ** 0.5),
                     state.res_prev.sample.point.cpu())
     (mc, sc, pc), (mp, sp, pp) = out["cuda"], out["cpu"]
     comb = (sc * sc + sp * sp) ** 0.5
     differ = float(((pc - pp).abs().amax(-1) > 1e-4).float().mean())
-    print(f"[cross-device] {SMALL_W}x{SMALL_H}, {SMALL_FRAMES} frames: mean "
+    print(f"[cross-device] {label} {SMALL_W}x{SMALL_H}, {SMALL_FRAMES} "
+          f"frames: mean "
           f"cuda {mc:.6f} cpu {mp:.6f} (|diff| {abs(mc - mp):.3g}, allowed "
           f"3 x {comb:.3g}); reservoirs with a different sample "
           f"{differ:.4%} (allowed < 1%)", flush=True)
-    require(abs(mc - mp) <= 3 * comb, "cuda and cpu image means disagree")
-    require(differ < 0.01, "cuda and cpu reservoirs disagree")
+    require(abs(mc - mp) <= 3 * comb,
+            f"{label}: cuda and cpu image means disagree")
+    require(differ < 0.01, f"{label}: cuda and cpu reservoirs disagree")
     return mc, sc
 
 
@@ -339,7 +537,8 @@ def phase_main_path(dev, small_mean, small_se, smi):
     dt = time.perf_counter() - t0
     intersect.QUERY_LOG = None
     launches = {k: v for k, v in _launches().items()
-                if k != "scatter_local"}    # the forward has no backward
+                if k not in ("scatter_local", "trace_closest", "trace_any")}
+    # (the forward has no backward; a 36-triangle scene no clusters)
     rays = sum(e["rays"] for e in qlog)
     traced_rpp = rays / float(WIDTH * HEIGHT * N_FRAMES)
     analytic = metrics.rays_per_pixel(cfg)
@@ -390,31 +589,96 @@ def phase_passes(dev):
           f"frame {prev:.2f}", flush=True)
 
 
-def _zero_launches():
+def phase_large_path(dev, label, smi, small_mean):
+    """The main path on a clustered scene: Renderer at 1920x1080 in the
+    bench config, LARGE_FRAMES frames after a warm-up. 28 traced rays per
+    pixel; every scene query through K5/K6 (one launch per ptrace_chunk of
+    each logged query, so no query ran a plain version), K1 launched on the
+    emissive subset and K2 never; a finite image with a mean within a
+    factor 4 of the 64x32 run's (another aspect, so not a tight match).
+    Returns the launches."""
+    import torch
+
+    from tpu_restir_torch import metrics
+    from tpu_restir_torch.render import intersect
+    from tpu_restir_torch.renderer import Renderer
+
+    scene, view = large_scene(label, dev)
+    cfg = bench_cfg(WIDTH, HEIGHT, view)
+    Renderer(scene, cfg, device=dev).run(1)      # warm-up
+    torch.cuda.synchronize()
+    renderer = Renderer(scene, cfg, device=dev)
+    _zero_launches()
+    intersect.QUERY_LOG = qlog = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = renderer.run(LARGE_FRAMES)              # ends in a synchronize
+    dt = time.perf_counter() - t0
+    intersect.QUERY_LOG = None
+    launches = _launches()
+    rays = sum(e["rays"] for e in qlog)
+    traced_rpp = rays / float(WIDTH * HEIGHT * LARGE_FRAMES)
+    analytic = metrics.rays_per_pixel(cfg)
+    chunk = cfg.intersector.ptrace_chunk
+    chunks = {f"trace_{kind}": sum(-(-e["rays"] // chunk) for e in qlog
+                                   if e["kind"] == kind)
+              for kind in ("closest", "any")}
+    backends = sorted({e["backend"] for e in qlog})
+    mean, _var = renderer.stats()
+    finite = bool(torch.isfinite(img).all())
+    print(f"[large path] {label} {WIDTH}x{HEIGHT}, {LARGE_FRAMES} frames: "
+          f"{dt / LARGE_FRAMES * 1e3:.2f} ms/frame, {rays / dt / 1e6:.2f} "
+          f"Mrays/s (forward, {smi}); traced rays/pixel {traced_rpp} "
+          f"(analytic {analytic}); query backends {backends}; launches "
+          f"{launches} (K5/K6 chunks of the logged queries {chunks}); image "
+          f"mean {mean:.6f} (64x32: {small_mean:.6f}), finite {finite}",
+          flush=True)
+    require(finite, f"{label}: image has non-finite values")
+    require(traced_rpp == float(analytic),
+            f"{label}: traced {traced_rpp} rays/pixel, analytic {analytic}")
+    require(backends == ["ptrace"], f"{label}: queries went to {backends}")
+    require(all(launches[k] == v and v > 0 for k, v in chunks.items()),
+            f"{label}: K5/K6 launches {launches} do not cover every chunk "
+            f"of every query {chunks}")
+    require(launches["closest_hit"] > 0 and launches["any_hit"] == 0,
+            f"{label}: K1 must serve the emissive subset and K2 nothing: "
+            f"{launches}")
+    require(launches["gather_local"] > 0, f"{label}: K3 never launched")
+    require(0.25 * small_mean < mean < 4.0 * small_mean,
+            f"{label}: implausible image mean {mean} (64x32: {small_mean})")
+    return launches
+
+
+def _counters():
+    from tpu_restir_torch.kernels import cluster_trace as ct
     from tpu_restir_torch.kernels import local_gather as lg
     from tpu_restir_torch.kernels import ray_tri
-    for counts in (ray_tri.LAUNCHES, lg.LAUNCHES):
+    return ray_tri.LAUNCHES, lg.LAUNCHES, ct.LAUNCHES
+
+
+def _zero_launches():
+    for counts in _counters():
         for key in counts:
             counts[key] = 0
 
 
 def _launches():
-    from tpu_restir_torch.kernels import local_gather as lg
-    from tpu_restir_torch.kernels import ray_tri
-    return {**ray_tri.LAUNCHES, **lg.LAUNCHES}
+    out = {}
+    for counts in _counters():
+        out.update(counts)
+    return out
 
 
-def bench_step(dev, width, height):
+def bench_step(dev, width, height, label="cornell"):
     """The JAX bench's forward+backward step (bench.py:114-126): a callable
     params -> (loss, grads) and the parameters at the scene's values."""
     import torch
 
-    from tpu_restir_torch import cornell_box
     from tpu_restir_torch.diff.params import extract_params
     from tpu_restir_torch.diff.render import make_value_and_grad
     from tpu_restir_torch.render import camera as cam_mod
-    cfg = bench_cfg(width, height)
-    scene = cornell_box(dev)
+    scene, view = scene_and_view(label, dev)
+    cfg = bench_cfg(width, height, view)
     cam = cam_mod.make_camera(cfg.camera, dev)
     target = torch.zeros((height, width, 3), device=dev)
     return (make_value_and_grad(scene, cam, cfg, (1,), target),
@@ -443,7 +707,8 @@ def phase_fwd_bwd(dev, smi):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     intersect.QUERY_LOG = None
-    launches = _launches()
+    launches = {k: v for k, v in _launches().items()
+                if k not in ("trace_closest", "trace_any")}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     rays = sum(e["rays"] for e in qlog)
     rpp = rays / float(WIDTH * HEIGHT)
@@ -466,12 +731,12 @@ def phase_fwd_bwd(dev, smi):
     return launches
 
 
-def phase_grad_small():
+def phase_grad_small(label="cornell"):
     """Value and gradients at 64x32 on cuda and on cpu (plain versions)."""
     import torch
     out = {}
     for dev in ("cuda", "cpu"):
-        vg, params = bench_step(torch.device(dev), SMALL_W, SMALL_H)
+        vg, params = bench_step(torch.device(dev), SMALL_W, SMALL_H, label)
         loss, grads = vg(params)
         out[dev] = (float(loss), {k: g.cpu() for k, g in grads.items()})
     (lc, gc), (lp, gp) = out["cuda"], out["cpu"]
@@ -483,12 +748,14 @@ def phase_grad_small():
         scale = float(gp[k].abs().max())
         bad = (gc[k] - gp[k]).abs() - (1e-3 * gp[k].abs() + 1e-3 * scale)
         worst = max(worst, float(bad.max()))
-    print(f"[grad cross-device] {SMALL_W}x{SMALL_H}, 1 frame: loss cuda "
+    print(f"[grad cross-device] {label} {SMALL_W}x{SMALL_H}, 1 frame: loss "
+          f"cuda "
           f"{lc:.7f} cpu {lp:.7f}; gradients within rtol 1e-3 + 1e-3 x "
           f"field max: {worst <= 0.0} (worst excess {worst:.3g})",
           flush=True)
-    require(abs(lc - lp) <= 1e-4 * abs(lp), "cuda and cpu losses disagree")
-    require(worst <= 0.0, "cuda and cpu gradients disagree")
+    require(abs(lc - lp) <= 1e-4 * abs(lp),
+            f"{label}: cuda and cpu losses disagree")
+    require(worst <= 0.0, f"{label}: cuda and cpu gradients disagree")
 
 
 def phase_optimize(dev):
@@ -563,22 +830,26 @@ def _profile(label, fn, path):
             for name, tag in (("closest_hit", "closest_kernel"),
                               ("any_hit", "any_kernel"),
                               ("gather_local", "gather_kernel"),
-                              ("scatter_local", "scatter_"))}
+                              ("scatter_local", "scatter_"),
+                              ("trace_closest", "trace_kernel<true>"),
+                              ("trace_any", "trace_kernel<false>"))}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=80))
     print(f"[profile] {label}: wall {wall_ms:.1f} ms without the profiler; "
           f"device kernels {device_ms:.1f} ms in "
           f"{sum(e.count for e in kernels)} launches, busy share "
-          f"{device_ms / wall_ms:.3f}; K1-K4 ms "
+          f"{device_ms / wall_ms:.3f}; K1-K6 ms "
           f"{ {k: round(v, 3) for k, v in ours.items()} } "
           f"({sum(ours.values()) / device_ms:.3f} of device time); table in "
           f"{path}", flush=True)
 
 
 def phase_profile(dev, path):
-    """Two 1080p forward frames, and one 1080p fwd+bwd step (its table in
-    PATH with _fwd_bwd before the extension), under torch.profiler."""
+    """Two 1080p forward frames, one 1080p fwd+bwd step and one 1080p
+    frame of each clustered scene under torch.profiler; the tables go to
+    PATH and to PATH with _fwd_bwd, _terrain100k or _lights1k before the
+    extension."""
     from tpu_restir_torch import cornell_box
     cfg = bench_cfg(WIDTH, HEIGHT)
     scene = cornell_box(dev)
@@ -587,6 +858,12 @@ def phase_profile(dev, path):
     vg, params = bench_step(dev, WIDTH, HEIGHT)
     root, ext = os.path.splitext(path)
     _profile("1 fwd+bwd step", lambda: vg(params), f"{root}_fwd_bwd{ext}")
+    for label in ("terrain100k", "lights1k"):
+        big, view = large_scene(label, dev)
+        bcfg = bench_cfg(WIDTH, HEIGHT, view)
+        _profile(f"1 {label} frame",
+                 lambda: run_frames(big, bcfg, dev, 1),
+                 f"{root}_{label}{ext}")
 
 
 def main():
@@ -597,12 +874,21 @@ def main():
     dev, name, smi = phase_device()
     phase_build()
     results = phase_kernels(dev)
+    phase_ptrace_kernels(dev, results)
     small_mean, small_se = phase_small()
     launches = phase_main_path(dev, small_mean, small_se, smi)
     phase_passes(dev)
     launches.update(scatter_local=phase_fwd_bwd(dev, smi)["scatter_local"])
     phase_grad_small()
     phase_optimize(dev)
+    # the clustered scenes: K5/K6 launches are those of their two paths
+    launches.update(trace_closest=0, trace_any=0)
+    for label in ("terrain100k", "lights1k"):
+        small_mean, _se = phase_small(label)
+        got = phase_large_path(dev, label, smi, small_mean)
+        for key in ("trace_closest", "trace_any"):
+            launches[key] += got[key]
+    phase_grad_small("terrain100k")
     profile = [a.split("=", 1)[1] for a in sys.argv[1:]
                if a.startswith("--profile=")]
     if profile:
@@ -620,6 +906,10 @@ def main():
                          "tpu_restir/kernels/local_gather.py:50"),
         "scatter_local": ("tpu_restir_torch/csrc/local_scatter.cu",
                           "tpu_restir/kernels/local_gather.py:167"),
+        "trace_closest": ("tpu_restir_torch/csrc/cluster_trace.cu",
+                          "tpu_restir/kernels/cluster_trace.py:314"),
+        "trace_any": ("tpu_restir_torch/csrc/cluster_trace.cu",
+                      "tpu_restir/kernels/cluster_trace.py:566"),
     }
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[k],

@@ -6,9 +6,10 @@ are absent:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances: hit ids, occlusion masks and gathered values are exact, and so
-are t, u, v: the ray/triangle kernels are built with --fmad=false and keep
-the plain version's operation order, and PyTorch runs each operation of
-the plain version as its own kernel, so both round every step alike. K4
+are t, u, v: the ray/triangle kernels (K1/K2) and the clustered traversal
+(K5/K6) are built with --fmad=false and keep the plain version's operation
+order, and PyTorch runs each operation of the plain version as its own
+kernel, so both round every step alike. K4
 (scatter_local) is exact on integer cotangents (exact in any summation
 order) and within 1e-5 on normal ones (its plain version, index_add_, sums
 in atomic order). Gradients on cuda and cpu: closest_hit's (go, gd) at
@@ -27,12 +28,14 @@ import torch
 
 from tpu_restir_torch.config import (CameraConfig, RenderConfig,
                                      RenderParams, RestirParams)
+from tpu_restir_torch.kernels import cluster_trace as ct
 from tpu_restir_torch.kernels import local_gather as lg
 from tpu_restir_torch.kernels import ray_tri
 from tpu_restir_torch.render import camera as cam_mod
 from tpu_restir_torch.render.integrators.restir.pipeline import (
     render_restir_frames)
-from tpu_restir_torch.scene.cornell import cornell_box
+from tpu_restir_torch.scene.cornell import cornell_box, many_lights_scene
+from tpu_restir_torch.scene.procedural import terrain_scene
 
 pytestmark = pytest.mark.gpu
 
@@ -191,6 +194,7 @@ def test_gather_local_backward_launches_k4(cuda):
 
 _TRAP = """
 import torch
+from tpu_restir_torch.kernels import cluster_trace as ct
 from tpu_restir_torch.kernels import local_gather as lg
 dev = torch.device("cuda")
 h, w, r = 16, 16, 2
@@ -268,3 +272,113 @@ def test_small_frame_gradients_cuda_match_cpu(cuda):
         scale = float(gp[k].abs().max())
         assert bool(((gc[k] - gp[k]).abs()
                      <= 1e-3 * gp[k].abs() + 1e-3 * scale).all()), k
+
+
+def _cluster_rays(dev, n, seed, extent, tfar, dead_share=0.0):
+    """Random rays through a clustered scene's box; a share of them dead
+    (tfar < tnear, zero direction) and one NaN direction per 1000."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    o = (torch.rand((n, 3), generator=g, device=dev) - 0.5) * 2 * extent
+    d = torch.randn((n, 3), generator=g, device=dev)
+    d = d / d.norm(dim=-1, keepdim=True)
+    tn = torch.full((n,), 1e-3, device=dev)
+    tf = torch.full((n,), tfar, device=dev)
+    dead = torch.rand((n,), generator=g, device=dev) < dead_share
+    d = torch.where(dead[:, None], 0.0, d)
+    d[::1000] = float("nan")
+    return o.contiguous(), d.contiguous(), tn, torch.where(dead, -1.0, tf)
+
+
+def _packets(scene, rays, factor=1):
+    return ct.pack(scene.cluster_min, scene.cluster_max, *rays, factor)
+
+
+@pytest.mark.parametrize("name,n", [("terrain5k", 1), ("terrain5k", 700),
+                                    ("terrain5k", 100_003),
+                                    ("lights500", 50_000)])
+def test_trace_closest_kernel_matches_plain(cuda, name, n):
+    """K5 against its plain version on every ray: terrain (79 clusters)
+    and the many-lights room (9 clusters, no cull)."""
+    scene = terrain_scene(cuda, 5_000) if name == "terrain5k" \
+        else many_lights_scene(cuda, 500)
+    pk = _packets(scene, _cluster_rays(cuda, n, n, 4.0, 1e4, 0.1))
+    before = ct.LAUNCHES["trace_closest"]
+    got = ct.closest_packets(scene.cluster_tris, scene.cluster_min,
+                             scene.cluster_max, pk)
+    assert ct.LAUNCHES["trace_closest"] == before + 1
+    want = ct.trace_closest_ref(scene.cluster_tris, pk)
+    torch.cuda.synchronize()
+    assert got[3].dtype == torch.int32
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if n > 1:
+        assert 0 < int((got[3] >= 0).sum()) < n
+
+
+@pytest.mark.parametrize("name", ["terrain5k", "lights500"])
+def test_trace_any_kernel_matches_plain(cuda, name):
+    """K6 against its plain version: cull mode 5 on terrain (C = 79 > 64),
+    none in the many-lights room; dead rays are never occluded."""
+    scene = terrain_scene(cuda, 5_000) if name == "terrain5k" \
+        else many_lights_scene(cuda, 500)
+    rays = _cluster_rays(cuda, 100_003, 3, 4.0, 2.0, 0.1)
+    pk = _packets(scene, rays)
+    before = ct.LAUNCHES["trace_any"]
+    got = ct.any_packets(scene.cluster_tris, scene.cluster_min,
+                         scene.cluster_max, pk)
+    assert ct.LAUNCHES["trace_any"] == before + 1
+    want = ct.trace_any_ref(scene.cluster_tris, pk)
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    assert 0 < int(got.sum()) < got.numel()
+    assert not got[:pk.n_rays][rays[3] < rays[2]].any()
+
+
+def test_trace_factor4_matches_factor1(cuda):
+    """Superclusters (factor 4: closest-hit cull mode 5) give the flat
+    result exactly, through the wrappers."""
+    scene = terrain_scene(cuda, 20_000)
+    o, d, tn, tf = _cluster_rays(cuda, 50_000, 35, 5.0, 1e4)
+    args = (scene.cluster_tris, scene.cluster_min, scene.cluster_max, o, d,
+            tn)
+    for a, b in zip(ct.trace_closest(*args, tf, factor=1),
+                    ct.trace_closest(*args, tf, factor=4)):
+        assert torch.equal(a, b)
+    tfs = torch.full_like(tf, 3.0)
+    assert torch.equal(ct.trace_any(*args, tfs, factor=1),
+                       ct.trace_any(*args, tfs, factor=4))
+
+
+def test_trace_dead_packets(cuda):
+    """Packets of dead rays only: every ray misses and is visible."""
+    scene = terrain_scene(cuda, 5_000)
+    o, d, tn, tf = _cluster_rays(cuda, 1024, 8, 4.0, 1e4)
+    tf = torch.full_like(tf, -1.0)
+    t, _u, _v, tri = ct.trace_closest(scene.cluster_tris, scene.cluster_min,
+                                      scene.cluster_max, o, d, tn, tf)
+    assert bool((tri == -1).all()) and bool(torch.isinf(t).all())
+    assert not ct.trace_any(scene.cluster_tris, scene.cluster_min,
+                            scene.cluster_max, o, d, tn, tf).any()
+
+
+def test_ptrace_gradient_cuda_matches_cpu(cuda):
+    """The detached-winner gradient through the clustered closest query:
+    K5's winners are the plain version's, so (go, gd) agree at 1e-6."""
+    from tpu_restir_torch.config import IntersectorConfig
+    from tpu_restir_torch.render import intersect
+    o, d, tn, _tf = _cluster_rays(cuda, 20_000, 12, 4.0, 1e4)
+    wts = torch.randn((3, o.shape[0]), device=cuda)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        scene = terrain_scene(dev, 3_000)
+        oo = o.to(dev).requires_grad_(True)
+        dd = torch.nan_to_num(d).to(dev).requires_grad_(True)
+        h = intersect.intersect_closest(scene, oo, dd, 1e-3, 1e4,
+                                        IntersectorConfig(backend="ptrace"))
+        w = wts.to(dev)
+        loss = (torch.where(h.hit, h.t, 0.0) * w[0] + h.u * w[1]
+                + h.v * w[2]).sum()
+        grads[dev] = [x.cpu() for x in torch.autograd.grad(loss, (oo, dd))]
+    assert float(grads["cpu"][0].abs().max()) > 0.0
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)

@@ -1,6 +1,7 @@
 """The port never imports JAX: a fresh interpreter imports tpu_restir_torch,
 renders a 16x16 frame on the CPU and takes its gradient w.r.t. the
-material table (`diff`), and neither JAX nor the JAX package
+material table (`diff`), builds a clustered terrain and renders it through
+the clustered traversal, and neither JAX nor the JAX package
 (`tpu_restir`) may be loaded. It runs in a subprocess because the test
 session itself has JAX loaded (the root conftest configures it).
 
@@ -41,6 +42,17 @@ loss, grads = render.make_value_and_grad(
     scene, make_camera(cfg.camera, "cpu"), cfg, (1,),
     torch.zeros((16, 16, 3)))(params.extract_params(scene))
 assert torch.isfinite(loss) and len(grads) == 4
+from tpu_restir_torch.accel import bvh, fcluster
+from tpu_restir_torch.kernels import cluster_trace
+from tpu_restir_torch.scene.procedural import terrain_scene, triangle_soup
+from tpu_restir_torch.scene.cornell import many_lights_scene
+terrain = terrain_scene("cpu", 600)
+assert terrain.cluster_tris is not None
+r = Renderer(terrain, cfg.replace(camera=cfg.camera.__class__(
+    width=32, height=8, pixel_sampler="random", view_from=(0.0, -7.0, 4.0),
+    view_at=(0.0, 0.0, 0.5))), device="cpu")
+r.run(1)
+assert r.stats()[0] > 0.0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "tpu_restir"))
 print("LOADED", bad)

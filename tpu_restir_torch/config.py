@@ -105,10 +105,10 @@ class CameraConfig:
 
 @dataclass(frozen=True)
 class IntersectorConfig:
-    """Intersection backend selection. The port runs only the small-scene
-    kernels ("auto" or "fused", up to `fused_max_tris` triangles); the
-    other fields configure the JAX package's backends and are kept for
-    parity."""
+    """Intersection backend selection. The port runs "fused" (K1/K2, up to
+    `fused_max_tris` triangles) and "ptrace" (K5/K6, clustered scenes, in
+    chunks of `ptrace_chunk` rays), or "auto" between the two; the other
+    fields configure the JAX package's backends and are kept for parity."""
 
     backend: str = "auto"
     ray_chunk: int = 1 << 18

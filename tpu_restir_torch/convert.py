@@ -36,13 +36,14 @@ _NESTED = {
 
 def from_tree(cls, tree, device):
     """Numpy tree with the fields of `cls` -> `cls` with tensors on device.
-    Scenes with cluster blocks (large scenes) are refused."""
-    if cls is SceneArrays and getattr(tree, "cluster_tris", None) is not None:
-        raise NotImplementedError(
-            "clustered (large) scenes are not ported yet (ROADMAP item 8)")
+    A clustered scene's (C, B, 128) cluster blocks keep their first 9
+    channels (v0, e1, e2), the port's (C, B, 9) layout; the JAX scene's
+    `cluster_woop` and `bvh` have no field in the port and are not read."""
     kw = {}
     for f in dataclasses.fields(cls):
         v = getattr(tree, f.name)
+        if cls is SceneArrays and f.name == "cluster_tris" and v is not None:
+            v = np.asarray(v)[..., :9]
         sub = _NESTED.get((cls, f.name))
         if sub is not None:
             kw[f.name] = from_tree(sub, v, device)

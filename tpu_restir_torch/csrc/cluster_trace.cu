@@ -1,0 +1,263 @@
+// Packet-shortlist cluster traversal for large scenes: K5 closest hit and
+// K6 any hit of packets of 256 rays over their own front-to-back cluster
+// shortlists (phase 1, `build_shortlists` in kernels/cluster_trace.py).
+//
+// Replaces the Pallas TPU kernels tpu_restir/kernels/cluster_trace.py
+// `_closest_kernel` (K5) and `_any_kernel` (K6). The TPU versions loop over
+// 8 or 32 packets per grid step, read shortlists and a packed (8, NB) box
+// table from SMEM by scalar prefetch, DMA rounds of 4 cluster blocks of
+// (64, 128) lanes into VMEM double buffers and carry the mode-5 cull flags
+// one round ahead; none of that is needed here.
+//
+// What bounds it on the H100: arithmetic. Each (ray, triangle) pair is a
+// fused Moller-Trumbore test of ~40 float32 operations, and this file is
+// compiled with --fmad=false, so they issue as separate multiplies and
+// adds. A cluster block is 64 x 9 floats (2.3 KB); a 100k-triangle
+// scene's blocks (3.6 MB) stay in the 50 MB L2, so device memory is not
+// the limit. The other cost is divergence between packets: the work of a
+// packet is its shortlist, from a few clusters to over a thousand.
+//
+// Design: one thread block per packet, one thread per ray; the block reads
+// its own count, shortlist and entries. Per shortlist slot (an entry of a
+// supercluster expands into F cluster slots) the block
+//   1. votes on the early-out: K5 stops once no ray's min(best_t, tfar)
+//      reaches the slot's entry distance (__syncthreads_or, the TPU
+//      kernel's packet watermark); K6 stops once every ray is occluded or
+//      dead (__syncthreads_and, its all-occluded exit);
+//   2. in mode 5 (above 64 clusters: K6 always, K5 once superclusters
+//      expand) votes on the per-ray slab test of the slot's box with the
+//      TPU kernel's slack, and skips the slot only if no ray is live, so
+//      every ray of a tested slot is tested, as on the TPU;
+//   3. stages the cluster's 64 x 9 floats in shared memory; each thread
+//      tests its ray against every row, a broadcast read.
+// The vote barriers also fence the tile: no thread overwrites it before
+// every thread has finished the previous slot. The early-outs and the cull
+// only skip work that cannot change a result, so the kernels must equal
+// the plain versions `trace_closest_ref` / `trace_any_ref`, which test
+// every listed slot.
+//
+// Rounding: the test keeps `_mt_cluster`'s operation order, the division
+// is IEEE and nothing contracts (--fmad=false), so t, u, v and the ids are
+// bit-identical to the plain PyTorch version. The running minimum replaces
+// only on a strictly smaller t, in shortlist order and then row order: a
+// tie goes to the earlier-listed cluster, then the lower row.
+//
+// C interface (ctypes): every entry returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kP = 256;   // rays per packet == threads per block
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, tn, tf;
+};
+
+struct Args {
+  const float* o;          // (Rp*P, 3)
+  const float* d;          // (Rp*P, 3)
+  const float* tnear;      // (Rp*P,)
+  const float* tfar;       // (Rp*P,)
+  const int* count;        // (Rp,) shortlist entries per packet
+  const int* shortlist;    // (Rp, S) (super)cluster ids, front to back
+  const float* entry;      // (Rp, S) entry distances, ascending
+  int n_super;             // S
+  const float* bmin;       // (NB, 3) slab-cull boxes
+  const float* bmax;
+  int box_per_cluster;     // boxes per cluster (1) or per supercluster (0)
+  const float* ctris;      // (C, B, 9) v0, e1, e2
+  int n_clusters;          // C
+  int block;               // B
+  int factor;              // F
+  int skip;                // 0: no cull, 5: per-ray slab cull
+};
+
+// Fused Moller-Trumbore of one (ray, triangle) pair; tr points at the
+// triangle's 9 floats. The operation order is `_mt_cluster`'s.
+__device__ __forceinline__ bool mt(const Ray& r, const float* tr, float& t,
+                                   float& u, float& v) {
+  const float v0x = tr[0], v0y = tr[1], v0z = tr[2];
+  const float e1x = tr[3], e1y = tr[4], e1z = tr[5];
+  const float e2x = tr[6], e2y = tr[7], e2z = tr[8];
+  const float px = r.dy * e2z - r.dz * e2y;
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const bool ok_det = fabsf(det) > 1e-18f;
+  const float inv = ok_det ? 1.0f / det : 0.0f;
+  const float tvx = r.ox - v0x;
+  const float tvy = r.oy - v0y;
+  const float tvz = r.oz - v0z;
+  u = (tvx * px + tvy * py + tvz * pz) * inv;
+  const float qx = tvy * e1z - tvz * e1y;
+  const float qy = tvz * e1x - tvx * e1z;
+  const float qz = tvx * e1y - tvy * e1x;
+  v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
+  t = (e2x * qx + e2y * qy + e2z * qz) * inv;
+  return ok_det && u >= 0.f && v >= 0.f && u + v <= 1.f && t >= r.tn &&
+         t <= r.tf;
+}
+
+// Safe reciprocal direction of `_ray_inv`: near-zero components become
+// +-1e20 with the component's sign.
+__device__ __forceinline__ float safe_inv(float c) {
+  return fabsf(c) > 1e-20f ? 1.0f / c : (c >= 0.f ? 1e20f : -1e20f);
+}
+
+// `_slab_entry_exit` + `_slab_live`: can this ray enter box k before
+// `upper`? Relative and absolute slack, so rounding cannot cull a graze.
+__device__ __forceinline__ bool slab_live(const Ray& r, float ix, float iy,
+                                          float iz, const float* bmin,
+                                          const float* bmax, int k,
+                                          float upper) {
+  const float t1x = (bmin[3 * k] - r.ox) * ix;
+  const float t2x = (bmax[3 * k] - r.ox) * ix;
+  const float t1y = (bmin[3 * k + 1] - r.oy) * iy;
+  const float t2y = (bmax[3 * k + 1] - r.oy) * iy;
+  const float t1z = (bmin[3 * k + 2] - r.oz) * iz;
+  const float t2z = (bmax[3 * k + 2] - r.oz) * iz;
+  const float tent = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
+                           fmaxf(fminf(t1z, t2z), r.tn));
+  const float texit = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
+                            fmaxf(t1z, t2z));
+  const float slack = 1e-4f * (fabsf(tent) + fabsf(texit)) + 1e-5f;
+  return tent <= texit + slack && tent - slack <= upper;
+}
+
+template <bool kClosest>
+__global__ void __launch_bounds__(kP)
+    trace_kernel(Args a, float* __restrict__ t_out, float* __restrict__ u_out,
+                 float* __restrict__ v_out, int* __restrict__ tri_out,
+                 bool* __restrict__ occ_out) {
+  extern __shared__ float tile[];   // block x 9 floats
+  const int p = blockIdx.x;
+  const long long i = (long long)p * kP + threadIdx.x;
+  Ray r;
+  r.ox = a.o[3 * i]; r.oy = a.o[3 * i + 1]; r.oz = a.o[3 * i + 2];
+  r.dx = a.d[3 * i]; r.dy = a.d[3 * i + 1]; r.dz = a.d[3 * i + 2];
+  r.tn = a.tnear[i]; r.tf = a.tfar[i];
+  const float ix = safe_inv(r.dx), iy = safe_inv(r.dy), iz = safe_inv(r.dz);
+  const bool dead = r.tf < r.tn;
+  const int* sl = a.shortlist + (long long)p * a.n_super;
+  const float* ent = a.entry + (long long)p * a.n_super;
+  const int n_slots = a.count[p] * a.factor;
+  const int row_floats = a.block * 9;
+
+  float bt = INFINITY, bu = 0.f, bv = 0.f;
+  int btri = -1;
+  bool occ = false;
+  for (int s = 0; s < n_slots; ++s) {
+    const int q = min(s / a.factor, a.n_super - 1);
+    if (kClosest) {
+      // front-to-back order: no ray can improve once the next entry
+      // passes min(best_t, tfar) of every ray
+      if (!__syncthreads_or(ent[q] <= fminf(bt, r.tf))) break;
+    } else {
+      if (__syncthreads_and(occ || dead)) break;
+    }
+    const int sc = sl[q];
+    const int c = a.factor == 1 ? sc
+                                : min(sc * a.factor + s % a.factor,
+                                      a.n_clusters - 1);
+    if (a.skip == 5) {
+      const float upper = kClosest ? fminf(bt, r.tf) : r.tf;
+      const bool live = (kClosest || !occ) &&
+                        slab_live(r, ix, iy, iz, a.bmin, a.bmax,
+                                  a.box_per_cluster ? c : sc, upper);
+      if (!__syncthreads_or(live)) continue;
+    }
+    const float* src = a.ctris + (long long)c * row_floats;
+    for (int k = threadIdx.x; k < row_floats; k += kP) tile[k] = src[k];
+    __syncthreads();
+    if (kClosest) {
+      for (int j = 0; j < a.block; ++j) {
+        float t, u, v;
+        if (mt(r, tile + 9 * j, t, u, v) && t < bt) {
+          bt = t; bu = u; bv = v; btri = c * a.block + j;
+        }
+      }
+    } else if (!occ) {
+      for (int j = 0; j < a.block; ++j) {
+        float t, u, v;
+        if (mt(r, tile + 9 * j, t, u, v)) {
+          occ = true;   // an OR: the first occluder decides
+          break;
+        }
+      }
+    }
+  }
+  if (kClosest) {
+    t_out[i] = bt;
+    u_out[i] = bu;
+    v_out[i] = bv;
+    tri_out[i] = btri;
+  } else {
+    occ_out[i] = occ;
+  }
+}
+
+Args make_args(const void* o, const void* d, const void* tnear,
+               const void* tfar, const void* count, const void* shortlist,
+               const void* entry, int n_super, const void* bmin,
+               const void* bmax, int box_per_cluster, const void* ctris,
+               int n_clusters, int block, int factor, int skip) {
+  Args a;
+  a.o = (const float*)o; a.d = (const float*)d;
+  a.tnear = (const float*)tnear; a.tfar = (const float*)tfar;
+  a.count = (const int*)count; a.shortlist = (const int*)shortlist;
+  a.entry = (const float*)entry; a.n_super = n_super;
+  a.bmin = (const float*)bmin; a.bmax = (const float*)bmax;
+  a.box_per_cluster = box_per_cluster; a.ctris = (const float*)ctris;
+  a.n_clusters = n_clusters; a.block = block; a.factor = factor;
+  a.skip = skip;
+  return a;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Inputs: packed rays (n_packets * 256), count/shortlist/entry of phase 1,
+// the slab-cull boxes, the cluster blocks. Outputs t, u, v (float32) and
+// tri (int32), each n_packets * 256.
+int cluster_trace_closest(const void* o, const void* d, const void* tnear,
+                          const void* tfar, const void* count,
+                          const void* shortlist, const void* entry,
+                          int n_packets, int n_super, const void* bmin,
+                          const void* bmax, int box_per_cluster,
+                          const void* ctris, int n_clusters, int block,
+                          int factor, int skip, void* t, void* u, void* v,
+                          void* tri, void* stream) {
+  const Args a = make_args(o, d, tnear, tfar, count, shortlist, entry,
+                           n_super, bmin, bmax, box_per_cluster, ctris,
+                           n_clusters, block, factor, skip);
+  trace_kernel<true><<<n_packets, kP, block * 9 * sizeof(float),
+                       (cudaStream_t)stream>>>(
+      a, (float*)t, (float*)u, (float*)v, (int*)tri, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// As cluster_trace_closest; output occ (bool), n_packets * 256.
+int cluster_trace_any(const void* o, const void* d, const void* tnear,
+                      const void* tfar, const void* count,
+                      const void* shortlist, const void* entry, int n_packets,
+                      int n_super, const void* bmin, const void* bmax,
+                      int box_per_cluster, const void* ctris, int n_clusters,
+                      int block, int factor, int skip, void* occ,
+                      void* stream) {
+  const Args a = make_args(o, d, tnear, tfar, count, shortlist, entry,
+                           n_super, bmin, bmax, box_per_cluster, ctris,
+                           n_clusters, block, factor, skip);
+  trace_kernel<false><<<n_packets, kP, block * 9 * sizeof(float),
+                        (cudaStream_t)stream>>>(
+      a, nullptr, nullptr, nullptr, nullptr, (bool*)occ);
+  return (int)cudaGetLastError();
+}
+
+const char* cluster_trace_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -1,0 +1,449 @@
+"""Packet-shortlist cluster traversal ("ptrace"), the large-scene queries:
+K5 (closest hit) and K6 (any hit), the counterparts of
+`tpu_restir.kernels.cluster_trace` `_closest_kernel` and `_any_kernel`.
+
+Rays are grouped into packets of P = 256 consecutive rays (an 8x32 pixel
+tile after `render.intersect`'s swizzle).
+
+  Phase 1 (plain PyTorch tensor ops, XLA code in the JAX package): each
+  packet's interval hull is slab-tested against every (super)cluster AABB,
+  with a conservative entry distance per passing pair, and one stable
+  sort per packet orders the passing clusters front to back: a shortlist
+  and a count per packet (`build_shortlists`).
+
+  Phase 2 (the kernels of `csrc/cluster_trace.cu` on CUDA tensors, the
+  plain versions `trace_closest_ref` / `trace_any_ref` on CPU tensors):
+  each packet tests its rays against the triangles of exactly its own
+  shortlist by fused Moller-Trumbore and folds a running (t, u, v, tri)
+  with a strict `<`, in shortlist order and then row order, so ties go to
+  the earlier-listed cluster. The kernels stop early (closest: once the
+  next entry distance passes every ray's min(best_t, tfar); any: once
+  every live ray is occluded) and, above SMALL_C clusters, skip a slot
+  that no ray's own slab test can reach (mode 5); the plain versions test
+  every listed slot, so they are the exact definition the kernels must
+  reproduce bit for bit.
+
+Scenes above SUPER_MAX clusters group F = pick_factor(C) consecutive
+leaf-order clusters into one supercluster for phase 1; shortlist slot s
+maps to cluster min(sl[s // F] * F + s % F, C - 1). Triangle ids are
+leaf-order ids cluster * B + row; a miss is t = inf, tri = -1, and dead
+rays (tfar < tnear, including the padding) miss, or are not occluded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from tpu_restir_torch.accel.fcluster import _clamp_tfar_bbox, _packet_bounds
+from tpu_restir_torch.kernels import build
+
+P = 256            # rays per packet == one 8x32 pixel tile
+SUPER_MAX = 4096   # most shortlist entries per packet (see pick_factor)
+BOX_MAX = 16_000   # mode-5 culls use per-cluster boxes up to this count
+SMALL_C = 64       # scenes of at most this many clusters run no cull
+
+# kernel launches per wrapper (the plain versions do not count)
+LAUNCHES = {"trace_closest": 0, "trace_any": 0}
+
+_INF = float("inf")
+_BIG = 3.0e38
+_REF_PACKETS = 256   # packets per broadcast in the plain versions
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: dense packet-vs-cluster culling with entry distances
+# ---------------------------------------------------------------------------
+
+def _interval_pass_entry(omin, omax, dmin, dmax, tnmin, tfmax, cmin, cmax):
+    """Conservative packet-vs-cluster slab test by interval arithmetic
+    (cluster_trace.py:131-178) -> passes (Rp, C) bool and entry_lo
+    (Rp, C): a lower bound on the t at which any ray of the packet's hull
+    can enter the cluster."""
+    rp = omin.shape[0]
+    c = cmin.shape[0]
+    dev = omin.device
+    entry_lo = torch.full((rp, c), -_BIG, device=dev)
+    exit_hi = torch.full((rp, c), _BIG, device=dev)
+    for a in range(3):
+        dlo = dmin[:, a:a + 1]
+        dhi = dmax[:, a:a + 1]
+        # a direction interval near zero leaves the axis unconstrained
+        spans0 = (dlo <= 1e-12) & (dhi >= -1e-12)
+        safe_lo = torch.where(spans0, 1.0, dlo)
+        safe_hi = torch.where(spans0, 1.0, dhi)
+        rlo = torch.minimum(1.0 / safe_lo, 1.0 / safe_hi)
+        rhi = torch.maximum(1.0 / safe_lo, 1.0 / safe_hi)
+        rlo = torch.clamp(rlo, -1e12, 1e12)
+        rhi = torch.clamp(rhi, -1e12, 1e12)
+        planes = []
+        for bound in (cmin, cmax):
+            blo_n = bound[None, :, a] - omax[:, a:a + 1]
+            bhi_n = bound[None, :, a] - omin[:, a:a + 1]
+            q1 = blo_n * rlo
+            q2 = blo_n * rhi
+            q3 = bhi_n * rlo
+            q4 = bhi_n * rhi
+            planes.append((
+                torch.minimum(torch.minimum(q1, q2), torch.minimum(q3, q4)),
+                torch.maximum(torch.maximum(q1, q2), torch.maximum(q3, q4))))
+        (t1lo, t1hi), (t2lo, t2hi) = planes
+        a_entry_lo = torch.where(spans0, -_BIG, torch.minimum(t1lo, t2lo))
+        a_exit_hi = torch.where(spans0, _BIG, torch.maximum(t1hi, t2hi))
+        entry_lo = torch.maximum(entry_lo, a_entry_lo)
+        exit_hi = torch.minimum(exit_hi, a_exit_hi)
+    passes = ((entry_lo <= exit_hi)
+              & (exit_hi >= tnmin[:, None])
+              & (entry_lo <= tfmax[:, None]))
+    return passes, entry_lo
+
+
+def build_shortlists(o, d, tnear, tfar, cmin, cmax, p: int = P):
+    """Rays (R, 3), R a multiple of p -> per-packet front-to-back cluster
+    shortlists (cluster_trace.py:191-221): count (Rp,) int32, shortlist
+    (Rp, C) int32 and entry (Rp, C) float32 ascending, +inf past count.
+    Conservative: every cluster that a ray of the packet could hit within
+    [tnear, tfar] is listed. Equal entries keep cluster order (a stable
+    sort, as lax.sort with one key), which decides ties between hits."""
+    (omin, omax, dmin, dmax, tn, tf,
+     bounded, emin, emax) = _packet_bounds(o, d, tnear, tfar, p)
+    passes, entry = _interval_pass_entry(omin, omax, dmin, dmax, tn, tf,
+                                         cmin, cmax)
+    # swept sub-box cull: the cluster must overlap one of the packet's
+    # t-sliced hull boxes (one slice at a time: (Rp, C, 3), not (Rp, C, 8, 3))
+    box_ok = torch.zeros_like(passes)
+    for s in range(emin.shape[1]):
+        box_ok |= ((emin[:, None, s, :] <= cmax[None, :, :])
+                   & (emax[:, None, s, :] >= cmin[None, :, :])).all(-1)
+    passes &= box_ok | ~bounded[:, None]
+    key = torch.where(passes, torch.maximum(entry, tn[:, None]), _INF)
+    ent_sorted, sl = torch.sort(key, dim=1, stable=True)
+    count = passes.sum(1, dtype=torch.int32)
+    return count, sl.to(torch.int32), ent_sorted
+
+
+def _super_boxes(cmin, cmax, factor: int):
+    """Supercluster AABBs over groups of `factor` consecutive clusters (the
+    last group repeats the final cluster's box)."""
+    if factor == 1:
+        return cmin, cmax
+    c = cmin.shape[0]
+    s = -(-c // factor)
+    pad = s * factor - c
+    if pad:
+        cmin = torch.cat([cmin, cmin[-1:].expand(pad, 3)])
+        cmax = torch.cat([cmax, cmax[-1:].expand(pad, 3)])
+    return (cmin.reshape(s, factor, 3).amin(1),
+            cmax.reshape(s, factor, 3).amax(1))
+
+
+def pick_factor(n_clusters: int) -> int:
+    """Supercluster factor: the smallest F with ceil(C / F) <= SUPER_MAX
+    (F = 1 up to ~262k triangles at B = 64)."""
+    return -(-n_clusters // SUPER_MAX)
+
+
+def _skip_for(kind: str, c: int, factor: int = 1) -> int:
+    """Per-ray cull mode of the JAX package's production defaults
+    (cluster_trace.py:1100-1109): 0 (none) at C <= SMALL_C; 5 (slab cull)
+    for any-hit, and for closest hit once superclusters expand (factor > 1,
+    C <= BOX_MAX); 0 for closest hit otherwise."""
+    if c <= SMALL_C:
+        return 0
+    if factor > 1 and c <= BOX_MAX:
+        return 5
+    return 0 if kind == "closest" else 5
+
+
+@dataclasses.dataclass
+class Packets:
+    """Rays in packet order with their phase-1 shortlists. o, d (Rp*P, 3),
+    tnear, tfar (Rp*P,) (tfar clamped to the scene box, padding dead);
+    count (Rp,), shortlist (Rp, S) int32, entry (Rp, S) float32; factor
+    F; n_rays, the rays before the padding."""
+
+    o: torch.Tensor
+    d: torch.Tensor
+    tnear: torch.Tensor
+    tfar: torch.Tensor
+    count: torch.Tensor
+    shortlist: torch.Tensor
+    entry: torch.Tensor
+    factor: int
+    n_rays: int
+
+    def take(self, idx) -> "Packets":
+        """The packets idx (1-D int tensor), as a Packets of their own."""
+        idx = idx.to(self.o.device).long()
+        rows = (idx[:, None] * P
+                + torch.arange(P, device=idx.device)[None, :]).reshape(-1)
+        return Packets(o=self.o[rows].contiguous(),
+                       d=self.d[rows].contiguous(),
+                       tnear=self.tnear[rows].contiguous(),
+                       tfar=self.tfar[rows].contiguous(),
+                       count=self.count[idx].contiguous(),
+                       shortlist=self.shortlist[idx].contiguous(),
+                       entry=self.entry[idx].contiguous(),
+                       factor=self.factor, n_rays=rows.shape[0])
+
+
+def pack(cmin, cmax, o, d, tnear, tfar, factor: int) -> Packets:
+    """Clamp tfar to the scene box, pad to a packet multiple (tfar = -1:
+    dead) and build the shortlists against the supercluster AABBs, as
+    `_pack` (cluster_trace.py:962-994) without the TPU's channel blocks."""
+    r = o.shape[0]
+    scmin, scmax = _super_boxes(cmin, cmax, factor)
+    tnear = tnear.expand(r)
+    tfar = _clamp_tfar_bbox(o, d, tnear, tfar.expand(r), scmin.amin(0),
+                            scmax.amax(0))
+    pad = (-r) % P
+    if pad:
+        o = torch.cat([o, o.new_zeros((pad, 3))])
+        d = torch.cat([d, d.new_zeros((pad, 3))])
+        tnear = torch.cat([tnear, tnear.new_zeros((pad,))])
+        tfar = torch.cat([tfar, tfar.new_full((pad,), -1.0)])
+    cnt, sl, ent = build_shortlists(o, d, tnear, tfar, scmin, scmax, P)
+    return Packets(o=o.contiguous(), d=d.contiguous(),
+                   tnear=tnear.contiguous(), tfar=tfar.contiguous(),
+                   count=cnt, shortlist=sl.contiguous(),
+                   entry=ent.contiguous(), factor=factor, n_rays=r)
+
+
+def cull_boxes(cmin, cmax, factor: int):
+    """The mode-5 slab-cull boxes: per cluster while C <= BOX_MAX (or
+    factor 1), else per supercluster -> (bmin, bmax, per_cluster)."""
+    if factor == 1 or cmin.shape[0] <= BOX_MAX:
+        return cmin, cmax, True
+    scmin, scmax = _super_boxes(cmin, cmax, factor)
+    return scmin, scmax, False
+
+
+# ---------------------------------------------------------------------------
+# Phase 2, plain versions: every listed slot, no early-out, no cull
+# ---------------------------------------------------------------------------
+
+def _mt(tr, ox, oy, oz, dx, dy, dz, tn, tf):
+    """Fused Moller-Trumbore in the operation order of `_mt_cluster`
+    (cluster_trace.py:235-260): triangles tr (A, B, 9) against rays
+    (A, 1, P) -> t, u, v, ok of shape (A, B, P)."""
+    v0x, v0y, v0z = tr[..., 0:1], tr[..., 1:2], tr[..., 2:3]
+    e1x, e1y, e1z = tr[..., 3:4], tr[..., 4:5], tr[..., 5:6]
+    e2x, e2y, e2z = tr[..., 6:7], tr[..., 7:8], tr[..., 8:9]
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    ok_det = torch.abs(det) > 1e-18
+    inv = torch.where(ok_det, 1.0 / torch.where(ok_det, det, 1.0), 0.0)
+    tvx = ox - v0x
+    tvy = oy - v0y
+    tvz = oz - v0z
+    u = (tvx * px + tvy * py + tvz * pz) * inv
+    qx = tvy * e1z - tvz * e1y
+    qy = tvz * e1x - tvx * e1z
+    qz = tvx * e1y - tvy * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv
+    ok = ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+    ok &= (t >= tn) & (t <= tf)
+    return t, u, v, ok
+
+
+def _slots(ctris, pk: Packets):
+    """Yield (packet index (A,), cluster (A,)) for every listed slot, for
+    at most _REF_PACKETS packets at a time, slot by slot in order."""
+    c = ctris.shape[0]
+    f = pk.factor
+    s_last = pk.shortlist.shape[1] - 1
+    ns = pk.count.long() * f
+    n_slots = int(ns.max()) if ns.numel() else 0
+    for j in range(n_slots):
+        act = torch.nonzero(ns > j)[:, 0]
+        q = min(j // f, s_last)
+        for k in range(0, act.shape[0], _REF_PACKETS):
+            a = act[k:k + _REF_PACKETS]
+            sc = pk.shortlist[a, q].long()
+            yield a, sc if f == 1 else torch.clamp(sc * f + j % f, max=c - 1)
+
+
+def _packet_rays(pk: Packets):
+    rp = pk.count.shape[0]
+    o = pk.o.reshape(rp, 1, P, 3)
+    d = pk.d.reshape(rp, 1, P, 3)
+    return (o[..., 0], o[..., 1], o[..., 2], d[..., 0], d[..., 1], d[..., 2],
+            pk.tnear.reshape(rp, 1, P), pk.tfar.reshape(rp, 1, P))
+
+
+def trace_closest_ref(ctris, pk: Packets):
+    """Plain version of K5 -> (t, u, v, tri int32), each (Rp*P,): per ray
+    the hit of least t over the listed clusters' triangles, ties to the
+    earlier slot and then the lower row (a strict-< fold in that order)."""
+    rp = pk.count.shape[0]
+    b = ctris.shape[1]
+    dev = pk.o.device
+    bt = torch.full((rp, P), _INF, device=dev)
+    bu = torch.zeros((rp, P), device=dev)
+    bv = torch.zeros((rp, P), device=dev)
+    btri = torch.full((rp, P), -1, dtype=torch.int32, device=dev)
+    rays = _packet_rays(pk)
+    rows = torch.arange(b, device=dev)[None, :, None]
+    for a, cl in _slots(ctris, pk):
+        t, u, v, ok = _mt(ctris[cl], *(x[a] for x in rays))
+        tt = torch.where(ok, t, _INF)
+        tmin = tt.amin(1, keepdim=True)                      # (A, 1, P)
+        jwin = torch.where(tt <= tmin, rows, b).amin(1, keepdim=True)
+        mu = u.gather(1, jwin)[:, 0]
+        mv = v.gather(1, jwin)[:, 0]
+        mtri = (cl[:, None] * b + jwin[:, 0]).to(torch.int32)
+        tmin = tmin[:, 0]
+        better = tmin < bt[a]
+        bt[a] = torch.where(better, tmin, bt[a])
+        bu[a] = torch.where(better, mu, bu[a])
+        bv[a] = torch.where(better, mv, bv[a])
+        btri[a] = torch.where(better, mtri, btri[a])
+    return bt.reshape(-1), bu.reshape(-1), bv.reshape(-1), btri.reshape(-1)
+
+
+def trace_any_ref(ctris, pk: Packets):
+    """Plain version of K6 -> (Rp*P,) bool: any listed triangle hit within
+    [tnear, tfar]."""
+    rp = pk.count.shape[0]
+    occ = torch.zeros((rp, P), dtype=torch.bool, device=pk.o.device)
+    rays = _packet_rays(pk)
+    for a, cl in _slots(ctris, pk):
+        ok = _mt(ctris[cl], *(x[a] for x in rays))[3]
+        occ[a] |= ok.any(1)
+    return occ.reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# Phase 2, the kernels (csrc/cluster_trace.cu)
+# ---------------------------------------------------------------------------
+
+_IN = [_P] * 7 + [_I, _I] + [_P, _P, _I] + [_P] + [_I] * 4
+_SIGNATURES = {
+    "cluster_trace_closest": (_IN + [_P] * 5, ctypes.c_int),
+    "cluster_trace_any": (_IN + [_P] * 2, ctypes.c_int),
+    "cluster_trace_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+# K5/K6 keep the plain version's rounding: no contracted multiply-adds
+FLAGS = ("--fmad=false",)
+
+
+def _lib():
+    return build.load("cluster_trace", _SIGNATURES, extra_flags=FLAGS)
+
+
+def _check_args(ctris, pk: Packets, bmin, bmax):
+    n = pk.o.shape[0]
+    rp = pk.count.shape[0]
+    s = pk.shortlist.shape[1]
+    c, b, _ = ctris.shape
+    want = {"ctris": (ctris, (c, b, 9), torch.float32),
+            "o": (pk.o, (rp * P, 3), torch.float32),
+            "d": (pk.d, (n, 3), torch.float32),
+            "tnear": (pk.tnear, (n,), torch.float32),
+            "tfar": (pk.tfar, (n,), torch.float32),
+            "count": (pk.count, (rp,), torch.int32),
+            "shortlist": (pk.shortlist, (rp, s), torch.int32),
+            "entry": (pk.entry, (rp, s), torch.float32),
+            "bmin": (bmin, (bmin.shape[0], 3), torch.float32),
+            "bmax": (bmax, (bmin.shape[0], 3), torch.float32)}
+    for name, (x, shape, dtype) in want.items():
+        if x.device != pk.o.device or x.dtype != dtype \
+                or tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(
+                f"cluster_trace: {name} must be a contiguous {dtype} tensor "
+                f"of shape {shape} on {pk.o.device}; got {x.dtype} "
+                f"{tuple(x.shape)} on {x.device}")
+    if b * 9 * 4 > 48 * 1024:
+        raise ValueError(f"cluster_trace: cluster size {b} exceeds the "
+                         "kernel's 48 KB shared-memory tile")
+
+
+def _launch(kind, ctris, cmin, cmax, pk: Packets, outs):
+    c, b, _ = ctris.shape
+    bmin, bmax, per_cluster = cull_boxes(cmin, cmax, pk.factor)
+    bmin, bmax = bmin.contiguous(), bmax.contiguous()
+    _check_args(ctris, pk, bmin, bmax)
+    lib = _lib()
+    skip = _skip_for("closest" if kind == "trace_closest" else "any", c,
+                     pk.factor)
+    with torch.cuda.device(pk.o.device):
+        stream = torch.cuda.current_stream(pk.o.device).cuda_stream
+        fn = lib.cluster_trace_closest if kind == "trace_closest" \
+            else lib.cluster_trace_any
+        err = fn(pk.o.data_ptr(), pk.d.data_ptr(), pk.tnear.data_ptr(),
+                 pk.tfar.data_ptr(), pk.count.data_ptr(),
+                 pk.shortlist.data_ptr(), pk.entry.data_ptr(),
+                 pk.count.shape[0], pk.shortlist.shape[1],
+                 bmin.data_ptr(), bmax.data_ptr(), int(per_cluster),
+                 ctris.data_ptr(), c, b, pk.factor, skip,
+                 *[x.data_ptr() for x in outs], stream)
+    if err:
+        raise RuntimeError(f"cluster_trace {kind}: launch failed: "
+                           f"{lib.cluster_trace_error_string(err).decode()}")
+    LAUNCHES[kind] += 1
+
+
+def _on_cuda(x) -> bool:
+    """Kernel for CUDA tensors, plain version for CPU tensors."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"cluster_trace: unsupported device {x.device}")
+    return x.device.type == "cuda"
+
+
+def closest_packets(ctris, cmin, cmax, pk: Packets):
+    """K5 on CUDA tensors, `trace_closest_ref` on CPU tensors, over packed
+    rays -> (t, u, v, tri), each (Rp*P,)."""
+    if not _on_cuda(pk.o):
+        return trace_closest_ref(ctris, pk)
+    n = pk.o.shape[0]
+    outs = tuple(torch.empty((n,), dtype=torch.float32, device=pk.o.device)
+                 for _ in range(3)) \
+        + (torch.empty((n,), dtype=torch.int32, device=pk.o.device),)
+    if n:
+        _launch("trace_closest", ctris, cmin, cmax, pk, outs)
+    return outs
+
+
+def any_packets(ctris, cmin, cmax, pk: Packets):
+    """K6 on CUDA tensors, `trace_any_ref` on CPU tensors -> (Rp*P,) bool."""
+    if not _on_cuda(pk.o):
+        return trace_any_ref(ctris, pk)
+    occ = torch.empty((pk.o.shape[0],), dtype=torch.bool, device=pk.o.device)
+    if pk.o.shape[0]:
+        _launch("trace_any", ctris, cmin, cmax, pk, (occ,))
+    return occ
+
+
+def trace_closest(ctris, cmin, cmax, o, d, tnear, tfar, factor: int = 1):
+    """Closest hit of flat rays o, d (R, 3), tnear, tfar (R,) or () against
+    the cluster blocks ctris (C, B, 9) with AABBs cmin, cmax (C, 3) ->
+    (t, u, v, tri int32), each (R,); t = inf and tri = -1 on a miss.
+    factor 1 picks `pick_factor(C)`. Computed without a graph."""
+    if factor == 1:
+        factor = pick_factor(ctris.shape[0])
+    with torch.no_grad():
+        pk = pack(cmin, cmax, o, d, tnear, tfar, factor)
+        out = closest_packets(ctris, cmin, cmax, pk)
+    return tuple(x[:pk.n_rays] for x in out)
+
+
+def trace_any(ctris, cmin, cmax, o, d, tnear, tfar, factor: int = 1):
+    """Any hit (occlusion) of flat rays -> (R,) bool."""
+    if factor == 1:
+        factor = pick_factor(ctris.shape[0])
+    with torch.no_grad():
+        pk = pack(cmin, cmax, o, d, tnear, tfar, factor)
+        return any_packets(ctris, cmin, cmax, pk)[:pk.n_rays]
+
+
+def supports(scene) -> bool:
+    """Applicability: the scene has cluster blocks."""
+    return scene.cluster_tris is not None

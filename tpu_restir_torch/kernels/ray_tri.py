@@ -18,6 +18,7 @@ zero cotangents.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -184,13 +185,17 @@ def closest_hit_bwd(w, d, t, tri, gt, gu, gv):
     return go, tt[:, None] * go
 
 
-class _ClosestHit(torch.autograd.Function):
-    """K1 on CUDA, the plain version on the CPU, either computed with no
-    graph; the backward is `closest_hit_bwd`."""
+class ClosestHit(torch.autograd.Function):
+    """A closest-hit query, query(o, d, tnear, tfar) -> (t, u, v, tri),
+    computed with no graph (a kernel on CUDA, its plain version on the
+    CPU); the backward is `closest_hit_bwd` with the scene's Woop rows w.
+    Serves K1 here and the clustered traversal K5 (`render.intersect`),
+    as the JAX package's `_closest_bwd` and `_pt_closest_core` VJPs share
+    `_detached_woop_bwd`."""
 
     @staticmethod
-    def forward(ctx, w, o, d, tnear, tfar):
-        t, u, v, tri = _closest_forward(w, o, d, tnear, tfar)
+    def forward(ctx, query, w, o, d, tnear, tfar):
+        t, u, v, tri = query(o, d, tnear, tfar)
         ctx.save_for_backward(w, d, t, tri)
         ctx.mark_non_differentiable(tri)
         return t, u, v, tri
@@ -199,14 +204,16 @@ class _ClosestHit(torch.autograd.Function):
     def backward(ctx, gt, gu, gv, _gtri):
         w, d, t, tri = ctx.saved_tensors
         go, gd = closest_hit_bwd(w, d, t, tri, gt, gu, gv)
-        return None, go, gd, None, None
+        return None, None, go, gd, None, None
 
 
 def closest_hit(scene, o, d, tnear, tfar):
     """K1, closest-hit query -> (t, u, v, tri int32) flat tensors (tri = -1,
     t = inf on a miss). o, d (N, 3); tnear, tfar (N,). Differentiable in
     o and d (see `closest_hit_bwd`)."""
-    return _ClosestHit.apply(woop_rows(scene), o, d, tnear, tfar)
+    w = woop_rows(scene)
+    return ClosestHit.apply(functools.partial(_closest_forward, w), w, o,
+                                d, tnear, tfar)
 
 
 def any_hit(scene, o, d, tnear, tfar):

@@ -62,6 +62,15 @@ def _area_candidate(u3, scene, gb, cfg):
     return cand, w_c, mis
 
 
+# Up to this many lights the BRDF candidate intersects the emissive subset
+# and asks one bounded occlusion query; above it (and with no lights) it
+# takes a full closest hit, as the JAX pass does (initial.py:148-157). The
+# JAX package runs its kernel on the subset only up to 1024 lights (:90), a
+# bound of the TPU's scalar memory, and a plain scan from 1024 to 4096; the
+# port takes K1 over the whole range, since K1 tiles its triangles.
+_EMISSIVE_SUBSET_MAX = 4096
+
+
 def _closest_emissive_visible(scene, o, d, tnear, cfg):
     """Closest hit restricted to the emissive triangles (kernel K1 on the
     emissive subset), then one occlusion segment against the whole scene
@@ -100,10 +109,13 @@ def _brdf_candidate(u5, scene, gb, cfg):
     r = cfg.restir
     s = brdf.gbuf_sample_brdf_u(u5, gb)
     o2 = gb.pos + p.normal_offset * gb.normal
-    # the JAX pass takes a full closest hit above 4096 lights; the port's
-    # scenes hold at most 64 triangles (build_scene), so never here
-    hit = _closest_emissive_visible(scene, o2, s.omega_i, p.tnear_offset,
-                                    cfg)
+    if 0 < scene.lights.count <= _EMISSIVE_SUBSET_MAX:
+        hit = _closest_emissive_visible(scene, o2, s.omega_i,
+                                        p.tnear_offset, cfg)
+    else:
+        hit = intersect.intersect_closest(scene, o2, s.omega_i,
+                                          p.tnear_offset, torch.inf,
+                                          cfg.intersector)
     hi = intersect.hit_attributes(scene, o2, s.omega_i, hit)
     m2 = gather_materials(scene.materials, hi.mat_id)
     emissive = hi.did_hit & m2.is_emissive()

@@ -1,20 +1,31 @@
 """Ray-scene intersection (counterpart of `tpu_restir.render.intersect`,
-cut to the small-scene path): closest-hit and occlusion queries go to the
-ray/triangle kernels K1 and K2 (`kernels/ray_tri.py`), which is the JAX
-package's "fused" backend (intersect.py:697-709, :742-750). The clustered
-traversal for large scenes is not ported yet (ROADMAP item 8).
+cut to its two production backends):
+
+* "fused": scenes of at most `fused_max_tris` triangles go to the
+  ray/triangle kernels K1 and K2 (`kernels/ray_tri.py`; intersect.py:697-709,
+  :742-750);
+* "ptrace": clustered scenes above that go to the packet-shortlist
+  traversal K5 and K6 (`kernels/cluster_trace.py`; intersect.py:453-525),
+  with rays of a 2-D pixel grid swizzled into 8x32-tile packets and long
+  queries cut into chunks of `ptrace_chunk` rays.
+
+Both closest-hit queries are differentiable in the ray origins and
+directions by the detached-winner derivative of `ray_tri.closest_hit_bwd`;
+occlusion is a detached bool. The JAX package's other backends are not
+ported (ROADMAP item 13).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from tpu_restir_torch.config import IntersectorConfig
 from tpu_restir_torch import mathx
-from tpu_restir_torch.kernels import ray_tri
+from tpu_restir_torch.kernels import cluster_trace, ray_tri
 
 # Query log: set to a list and every closest/any query appends its ray
 # count, the per-frame ray totals behind the traced rays-per-pixel check.
@@ -53,16 +64,34 @@ class HitInfo:
 
 
 def _backend(scene, cfg: IntersectorConfig) -> str:
-    if cfg.backend not in ("auto", "fused"):
+    """"auto" takes "fused" up to `fused_max_tris` triangles and "ptrace"
+    above (intersect.py:647-689, as off the CPU); "fused" and "ptrace" may
+    also be asked for by name."""
+    backend = cfg.backend
+    if backend == "auto":
+        backend = "fused" if ray_tri.supports(scene, cfg.fused_max_tris) \
+            else "ptrace"
+    elif backend not in ("fused", "ptrace"):
         raise NotImplementedError(
-            f"intersection backend {cfg.backend!r} is not ported; only the "
-            "small-scene kernels are ('auto' or 'fused'; ROADMAP item 8)")
-    if not ray_tri.supports(scene, cfg.fused_max_tris):
-        raise NotImplementedError(
-            f"{scene.num_tris} triangles exceed fused_max_tris="
-            f"{cfg.fused_max_tris}; large scenes need the clustered "
-            "traversal, not ported yet (ROADMAP item 8)")
-    return "fused"
+            f"intersection backend {backend!r} is not ported; the port runs "
+            "'fused' (K1/K2) and 'ptrace' (K5/K6), or 'auto' (ROADMAP item "
+            "13)")
+    if backend == "fused" and not ray_tri.supports(scene, cfg.fused_max_tris):
+        raise ValueError(
+            f"backend 'fused' needs at most fused_max_tris="
+            f"{cfg.fused_max_tris} triangles (got {scene.num_tris})")
+    if backend == "ptrace":
+        if not cluster_trace.supports(scene):
+            raise ValueError(
+                f"backend 'ptrace' needs a clustered scene (more than "
+                f"build_scene's cluster_size triangles; got "
+                f"{scene.num_tris} without cluster blocks)")
+        if cfg.ptrace_mxu:
+            raise NotImplementedError(
+                "ptrace_mxu=True runs the Woop/MXU traversal kernels K7/K8 "
+                "(cluster_trace.py _closest_kernel_mxu/_any_kernel_mxu), not "
+                "ported yet (ROADMAP queue 2)")
+    return backend
 
 
 def _flat_rays(o, d, tnear, tfar):
@@ -76,13 +105,70 @@ def _flat_rays(o, d, tnear, tfar):
             d.reshape(-1, 3).contiguous(), flat(tnear), flat(tfar))
 
 
+_TILE_H, _TILE_W = 8, 32   # 8 x 32 pixels == one packet of 256 rays
+
+
+def _swizzle_applicable(shape) -> bool:
+    """2-D pixel grids and batched (Q, ..., H, W) query stacks fold per
+    image into 8x32-tile packets (intersect.py:640-644); other shapes run
+    unswizzled, which is as exact and only slower."""
+    return (len(shape) >= 2 and shape[-2] % _TILE_H == 0
+            and shape[-1] % _TILE_W == 0)
+
+
+def _tile_fold(x, h, w, q):
+    """Row-major flat (q*h*w, ...) -> packet-major 8x32-tile order per
+    image (intersect.py:159-167)."""
+    rest = x.shape[1:]
+    xr = x.reshape(q, h // _TILE_H, _TILE_H, w // _TILE_W, _TILE_W, *rest)
+    return xr.transpose(2, 3).reshape((q * h * w,) + rest)
+
+
+def _tile_unfold(x, h, w, q):
+    """Inverse of _tile_fold (intersect.py:170-175)."""
+    rest = x.shape[1:]
+    xr = x.reshape(q, h // _TILE_H, w // _TILE_W, _TILE_H, _TILE_W, *rest)
+    return xr.transpose(2, 3).reshape((q * h * w,) + rest)
+
+
+def _ptrace(fn, scene, shape, chunk, of, df, tn, tf):
+    """fn (cluster_trace.trace_closest or trace_any) over flat rays, in
+    8x32-tile packet order where the shape allows, in chunks of `chunk`
+    rays (intersect.py:178-211). The tail chunk is not padded to `chunk`:
+    the trace pads it to a packet multiple with the same dead rays
+    (tfar = -1), so every packet holds the rays it holds in the JAX
+    package's padded chunk."""
+    swizzle = _swizzle_applicable(shape)
+    if swizzle:
+        h, w = shape[-2], shape[-1]
+        q = int(np.prod(shape[:-2], dtype=np.int64))
+        of, df, tn, tf = (_tile_fold(x, h, w, q) for x in (of, df, tn, tf))
+    parts = [fn(scene.cluster_tris, scene.cluster_min, scene.cluster_max,
+                of[s:s + chunk], df[s:s + chunk], tn[s:s + chunk],
+                tf[s:s + chunk])
+             for s in range(0, max(of.shape[0], 1), chunk)]
+    single = not isinstance(parts[0], tuple)
+    if single:
+        parts = [(x,) for x in parts]
+    out = [torch.cat(x) for x in zip(*parts)]
+    if swizzle:
+        out = [_tile_unfold(x, h, w, q) for x in out]
+    return out[0] if single else tuple(out)
+
+
 def intersect_closest(scene, o, d, tnear, tfar,
                       cfg: IntersectorConfig = IntersectorConfig()) -> Hit:
     """Closest-hit query (reference Intersection::getClosestIntersection)."""
     backend = _backend(scene, cfg)
     _log_query("closest", backend, o.shape[:-1])
     shape, of, df, tn, tf = _flat_rays(o, d, tnear, tfar)
-    bt, bu, bv, btri = ray_tri.closest_hit(scene, of, df, tn, tf)
+    if backend == "fused":
+        bt, bu, bv, btri = ray_tri.closest_hit(scene, of, df, tn, tf)
+    else:
+        bt, bu, bv, btri = ray_tri.ClosestHit.apply(
+            functools.partial(_ptrace, cluster_trace.trace_closest, scene,
+                              shape, cfg.ptrace_chunk),
+            ray_tri.woop_rows(scene), of, df, tn, tf)
     hit = (btri >= 0).reshape(shape)
     return Hit(t=torch.where(hit, bt.reshape(shape), 0.0),
                u=bu.reshape(shape), v=bv.reshape(shape),
@@ -95,7 +181,11 @@ def intersect_any(scene, o, d, tnear, tfar,
     backend = _backend(scene, cfg)
     _log_query("any", backend, o.shape[:-1])
     shape, of, df, tn, tf = _flat_rays(o, d, tnear, tfar)
-    return ray_tri.any_hit(scene, of, df, tn, tf).reshape(shape)
+    if backend == "fused":
+        return ray_tri.any_hit(scene, of, df, tn, tf).reshape(shape)
+    return _ptrace(cluster_trace.trace_any, scene, shape, cfg.ptrace_chunk,
+                   of.detach(), df.detach(), tn.detach(),
+                   tf.detach()).reshape(shape)
 
 
 def test_occlusion(scene, from_p, to_p, params,

@@ -1,6 +1,7 @@
-"""The Cornell box (36 triangles), as `tpu_restir.scene.cornell.cornell_box`:
-x in [-1,1], y in [-1,1], z in [0,2], light at the ceiling; camera
-conventionally at (0, -3.9, 1) looking at (0, 0, 1). Z-up."""
+"""The Cornell box (36 triangles) and its many-lights variant, as
+`tpu_restir.scene.cornell`: x in [-1,1], y in [-1,1], z in [0,2], lights
+at the ceiling; camera conventionally at (0, -3.9, 1) looking at
+(0, 0, 1). Z-up."""
 
 from __future__ import annotations
 
@@ -79,5 +80,54 @@ def cornell_box(device, light_size: float = 0.5,
     # boxes
     add(_box((-0.35, 0.30, 0.60), (0.6, 0.6, 1.2), rot_z_deg=15.0), TALL)
     add(_box((0.40, -0.35, 0.30), (0.6, 0.6, 0.6), rot_z_deg=-18.0), SHORT)
+
+    return build_scene(np.stack(tris), np.array(mats), specs, device)
+
+
+def many_lights_scene(device, n_lights: int = 1000,
+                      seed: int = 7) -> SceneArrays:
+    """Cornell-style room with a grid of n_lights small emissive triangles
+    on the ceiling, each with its own material (BASELINE.json config 3).
+    Above 42 lights the scene is clustered (more than 64 triangles)."""
+    rng = np.random.default_rng(seed)
+    tris: List[np.ndarray] = []
+    mats: List[int] = []
+    specs: List[MaterialSpec] = [
+        MaterialSpec("white", MatType.LAMBERT, diffuse=(0.73, 0.73, 0.73)),
+        MaterialSpec("red", MatType.LAMBERT, diffuse=(0.65, 0.05, 0.05)),
+        MaterialSpec("green", MatType.LAMBERT, diffuse=(0.12, 0.45, 0.15)),
+        MaterialSpec("box", MatType.LAMBERT, diffuse=(0.6, 0.6, 0.7)),
+    ]
+
+    def add(ts, m):
+        tris.extend(ts)
+        mats.extend([m] * len(ts))
+
+    add(_quad((-1, -1, 0), (1, -1, 0), (1, 1, 0), (-1, 1, 0)), 0)
+    add(_quad((-1, 1, 2), (1, 1, 2), (1, -1, 2), (-1, -1, 2)), 0)
+    add(_quad((-1, 1, 0), (1, 1, 0), (1, 1, 2), (-1, 1, 2)), 0)
+    add(_quad((-1, -1, 0), (-1, 1, 0), (-1, 1, 2), (-1, -1, 2)), 1)
+    add(_quad((1, 1, 0), (1, -1, 0), (1, -1, 2), (1, 1, 2)), 2)
+    add(_box((-0.35, 0.30, 0.45), (0.5, 0.5, 0.9), 15.0), 3)
+    add(_box((0.40, -0.35, 0.25), (0.5, 0.5, 0.5), -18.0), 3)
+
+    # ceiling light grid: each light = 1 downward-facing triangle (normal
+    # -z) with its own material
+    side = int(np.ceil(np.sqrt(n_lights)))
+    size = 1.6 / side * 0.35
+    z_l = 2.0 - 1e-3
+    for k in range(n_lights):
+        i, j = divmod(k, side)
+        cx = -0.8 + (i + 0.5) * 1.6 / side
+        cy = -0.8 + (j + 0.5) * 1.6 / side
+        color = rng.uniform(0.2, 1.0, 3)
+        power = rng.uniform(5.0, 40.0)
+        mats.append(len(specs))
+        specs.append(MaterialSpec(
+            f"light{k}", MatType.LAMBERT, diffuse=(0.78, 0.78, 0.78),
+            emission=tuple((color * power).tolist())))
+        tris.append(np.array([[cx - size, cy - size, z_l],
+                              [cx, cy + size, z_l],
+                              [cx + size, cy - size, z_l]], np.float32))
 
     return build_scene(np.stack(tris), np.array(mats), specs, device)

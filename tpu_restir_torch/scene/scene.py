@@ -1,7 +1,8 @@
 """SceneArrays: the whole scene as one dataclass of tensors on one device
 (counterpart of `tpu_restir.scene.scene`): triangle vertices, per-vertex
-attributes, per-triangle material ids, the emissive CDF and the Woop rows
-of the ray/triangle kernels."""
+attributes, per-triangle material ids, the emissive CDF, the Woop rows
+of the ray/triangle kernels and, for scenes above `cluster_size`
+triangles, the cluster blocks of the clustered traversal."""
 
 from __future__ import annotations
 
@@ -31,6 +32,11 @@ class SceneArrays:
     materials: MaterialTable
     lights: EmissiveCDF
     woop: torch.Tensor         # (N, 3, 4) Woop affine maps
+    # clustered scenes (> cluster_size triangles, in BVH leaf order)
+    cluster_min: Optional[torch.Tensor] = None   # (C, 3) cluster AABBs
+    cluster_max: Optional[torch.Tensor] = None   # (C, 3)
+    cluster_tris: Optional[torch.Tensor] = None  # (C, B, 9) v0/e1/e2 xyz
+    cluster_size: int = 0                        # B (0: not clustered)
     textures: Optional[torch.Tensor] = None
     envmap: Optional[torch.Tensor] = None
 
@@ -46,13 +52,29 @@ def build_scene(vertices: np.ndarray, material_ids: np.ndarray,
                 vertex_tangents: Optional[np.ndarray] = None,
                 cluster_size: int = 64) -> SceneArrays:
     """Host-side build (numpy), then one copy to `device`. Scenes above
-    `cluster_size` triangles need the clustered traversal, not ported."""
+    `cluster_size` triangles are put in BVH2 leaf order (every per-triangle
+    array permuted alike) and get the cluster blocks of the clustered
+    traversal (`kernels/cluster_trace.py`), as at
+    tpu_restir/scene/scene.py:80-107."""
     v = np.asarray(vertices, np.float32)
     n_tris = v.shape[0]
+    cluster_min = cluster_max = cluster_tris = None
     if n_tris > cluster_size:
-        raise NotImplementedError(
-            f"scenes above {cluster_size} triangles need the clustered "
-            f"traversal (got {n_tris}); not ported yet (ROADMAP item 8)")
+        from tpu_restir_torch.accel.bvh import build_bvh2
+
+        # the BVH8 collapse of the JAX package keeps this order
+        # (tpu_restir/accel/wide.py:119), so the BVH2 order is the leaf order
+        perm = build_bvh2(v, leaf_size=4).order
+        v = v[perm]
+        material_ids = np.asarray(material_ids)[perm]
+        if vertex_normals is not None:
+            vertex_normals = np.asarray(vertex_normals)[perm]
+        if vertex_uvs is not None:
+            vertex_uvs = np.asarray(vertex_uvs)[perm]
+        if vertex_tangents is not None:
+            vertex_tangents = np.asarray(vertex_tangents)[perm]
+        cluster_min, cluster_max, cluster_tris = build_clusters(
+            v, cluster_size)
     e1 = v[:, 1] - v[:, 0]
     e2 = v[:, 2] - v[:, 0]
     areas = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
@@ -81,4 +103,28 @@ def build_scene(vertices: np.ndarray, material_ids: np.ndarray,
         materials=build_material_table(specs, device),
         lights=build_emissive_cdf(areas.astype(np.float32),
                                   emissive_mat[mat_ids], device),
-        woop=dev(build_woop_matrices(v)))
+        woop=dev(build_woop_matrices(v)),
+        cluster_min=None if cluster_min is None else dev(cluster_min),
+        cluster_max=None if cluster_max is None else dev(cluster_max),
+        cluster_tris=None if cluster_tris is None else dev(cluster_tris),
+        cluster_size=0 if cluster_min is None else cluster_size)
+
+
+def build_clusters(v: np.ndarray, block: int):
+    """Leaf-ordered triangles (N, 3, 3) float32 -> (cluster_min,
+    cluster_max (C, 3), cluster_tris (C, B, 9)) over consecutive chunks of
+    B = block triangles. The AABBs pad the last chunk by repeating the last
+    triangle; the blocks pad it with zero rows (zero edges: det = 0, never
+    hit). Channels: v0, e1 = v1 - v0, e2 = v2 - v0, xyz each (the first 9
+    lanes of the JAX package's (C, B, 128) blocks)."""
+    n = v.shape[0]
+    c = -(-n // block)
+    pad = c * block - n
+    vp = np.concatenate([v, np.repeat(v[-1:], pad, axis=0)]) if pad else v
+    vc = vp.reshape(c, block * 3, 3)
+    tris = np.zeros((c * block, 9), np.float32)
+    tris[:n, 0:3] = v[:, 0]
+    tris[:n, 3:6] = v[:, 1] - v[:, 0]
+    tris[:n, 6:9] = v[:, 2] - v[:, 0]
+    return (vc.min(axis=1).astype(np.float32),
+            vc.max(axis=1).astype(np.float32), tris.reshape(c, block, 9))
