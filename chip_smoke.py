@@ -10,11 +10,17 @@ line is not printed:
      together) and the host BVH builder (g++); print times and registers.
   3. each kernel against its plain PyTorch version on the card, at the
      main path's shapes: exact ids, masks and copies; float error printed
-     with the tolerance stated; kernel and plain times (CUDA events).
-     K5/K6 run on whole 1080p queries of a terrain100k and a lights1k
-     bench frame and their plain versions on 96 packets spread over the
-     frame; factor 4 (superclusters) must equal factor 1 on
-     terrain_scene(20_000).
+     with the tolerance stated; kernel and plain times (CUDA events), the
+     bound (the least time for the bytes and operations the inputs need)
+     and, for K3/K4, the time of one PyTorch call computing the same
+     function. K5/K6 and their plain versions run on whole 1080p queries
+     of a terrain100k and a lights1k bench frame, each any-hit kernel
+     held on each scene to a query with occluded and visible rays;
+     factor 4 (superclusters) must equal factor 1 on
+     terrain_scene(20_000). K7/K8 (the Woop variant) likewise on a
+     terrain100k-128 bench frame under ptrace_mxu (terrain100k rebuilt at
+     cluster size 128), t/u/v bit-identical, with K5/K6 timed on the same
+     scene and queries beside them.
   4. the main path: Renderer on the Cornell box at 1920x1080, the bench
      config (m_area=1, m_brdf=1, temporal, 5-neighbour pairwise spatial),
      8 frames; the traced rays per pixel must equal the analytic 28, every
@@ -33,41 +39,76 @@ line is not printed:
      albedo against the render with the true one: the loss must fall.
   9. the clustered scenes, terrain100k (terrain_scene(100_000), the JAX
      bench's terrain camera) and lights1k (many_lights_scene(1000)): phase
-     5 for each, then the main path at 1920x1080 for 4 frames after a
-     warm-up, every scene query through K5/K6 (one launch per chunk of
-     every logged query), K1 on the emissive subset; then phase 7 on
-     terrain100k.
- 10. one JSON line of kernel results (K1-K6; K5/K6 launches are those of
-     the two clustered paths), then {"ok": true, "device": ...}.
+     5 for each (2 frames for these two), then the main path at 1920x1080
+     for 4 frames after a warm-up, every scene query through K5/K6 (one
+     launch per chunk of every logged query), K1 on the emissive subset;
+     then phase 7 on terrain100k.
+ 10. the Woop variant (ptrace_mxu): phase 5 on terrain20k-128
+     (terrain_scene(20_000) rebuilt at cluster size 128: the plain K7/K8
+     on the CPU make terrain100k too slow there), then the main path on
+     terrain100k-128 at 1920x1080 for 4 frames after a warm-up, every
+     scene query through K7/K8 and none through K5/K6; then the same
+     frames without ptrace_mxu (K5/K6) for comparison.
+ 11. the CLI frame loop in-process, `tpu_restir_torch.cli.main` on
+     terrain100k at 1920x1080 with temporal and pairwise spatial reuse,
+     --denoise and --profile-passes, 8 frames with a checkpoint, then 4
+     more resumed from it: the PNG, the sidecar in the reference's layout
+     with 12 iterations and the pass times, a finite denoised display
+     that differs from the raw one; then ms/frame of the bench frame on
+     terrain100k with and without the denoiser, and the SVGF temporal
+     update and filter of one 1080p frame timed alone (CUDA events).
+ 12. one JSON line of kernel results (K1-K8; K5/K6 launches are those of
+     the two clustered paths, K7/K8's those of the Woop path), then
+     {"ok": true, "device": ...}.
 
 --profile=PATH also profiles two 1080p frames, one 1080p fwd+bwd step
-and one 1080p frame of each clustered scene (torch.profiler) and writes
+and one 1080p frame of each clustered scene, terrain100k-128 under
+ptrace_mxu included (torch.profiler), and writes
 the tables of device time by kernel to PATH and to PATH with _fwd_bwd,
-_terrain100k and _lights1k before its extension.
+_terrain100k, _lights1k and _terrain100k-128 before its extension.
 
 The script imports nothing of JAX or of the JAX package (tpu_restir),
-and checks so at its end.
+and checks so at its end, after the CLI has exported.
 """
 
 import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 WIDTH, HEIGHT = 1920, 1080
 N_FRAMES = 8
 SMALL_W, SMALL_H, SMALL_FRAMES = 64, 32, 4
 LARGE_FRAMES = 4          # timed frames per clustered scene, after 1 warm-up
-SAMPLE_PACKETS = 96       # packets of a 1080p query held against K5/K6's plain
-                          # versions (all 8100 would take the plain minutes)
+CLUSTER_SMALL_FRAMES = 2  # 64x32 frames of a clustered scene, cuda and cpu
+CLI_FRAMES, CLI_RESUMED = 8, 4   # CLI frames, then frames resumed from them
 # (view_from, view_at): the Cornell camera, and the JAX bench's terrain
 # camera (bench.py:141-145)
 CORNELL_VIEW = ((0.0, -3.9, 1.0), (0.0, 0.0, 1.0))
 TERRAIN_VIEW = ((0.0, -7.0, 4.0), (0.0, 0.0, 0.5))
+
+# the bound of a kernel: the larger of its bytes over the memory rate and
+# its operations over the float32 rate outside the tensor cores (H100 SXM,
+# NVIDIA's data sheet, at its 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+WOOP_OPS = 40   # float32 operations of one Woop test (K1/K2/K7/K8)
+MT_OPS = 46     # ... of one fused Moller-Trumbore test (K5/K6)
+RAY_BYTES = 32  # o, d, tnear, tfar of one ray
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by) of n_bytes moved and n_ops float32 operations."""
+    t_bytes = float(n_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = float(n_ops) / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def require(cond, msg):
@@ -75,9 +116,10 @@ def require(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def bench_cfg(width, height, view=CORNELL_VIEW):
-    from tpu_restir_torch.config import (CameraConfig, RenderConfig,
-                                         RenderParams, RestirParams)
+def bench_cfg(width, height, view=CORNELL_VIEW, mxu=False):
+    from tpu_restir_torch.config import (CameraConfig, IntersectorConfig,
+                                         RenderConfig, RenderParams,
+                                         RestirParams)
     return RenderConfig(
         camera=CameraConfig(width=width, height=height, fov_y_deg=45.0,
                             view_from=view[0], view_at=view[1],
@@ -86,6 +128,7 @@ def bench_cfg(width, height, view=CORNELL_VIEW):
         restir=RestirParams(m_area=1, m_brdf=1, do_temporal_reuse=True,
                             do_spatial_reuse=True, spatial_neighbor_count=5,
                             spatial_mis="pairwise"),
+        intersector=IntersectorConfig(ptrace_mxu=mxu),
         integrator="restir")
 
 
@@ -176,10 +219,13 @@ def phase_kernels(dev):
     n = WIDTH * HEIGHT
     results = {}
 
-    def record(name, err, ms, plain_ms):
-        """Largest error over a kernel's checks; times of its first one."""
+    def record(name, err, ms, plain_ms, bnd, library_ms=None):
+        """Largest error over a kernel's checks; times and bound of its
+        first one."""
         e = results.setdefault(name, {"max_abs_err": 0.0, "ms": ms,
-                                      "plain_ms": plain_ms})
+                                      "plain_ms": plain_ms,
+                                      "bound_ms": bnd[0], "bound_by": bnd[1],
+                                      "library_ms": library_ms})
         e["max_abs_err"] = max(e["max_abs_err"], err)
 
     def check_closest(label, sc, o, d, tn, tf):
@@ -193,14 +239,18 @@ def phase_kernels(dev):
                   for g, p in zip(got[:3], want[:3]))
         ms = cuda_ms(lambda: ray_tri.closest_hit(sc, o, d, tn, tf), 10)
         plain = cuda_ms(lambda: ray_tri.closest_hit_ref(w, o, d, tn, tf), 3)
+        # every live ray is tested against every triangle
+        n_live = int((tf >= tn).sum())
+        bnd = bound(o.shape[0] * (RAY_BYTES + 16) + w.shape[0] * 48,
+                    n_live * w.shape[0] * WOOP_OPS)
         print(f"[K1 closest_hit] {label}: {o.shape[0]} rays x "
               f"{w.shape[0]} tris; tri mismatches {tri_mis} (must be 0); "
               f"hits {int(hit.sum())}; max |t,u,v err| {err:.3g} "
-              f"(tolerance 1e-6); kernel {ms:.3f} ms, plain {plain:.3f} ms",
-              flush=True)
+              f"(tolerance 1e-6); kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+              f"bound {bnd[0]:.3f} ms ({bnd[1]})", flush=True)
         require(tri_mis == 0, f"K1 {label}: triangle ids differ")
         require(err <= 1e-6, f"K1 {label}: t/u/v differ by {err}")
-        record("closest_hit", err, ms, plain)
+        record("closest_hit", err, ms, plain, bnd)
 
     # K1: primary rays of the bench camera, and the emissive subset
     ys, xs = torch.meshgrid(torch.arange(HEIGHT, device=dev),
@@ -238,13 +288,17 @@ def phase_kernels(dev):
     mis = int((got != want).sum())
     ms = cuda_ms(lambda: ray_tri.any_hit(scene, a, sd, tn, tf), 10)
     plain = cuda_ms(lambda: ray_tri.any_hit_ref(w, a, sd, tn, tf), 3)
+    # a visible live ray needs every triangle, an occluded one at least one
+    visible = int(((tf >= tn) & ~want).sum())
+    bnd = bound(n * (RAY_BYTES + 1) + w.shape[0] * 48,
+                (visible * w.shape[0] + int(want.sum())) * WOOP_OPS)
     print(f"[K2 any_hit] shadow segments: {n} rays x {w.shape[0]} tris, "
           f"{int((tf < tn).sum())} dead; mask mismatches {mis} (must be 0); "
           f"occluded {int(want.sum())}; kernel {ms:.3f} ms, plain "
-          f"{plain:.3f} ms", flush=True)
+          f"{plain:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]})", flush=True)
     require(mis == 0, "K2: occlusion masks differ")
     record("any_hit", float((got.float() - want.float()).abs().max()), ms,
-           plain)
+           plain, bnd)
 
     # K3: spatial taps (K=5, r=5, C=24 slim and C=32 full), temporal
     # reprojection taps (K=1, r=8, C=24 and the C=3 position tap)
@@ -267,11 +321,17 @@ def phase_kernels(dev):
         err = float((got - want).abs().max())
         ms = cuda_ms(lambda: lg.gather_local(payload, ty, tx, r), 10)
         plain = cuda_ms(lambda: lg.gather_local_ref(payload, ty, tx), 10)
+        # the library call: advanced indexing (int64 indices made first)
+        tyl, txl = ty.long(), tx.long()
+        library = cuda_ms(lambda: payload[tyl, txl], 10)
+        bnd = bound(4 * (HEIGHT * WIDTH * c + 2 * k * HEIGHT * WIDTH
+                         + k * HEIGHT * WIDTH * c), 0)
         print(f"[K3 gather_local] {label}: K={k} r={r} C={c} at "
               f"{HEIGHT}x{WIDTH}; bit-identical {equal}; kernel {ms:.3f} ms, "
-              f"plain {plain:.3f} ms", flush=True)
+              f"plain {plain:.3f} ms, PyTorch indexing {library:.3f} ms, "
+              f"bound {bnd[0]:.3f} ms ({bnd[1]})", flush=True)
         require(equal, f"K3 {label}: gather differs from the plain version")
-        record("gather_local", err, ms, plain)
+        record("gather_local", err, ms, plain, bnd, library)
 
     # K4: the backward of the spatial taps (K=5, r=5, disk_r2=30), taps
     # drawn from the pass's own disk-offset table and clamped to the screen
@@ -294,26 +354,44 @@ def phase_kernels(dev):
         err = float((got - want).abs().max())
         ms = cuda_ms(lambda: lg.scatter_local(gn, tys, txs, r4, disk_r2), 10)
         plain = cuda_ms(lambda: lg.scatter_local_ref(gn, tys, txs), 10)
+        # the library call: index_add of the cotangents into a zero payload
+        flat = (tys.long() * WIDTH + txs.long()).reshape(-1)
+        zero = torch.zeros((HEIGHT * WIDTH, c), device=dev)
+        src = gn.reshape(-1, c)
+        library = cuda_ms(lambda: torch.index_add(zero, 0, flat, src), 10)
+        bnd = bound(4 * (k4 * HEIGHT * WIDTH * c + 2 * k4 * HEIGHT * WIDTH
+                         + HEIGHT * WIDTH * c), 0)
         print(f"[K4 scatter_local] spatial taps: K={k4} r={r4} "
               f"disk_r2={disk_r2} C={c} at {HEIGHT}x{WIDTH}; integer "
               f"cotangents bit-identical {equal}; normal cotangents max "
               f"|err| {err:.3g} (tolerance 1e-5: the plain index_add_ sums "
-              f"in atomic order); kernel {ms:.3f} ms, plain {plain:.3f} ms",
-              flush=True)
+              f"in atomic order); kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+              f"PyTorch index_add {library:.3f} ms, bound {bnd[0]:.3f} ms "
+              f"({bnd[1]})", flush=True)
         require(equal, f"K4 C={c}: differs from the plain version on "
                 "integer cotangents")
         require(err <= 1e-5, f"K4 C={c}: max error {err}")
-        record("scatter_local", err, ms, plain)
+        record("scatter_local", err, ms, plain, bnd, library)
     return results
 
 
 _SCENES = {}
 
 
+def _woop_rebuild(scene, device):
+    """A clustered scene's triangles rebuilt at cluster size 128 (the Woop
+    blocks of ptrace_mxu), as tests/test_ptrace.py rebuilds its terrain."""
+    from tpu_restir_torch.scene.procedural import TERRAIN_SPECS
+    from tpu_restir_torch.scene.scene import build_scene
+    return build_scene(scene.tri_v.cpu().numpy(), scene.tri_mat.cpu().numpy(),
+                       TERRAIN_SPECS, device, cluster_size=128)
+
+
 def large_scene(label, dev):
-    """terrain100k (terrain_scene(100_000), the bench camera of bench.py)
-    or lights1k (many_lights_scene(1000), the Cornell camera), built once
-    per device -> (scene, camera view)."""
+    """terrain100k (terrain_scene(100_000), the bench camera of bench.py),
+    lights1k (many_lights_scene(1000), the Cornell camera), or the Woop
+    variant's terrain100k-128 / terrain20k-128 (the terrain rebuilt at
+    cluster size 128), built once per device -> (scene, camera view)."""
     import torch
 
     from tpu_restir_torch.scene.cornell import many_lights_scene
@@ -324,7 +402,11 @@ def large_scene(label, dev):
             "terrain100k": (lambda d: terrain_scene(d, 100_000),
                             TERRAIN_VIEW),
             "lights1k": (lambda d: many_lights_scene(d, 1000),
-                         CORNELL_VIEW)}[label]
+                         CORNELL_VIEW),
+            "terrain100k-128": (lambda d: _woop_rebuild(
+                large_scene("terrain100k", d)[0], d), TERRAIN_VIEW),
+            "terrain20k-128": (lambda d: _woop_rebuild(
+                terrain_scene("cpu", 20_000), d), TERRAIN_VIEW)}[label]
         t0 = time.perf_counter()
         scene = build(torch.device(dev))
         if key[1] != "cpu":
@@ -339,104 +421,198 @@ def large_scene(label, dev):
 def capture_packets(scene, cfg, dev):
     """The packed rays of two queries of one bench frame: the first
     closest-hit query (the G-buffer's primary rays) and the first any-hit
-    query of a whole frame (the area candidate's shadow rays)."""
+    query of a whole frame (the area candidate's shadow rays); under
+    ptrace_mxu those of the Woop kernels' wrappers."""
     from tpu_restir_torch.kernels import cluster_trace as ct
     n = cfg.camera.width * cfg.camera.height
     got = {}
-    orig = {"closest": ct.closest_packets, "any": ct.any_packets}
+    names = {"closest": "closest_packets", "any": "any_packets"}
+    if cfg.intersector.ptrace_mxu:
+        names = {k: v + "_mxu" for k, v in names.items()}
+    orig = {k: getattr(ct, v) for k, v in names.items()}
 
     def recorder(kind):
-        def call(ctris, cmin, cmax, pk):
+        def call(*args):
+            pk = args[-1]
             if kind not in got and pk.n_rays == n:
                 got[kind] = pk
-            return orig[kind](ctris, cmin, cmax, pk)
+            return orig[kind](*args)
         return call
 
-    ct.closest_packets, ct.any_packets = recorder("closest"), recorder("any")
+    for kind, name in names.items():
+        setattr(ct, name, recorder(kind))
     try:
         run_frames(scene, cfg, dev, 1)
     finally:
-        ct.closest_packets, ct.any_packets = orig["closest"], orig["any"]
+        for kind, name in names.items():
+            setattr(ct, name, orig[kind])
     require(set(got) == {"closest", "any"},
             f"a 1080p frame made no full-frame query of kind "
             f"{ {'closest', 'any'} - set(got)}")
     return got["closest"], got["any"]
 
 
+def trace_bound(kind, scene, pk, out):
+    """(bound_ms, bound_by) of a clustered query at factor 1, from what
+    its data needs at the packets' granularity: a closest-hit packet tests
+    its live rays against every listed cluster whose entry distance is
+    within the packet's max(min(t, tfar)) at the end (the least any
+    front-to-back traversal tests); an any-hit packet tests each visible
+    live ray against every listed cluster and each occluded ray against
+    one triangle. Bytes: the rays, the outputs, the listed shortlist
+    entries (id and entry distance) and every cluster block once."""
+    import torch
+
+    from tpu_restir_torch.kernels import cluster_trace as ct
+    require(pk.factor == 1, "the bound is written for factor 1")
+    woop = kind.endswith("_mxu")
+    if woop:
+        rows, ops = ct.WOOP_BLOCK, WOOP_OPS
+        block_bytes = scene.cluster_woop[0].numel() * 4
+    else:
+        rows, ops = scene.cluster_tris.shape[1], MT_OPS
+        block_bytes = scene.cluster_tris[0].numel() * 4
+    rp = pk.count.shape[0]
+    live = (pk.tfar >= pk.tnear).view(rp, ct.P)
+    count = pk.count.long()
+    if kind.startswith("trace_closest"):
+        t = out[0].view(rp, ct.P)
+        reach = torch.where(live, torch.minimum(t, pk.tfar.view(rp, ct.P)),
+                            -float("inf")).amax(1)
+        listed = torch.arange(pk.entry.shape[1], device=count.device)[None] \
+            < count[:, None]
+        needed = ((pk.entry <= reach[:, None]) & listed).sum(1)
+        pairs = int((live.sum(1) * needed).sum()) * rows
+        out_bytes = 16
+    else:
+        occ = out.view(rp, ct.P)
+        visible = (live & ~occ).sum(1)
+        pairs = int((visible * count).sum()) * rows + int(occ.sum())
+        out_bytes = 1
+    n = pk.o.shape[0]
+    n_bytes = n * (RAY_BYTES + out_bytes) + int(count.sum()) * 8 \
+        + scene.cluster_tris.shape[0] * block_bytes
+    return bound(n_bytes, pairs * ops)
+
+
+def _trace_fns(kind, scene):
+    """(kernel, plain version) of a clustered query kind, each pk -> out."""
+    from tpu_restir_torch.kernels import cluster_trace as ct
+    ctris, cmin, cmax = scene.cluster_tris, scene.cluster_min, \
+        scene.cluster_max
+    cw = scene.cluster_woop
+    return {
+        "trace_closest": (lambda pk: ct.closest_packets(ctris, cmin, cmax, pk),
+                          lambda pk: ct.trace_closest_ref(ctris, pk)),
+        "trace_any": (lambda pk: ct.any_packets(ctris, cmin, cmax, pk),
+                      lambda pk: ct.trace_any_ref(ctris, pk)),
+        "trace_closest_mxu": (lambda pk: ct.closest_packets_mxu(cw, pk),
+                              lambda pk: ct.trace_closest_mxu_ref(cw, pk)),
+        "trace_any_mxu": (lambda pk: ct.any_packets_mxu(cw, pk),
+                          lambda pk: ct.trace_any_mxu_ref(cw, pk)),
+    }[kind]
+
+
 def phase_ptrace_kernels(dev, results):
-    """K5/K6 against their plain versions on the card: the kernels on the
-    whole of 1080p queries of a bench frame, the plain versions on
-    SAMPLE_PACKETS packets spread over the frame. terrain100k: the G-buffer
-    query (K5), the area candidate's shadow query (K6; few occluded, the
-    sun stands above the terrain) and the G-buffer rays as an occlusion
-    query (K6, cull mode 5, every hit occluded); lights1k: its G-buffer and
-    shadow queries. Then factor 4 against factor 1 on
-    terrain_scene(20_000). Adds the JSON entries (terrain100k's first
-    check of each kernel) to results."""
+    """K5-K8 against their plain versions on the card, both on the whole
+    of 1080p queries of a bench frame. terrain100k: the G-buffer query
+    (K5), the area candidate's shadow query (K6) and the G-buffer rays as
+    an occlusion query (K6, cull mode 5: every hit occluded, every sky
+    pixel visible); lights1k: its G-buffer and shadow queries;
+    terrain100k-128 under ptrace_mxu: the same three queries through K7
+    and K8, bit-identical, and K5/K6 timed on the same packets of the same
+    scene for comparison. The terrain's shadow queries have no occluded
+    ray (the sun stands high above a terrain that cannot shadow itself
+    from it), so each any-hit kernel must also be held, on each scene, to a
+    query with occluded and visible rays. Then factor 4 against factor 1
+    on terrain_scene(20_000). Adds the JSON entries (the first check of
+    each kernel) to results."""
     import torch
 
     from tpu_restir_torch.kernels import cluster_trace as ct
     from tpu_restir_torch.scene.procedural import terrain_scene
     checks = []
-    for name in ("terrain100k", "lights1k"):
+    for name in ("terrain100k", "lights1k", "terrain100k-128"):
         scene, view = large_scene(name, dev)
+        mxu = name.endswith("-128")
         closest_pk, any_pk = capture_packets(
-            scene, bench_cfg(WIDTH, HEIGHT, view), dev)
-        checks += [(name, scene, "trace_closest", "G-buffer primary rays",
-                    closest_pk),
-                   (name, scene, "trace_any", "area-candidate shadow rays",
-                    any_pk)]
-        if name == "terrain100k":
-            checks.append((name, scene, "trace_any",
+            scene, bench_cfg(WIDTH, HEIGHT, view, mxu=mxu), dev)
+        sfx = "_mxu" if mxu else ""
+        checks += [(name, scene, "trace_closest" + sfx,
+                    "G-buffer primary rays", closest_pk),
+                   (name, scene, "trace_any" + sfx,
+                    "area-candidate shadow rays", any_pk)]
+        if name.startswith("terrain100k"):
+            checks.append((name, scene, "trace_any" + sfx,
                            "G-buffer rays as occlusion rays", closest_pk))
+    both_sides = set()   # (scene, any-hit kind) held to occluded and visible
     for name, scene, kind, label, pk in checks:
-        ctris, cmin, cmax = scene.cluster_tris, scene.cluster_min, \
-            scene.cluster_max
         rp = pk.count.shape[0]
-        idx = torch.linspace(0, rp - 1, SAMPLE_PACKETS,
-                             device=dev).round().long().unique()
-        rows = (idx[:, None] * ct.P
-                + torch.arange(ct.P, device=dev)[None]).reshape(-1)
-        sample = pk.take(idx)
-        closest = kind == "trace_closest"
-        kernel = ct.closest_packets if closest else ct.any_packets
-        plain = ct.trace_closest_ref if closest else ct.trace_any_ref
-        got = kernel(ctris, cmin, cmax, pk)
-        want = plain(ctris, sample)
+        closest = kind.startswith("trace_closest")
+        kernel, plain = _trace_fns(kind, scene)
+        got = kernel(pk)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = plain(pk)
+        b.record()
         torch.cuda.synchronize()
+        plain_ms = a.elapsed_time(b)
+        live = pk.tfar >= pk.tnear
         if closest:
-            got = [x[rows] for x in got]
             mis = int((got[3] != want[3]).sum())
             hit = want[3] >= 0
+            n_pos = int(hit.sum())
             err = max(float((g[hit] - w[hit]).abs().max()) if hit.any()
                       else 0.0 for g, w in zip(got[:3], want[:3]))
-            what = f"tri mismatches {mis}; hits {int(hit.sum())}; max " \
-                f"|t,u,v err| {err:.3g} (tolerance 1e-6; both keep the " \
-                f"test's operation order without contractions, so 0 is " \
-                f"expected)"
+            what = f"tri mismatches {mis}; hits {n_pos}; max |t,u,v err| " \
+                f"{err:.3g} (0 expected: both keep the test's operation " \
+                f"order without contractions)"
         else:
-            got = got[rows]
             mis = int((got != want).sum())
+            n_pos = int(want.sum())
             err = float((got.float() - want.float()).abs().max())
-            what = f"mask mismatches {mis}; occluded {int(want.sum())}"
-        ms = cuda_ms(lambda: kernel(ctris, cmin, cmax, pk), 5)
-        plain_ms = cuda_ms(lambda: plain(ctris, sample), 1)
-        dead = int((pk.tfar[:pk.n_rays] < pk.tnear[:pk.n_rays]).sum())
-        mode = ct._skip_for("closest" if closest else "any",
-                            ctris.shape[0], pk.factor)
-        print(f"[K5/K6 {kind}] {name} {label}: {pk.n_rays} rays in "
+            what = f"mask mismatches {mis}; occluded {n_pos}, visible " \
+                f"{int((live & ~want).sum())}"
+            if n_pos and bool((live & ~want).any()):
+                both_sides.add((name, kind))
+        ms = cuda_ms(lambda: kernel(pk), 5)
+        bnd = trace_bound(kind, scene, pk, got)
+        dead = int((~live[:pk.n_rays]).sum())
+        mode = 0 if kind.endswith("_mxu") else ct._skip_for(
+            "closest" if closest else "any", scene.cluster_tris.shape[0],
+            pk.factor)
+        extra = ""
+        if kind.endswith("_mxu"):
+            # the fused Moller-Trumbore kernel on the same scene and packets
+            other = kind[:-4]
+            ms_mt = cuda_ms(lambda: _trace_fns(other, scene)[0](pk), 5)
+            extra = f"; {other} (K5/K6) on the same packets {ms_mt:.3f} ms"
+        print(f"[K5-K8 {kind}] {name} {label}: {pk.n_rays} rays in "
               f"{rp} packets, {dead} dead after the scene-box clamp; C="
-              f"{ctris.shape[0]} clusters, mean shortlist "
+              f"{scene.cluster_tris.shape[0]} clusters of "
+              f"{scene.cluster_tris.shape[1]}, mean shortlist "
               f"{float(pk.count.float().mean()):.1f}, cull mode {mode}; "
-              f"{idx.numel()} sampled packets ({rows.numel()} rays): {what} "
-              f"(must be 0 mismatches); kernel {ms:.3f} ms on the whole "
-              f"query, plain {plain_ms:.3f} ms on the sample", flush=True)
+              f"the whole query against the plain version: {what} (must be "
+              f"0 mismatches); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bnd[0]:.3f} ms ({bnd[1]}){extra}", flush=True)
         require(mis == 0, f"{kind} {name} {label}: kernel and plain version "
-                f"differ on {mis} sampled rays")
+                f"differ on {mis} rays")
+        if closest:
+            require(n_pos > 0, f"{kind} {name} {label}: no ray hit")
+        if kind.endswith("_mxu"):
+            require(err == 0.0, f"{kind} {name} {label}: t/u/v differ by "
+                    f"{err}, not bit-identical")
         require(err <= 1e-6, f"{kind} {name} {label}: t/u/v differ by {err}")
         e = results.setdefault(kind, {"max_abs_err": 0.0, "ms": ms,
-                                      "plain_ms": plain_ms})
+                                      "plain_ms": plain_ms,
+                                      "bound_ms": bnd[0], "bound_by": bnd[1],
+                                      "library_ms": None})
         e["max_abs_err"] = max(e["max_abs_err"], err)
+    lacking = {(name, kind) for name, _s, kind, _l, _p in checks
+               if kind.startswith("trace_any")} - both_sides
+    require(not lacking, f"any-hit kernels not held to a query with both "
+            f"occluded and visible rays: {sorted(lacking)}")
 
     # superclusters: factor 4 forced against factor 1 (closest-hit cull
     # mode 5 at factor > 1); random rays, so no exact t ties between
@@ -490,23 +666,23 @@ def scene_and_view(label, dev):
     return large_scene(label, dev)
 
 
-def phase_small(label="cornell"):
-    """The port at 64x32 on cuda and on cpu; returns (mean, stderr) of the
-    cuda image."""
+def phase_small(label="cornell", frames=SMALL_FRAMES):
+    """The port at 64x32 on cuda and on cpu (ptrace_mxu on the -128
+    scenes); returns (mean, stderr) of the cuda image."""
     import torch
 
     out = {}
     for dev in ("cuda", "cpu"):
         scene, view = scene_and_view(label, torch.device(dev))
-        cfg = bench_cfg(SMALL_W, SMALL_H, view)
-        img, state = run_frames(scene, cfg, torch.device(dev), SMALL_FRAMES)
+        cfg = bench_cfg(SMALL_W, SMALL_H, view, mxu=label.endswith("-128"))
+        img, state = run_frames(scene, cfg, torch.device(dev), frames)
         pix = img.mean(-1).cpu()
         out[dev] = (float(pix.mean()), float(pix.std() / pix.numel() ** 0.5),
                     state.res_prev.sample.point.cpu())
     (mc, sc, pc), (mp, sp, pp) = out["cuda"], out["cpu"]
     comb = (sc * sc + sp * sp) ** 0.5
     differ = float(((pc - pp).abs().amax(-1) > 1e-4).float().mean())
-    print(f"[cross-device] {label} {SMALL_W}x{SMALL_H}, {SMALL_FRAMES} "
+    print(f"[cross-device] {label} {SMALL_W}x{SMALL_H}, {frames} "
           f"frames: mean "
           f"cuda {mc:.6f} cpu {mp:.6f} (|diff| {abs(mc - mp):.3g}, allowed "
           f"3 x {comb:.3g}); reservoirs with a different sample "
@@ -537,7 +713,7 @@ def phase_main_path(dev, small_mean, small_se, smi):
     dt = time.perf_counter() - t0
     intersect.QUERY_LOG = None
     launches = {k: v for k, v in _launches().items()
-                if k not in ("scatter_local", "trace_closest", "trace_any")}
+                if k != "scatter_local" and not k.startswith("trace_")}
     # (the forward has no backward; a 36-triangle scene no clusters)
     rays = sum(e["rays"] for e in qlog)
     traced_rpp = rays / float(WIDTH * HEIGHT * N_FRAMES)
@@ -591,12 +767,13 @@ def phase_passes(dev):
 
 def phase_large_path(dev, label, smi, small_mean):
     """The main path on a clustered scene: Renderer at 1920x1080 in the
-    bench config, LARGE_FRAMES frames after a warm-up. 28 traced rays per
-    pixel; every scene query through K5/K6 (one launch per ptrace_chunk of
-    each logged query, so no query ran a plain version), K1 launched on the
-    emissive subset and K2 never; a finite image with a mean within a
-    factor 4 of the 64x32 run's (another aspect, so not a tight match).
-    Returns the launches."""
+    bench config, LARGE_FRAMES frames after a warm-up; on the -128 scenes
+    with ptrace_mxu. 28 traced rays per pixel; every scene query through
+    K5/K6, or K7/K8 under ptrace_mxu (one launch per ptrace_chunk of each
+    logged query, so no query ran a plain version, and the other pair
+    never), K1 launched on the emissive subset and K2 never; a finite image
+    with a mean within a factor 4 of the 64x32 run's (another aspect, so
+    not a tight match). Returns the launches."""
     import torch
 
     from tpu_restir_torch import metrics
@@ -604,7 +781,8 @@ def phase_large_path(dev, label, smi, small_mean):
     from tpu_restir_torch.renderer import Renderer
 
     scene, view = large_scene(label, dev)
-    cfg = bench_cfg(WIDTH, HEIGHT, view)
+    mxu = label.endswith("-128")
+    cfg = bench_cfg(WIDTH, HEIGHT, view, mxu=mxu)
     Renderer(scene, cfg, device=dev).run(1)      # warm-up
     torch.cuda.synchronize()
     renderer = Renderer(scene, cfg, device=dev)
@@ -620,17 +798,19 @@ def phase_large_path(dev, label, smi, small_mean):
     traced_rpp = rays / float(WIDTH * HEIGHT * LARGE_FRAMES)
     analytic = metrics.rays_per_pixel(cfg)
     chunk = cfg.intersector.ptrace_chunk
-    chunks = {f"trace_{kind}": sum(-(-e["rays"] // chunk) for e in qlog
-                                   if e["kind"] == kind)
+    sfx, other = ("_mxu", "") if mxu else ("", "_mxu")
+    chunks = {f"trace_{kind}{sfx}": sum(-(-e["rays"] // chunk) for e in qlog
+                                        if e["kind"] == kind)
               for kind in ("closest", "any")}
     backends = sorted({e["backend"] for e in qlog})
     mean, _var = renderer.stats()
     finite = bool(torch.isfinite(img).all())
-    print(f"[large path] {label} {WIDTH}x{HEIGHT}, {LARGE_FRAMES} frames: "
+    print(f"[large path] {label} {WIDTH}x{HEIGHT}"
+          f"{' ptrace_mxu' if mxu else ''}, {LARGE_FRAMES} frames: "
           f"{dt / LARGE_FRAMES * 1e3:.2f} ms/frame, {rays / dt / 1e6:.2f} "
           f"Mrays/s (forward, {smi}); traced rays/pixel {traced_rpp} "
           f"(analytic {analytic}); query backends {backends}; launches "
-          f"{launches} (K5/K6 chunks of the logged queries {chunks}); image "
+          f"{launches} (chunks of the logged queries {chunks}); image "
           f"mean {mean:.6f} (64x32: {small_mean:.6f}), finite {finite}",
           flush=True)
     require(finite, f"{label}: image has non-finite values")
@@ -638,15 +818,159 @@ def phase_large_path(dev, label, smi, small_mean):
             f"{label}: traced {traced_rpp} rays/pixel, analytic {analytic}")
     require(backends == ["ptrace"], f"{label}: queries went to {backends}")
     require(all(launches[k] == v and v > 0 for k, v in chunks.items()),
-            f"{label}: K5/K6 launches {launches} do not cover every chunk "
-            f"of every query {chunks}")
+            f"{label}: launches {launches} do not cover every chunk of "
+            f"every query {chunks}")
+    require(launches[f"trace_closest{other}"] == 0
+            and launches[f"trace_any{other}"] == 0,
+            f"{label}: the other clustered kernels ran: {launches}")
     require(launches["closest_hit"] > 0 and launches["any_hit"] == 0,
             f"{label}: K1 must serve the emissive subset and K2 nothing: "
             f"{launches}")
     require(launches["gather_local"] > 0, f"{label}: K3 never launched")
     require(0.25 * small_mean < mean < 4.0 * small_mean,
             f"{label}: implausible image mean {mean} (64x32: {small_mean})")
+    if mxu:
+        # the same scene through K5/K6 (ptrace_mxu off), for comparison
+        cfg_mt = bench_cfg(WIDTH, HEIGHT, view)
+        Renderer(scene, cfg_mt, device=dev).run(1)
+        r_mt = Renderer(scene, cfg_mt, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r_mt.run(LARGE_FRAMES)
+        dt_mt = time.perf_counter() - t0
+        print(f"[large path] {label} without ptrace_mxu (K5/K6), the same "
+              f"scene and frames: {dt_mt / LARGE_FRAMES * 1e3:.2f} ms/frame "
+              f"against {dt / LARGE_FRAMES * 1e3:.2f} through K7/K8; image "
+              f"mean {r_mt.stats()[0]:.6f}", flush=True)
     return launches
+
+
+_SIDECAR_KEYS = ["Image name:", "", "Iteration count:", "Area samples:",
+                 "BRDF samples:", "", "Spatial reuse:", "\tPass count:",
+                 "\tNeighbor count:", "\tReuse radius:", "",
+                 "Temporal reuse:", "", "Render time:", "Image mean:",
+                 "Image variance:", "", "Camera position:", "Camera view at:",
+                 "Camera vertical FOV:", "", "Pass times (ms):"]
+
+
+def phase_cli(dev, smi):
+    """The CLI frame loop in-process: `cli.main` on terrain100k at
+    1920x1080 (the bench's terrain camera, temporal and 5-neighbour
+    pairwise spatial reuse) with --denoise, --profile-passes and a
+    checkpoint, CLI_FRAMES frames, then CLI_RESUMED more resumed from the
+    checkpoint. The PNG (1920x1080 RGBA) and the sidecar (the reference's
+    field layout, CLI_FRAMES + CLI_RESUMED iterations, the pass times)
+    must be written; the resumed renderer's denoised display must be
+    finite and differ from the raw one."""
+    import numpy as np
+
+    from tpu_restir_torch import cli
+    from tpu_restir_torch import renderer as renderer_mod
+    made = []
+    base = renderer_mod.Renderer
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        out = os.path.join(tmp, "terrain.png")
+        argv = ["--scene", "terrain", "--size", f"{WIDTH}x{HEIGHT}",
+                "--view-from", "0,-7,4", "--view-at", "0,0,0.5",
+                "--temporal", "--spatial", "--spatial-mis", "pairwise",
+                "--denoise", "--profile-passes", "--device", str(dev),
+                "--checkpoint", os.path.join(tmp, "ck"), "--out", out]
+        renderer_mod.Renderer = Recorded
+        try:
+            times = []
+            for frames in (CLI_FRAMES, CLI_RESUMED):
+                t0 = time.perf_counter()
+                require(cli.main(argv + ["--frames", str(frames)]) == 0,
+                        "cli.main failed")
+                times.append(time.perf_counter() - t0)
+        finally:
+            renderer_mod.Renderer = base
+        with open(out, "rb") as f:
+            head = f.read(26)
+        png_ok = (head[:8] == b"\x89PNG\r\n\x1a\n"
+                  and struct.unpack(">II", head[16:24]) == (WIDTH, HEIGHT)
+                  and head[24:26] == bytes([8, 6]))
+        lines = open(out + ".txt").read().splitlines()
+        layout = [ln.split(":")[0] + ":" if ":" in ln else ln
+                  for ln in lines[:len(_SIDECAR_KEYS)]]
+        iters = lines[2]
+        passes = {ln.split(":")[0].strip(): float(ln.split(":")[1])
+                  for ln in lines[len(_SIDECAR_KEYS):]}
+        r = made[-1]
+        den = r.display()
+        raw = renderer_mod.display_image(r.accumulator,
+                                         r.cfg.params).cpu().numpy()
+        finite = bool(np.isfinite(den).all())
+        differs = float(np.abs(den - raw).mean())
+        print(f"[cli] python -m tpu_restir_torch.cli {' '.join(argv[:-4])} "
+              f"...: {CLI_FRAMES} frames in {times[0]:.1f} s (scene build, "
+              f"profiled passes, denoise, export, checkpoint; "
+              f"{times[0] / CLI_FRAMES * 1e3:.1f} ms/frame), then "
+              f"{CLI_RESUMED} resumed in {times[1]:.1f} s; PNG {WIDTH}x"
+              f"{HEIGHT} RGBA {png_ok}; sidecar layout "
+              f"{layout == _SIDECAR_KEYS}, '{iters}', pass times (ms) "
+              f"{passes}; denoised display finite {finite}, mean |denoised "
+              f"- raw| {differs:.4f} ({smi})", flush=True)
+        require(png_ok, "the CLI's PNG is not a 1920x1080 RGBA PNG")
+        require(layout == _SIDECAR_KEYS, f"sidecar layout {layout}")
+        require(iters == f"Iteration count: {CLI_FRAMES + CLI_RESUMED}",
+                f"the resumed run ended at '{iters}'")
+        require(set(passes) == {"gbuffer", "initial", "temporal", "spatial",
+                                "shade"}, f"sidecar pass times {passes}")
+        require(r.acc_ctr == CLI_FRAMES + CLI_RESUMED,
+                "the resumed renderer did not carry the checkpoint")
+        require(finite and differs > 1e-4,
+                "the denoised display is not finite or equals the raw one")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_denoise_cost(dev, smi):
+    """ms/frame of the 1080p bench frame on terrain100k with and without
+    the denoiser: Renderer.run over 3 frames after a warm-up (with it,
+    each step adds the SVGF temporal update), and one display() each (with
+    it, the 5-level a-trous filter). Then the two parts alone with CUDA
+    events on the last frame's inputs: svgf_temporal_update of the frame
+    into the renderer's history, and the filter (Renderer._denoised); the
+    frame differences are only a cross-check."""
+    import torch
+
+    from tpu_restir_torch.config import replace
+    from tpu_restir_torch.denoise import svgf_temporal_update
+    from tpu_restir_torch.renderer import Renderer
+    scene, view = large_scene("terrain100k", dev)
+    out = {}
+    for denoise in (False, True):
+        cfg = bench_cfg(WIDTH, HEIGHT, view)
+        cfg = cfg.replace(params=replace(cfg.params, denoise=denoise))
+        r = Renderer(scene, cfg, device=dev)
+        r.run(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.run(3)
+        step_ms = (time.perf_counter() - t0) / 3 * 1e3
+        t0 = time.perf_counter()
+        img = r.display()
+        out[denoise] = (step_ms, (time.perf_counter() - t0) * 1e3)
+        require(bool((img == img).all()), "display has NaN")
+    (s0, d0), (s1, d1) = out[False], out[True]
+    hist, gb = r._svgf_hist, r._restir_state.gb_prev
+    update_ms = cuda_ms(
+        lambda: svgf_temporal_update(hist, r.accumulator, gb), 5)
+    filter_ms = cuda_ms(r._denoised, 5)
+    print(f"[denoise cost] terrain100k {WIDTH}x{HEIGHT}: without --denoise "
+          f"{s0:.2f} ms/frame, display {d0:.2f} ms; with --denoise "
+          f"{s1:.2f} ms/frame, display {d1:.2f} ms; alone (CUDA events, "
+          f"median of 5): SVGF temporal update {update_ms:.3f} ms, SVGF "
+          f"filter {filter_ms:.3f} ms (frame differences: update "
+          f"{s1 - s0:.2f} ms, filter {d1 - d0:.2f} ms) ({smi})", flush=True)
 
 
 def _counters():
@@ -708,7 +1032,7 @@ def phase_fwd_bwd(dev, smi):
         times.append(time.perf_counter() - t0)
     intersect.QUERY_LOG = None
     launches = {k: v for k, v in _launches().items()
-                if k not in ("trace_closest", "trace_any")}
+                if not k.startswith("trace_")}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     rays = sum(e["rays"] for e in qlog)
     rpp = rays / float(WIDTH * HEIGHT)
@@ -831,15 +1155,18 @@ def _profile(label, fn, path):
                               ("any_hit", "any_kernel"),
                               ("gather_local", "gather_kernel"),
                               ("scatter_local", "scatter_"),
-                              ("trace_closest", "trace_kernel<true>"),
-                              ("trace_any", "trace_kernel<false>"))}
+                              ("trace_closest", "trace_kernel<true, false>"),
+                              ("trace_any", "trace_kernel<false, false>"),
+                              ("trace_closest_mxu",
+                               "trace_kernel<true, true>"),
+                              ("trace_any_mxu", "trace_kernel<false, true>"))}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=80))
     print(f"[profile] {label}: wall {wall_ms:.1f} ms without the profiler; "
           f"device kernels {device_ms:.1f} ms in "
           f"{sum(e.count for e in kernels)} launches, busy share "
-          f"{device_ms / wall_ms:.3f}; K1-K6 ms "
+          f"{device_ms / wall_ms:.3f}; K1-K8 ms "
           f"{ {k: round(v, 3) for k, v in ours.items()} } "
           f"({sum(ours.values()) / device_ms:.3f} of device time); table in "
           f"{path}", flush=True)
@@ -848,7 +1175,8 @@ def _profile(label, fn, path):
 def phase_profile(dev, path):
     """Two 1080p forward frames, one 1080p fwd+bwd step and one 1080p
     frame of each clustered scene under torch.profiler; the tables go to
-    PATH and to PATH with _fwd_bwd, _terrain100k or _lights1k before the
+    PATH and to PATH with _fwd_bwd, _terrain100k, _lights1k or
+    _terrain100k-128 before the
     extension."""
     from tpu_restir_torch import cornell_box
     cfg = bench_cfg(WIDTH, HEIGHT)
@@ -858,9 +1186,9 @@ def phase_profile(dev, path):
     vg, params = bench_step(dev, WIDTH, HEIGHT)
     root, ext = os.path.splitext(path)
     _profile("1 fwd+bwd step", lambda: vg(params), f"{root}_fwd_bwd{ext}")
-    for label in ("terrain100k", "lights1k"):
+    for label in ("terrain100k", "lights1k", "terrain100k-128"):
         big, view = large_scene(label, dev)
-        bcfg = bench_cfg(WIDTH, HEIGHT, view)
+        bcfg = bench_cfg(WIDTH, HEIGHT, view, mxu=label.endswith("-128"))
         _profile(f"1 {label} frame",
                  lambda: run_frames(big, bcfg, dev, 1),
                  f"{root}_{label}{ext}")
@@ -884,15 +1212,23 @@ def main():
     # the clustered scenes: K5/K6 launches are those of their two paths
     launches.update(trace_closest=0, trace_any=0)
     for label in ("terrain100k", "lights1k"):
-        small_mean, _se = phase_small(label)
+        small_mean, _se = phase_small(label, CLUSTER_SMALL_FRAMES)
         got = phase_large_path(dev, label, smi, small_mean)
         for key in ("trace_closest", "trace_any"):
             launches[key] += got[key]
     phase_grad_small("terrain100k")
+    # the Woop variant: K7/K8 launches are those of its path
+    small_mean, _se = phase_small("terrain20k-128", CLUSTER_SMALL_FRAMES)
+    got = phase_large_path(dev, "terrain100k-128", smi, small_mean)
+    for key in ("trace_closest_mxu", "trace_any_mxu"):
+        launches[key] = got[key]
+    phase_cli(dev, smi)
+    phase_denoise_cost(dev, smi)
     profile = [a.split("=", 1)[1] for a in sys.argv[1:]
                if a.startswith("--profile=")]
     if profile:
         phase_profile(dev, profile[0])
+    # after the CLI's exports and checkpoints
     loaded = sorted(m for m in sys.modules if m.split(".")[0]
                     in ("jax", "jaxlib", "flax", "tpu_restir"))
     require(not loaded, f"JAX or the JAX package was imported: {loaded}")
@@ -910,11 +1246,16 @@ def main():
                           "tpu_restir/kernels/cluster_trace.py:314"),
         "trace_any": ("tpu_restir_torch/csrc/cluster_trace.cu",
                       "tpu_restir/kernels/cluster_trace.py:566"),
+        "trace_closest_mxu": ("tpu_restir_torch/csrc/cluster_trace.cu",
+                              "tpu_restir/kernels/cluster_trace.py:795"),
+        "trace_any_mxu": ("tpu_restir_torch/csrc/cluster_trace.cu",
+                          "tpu_restir/kernels/cluster_trace.py:888"),
     }
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[k],
-                "max_abs_err": results[k]["max_abs_err"],
-                "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"]}
+                **{key: results[k][key] for key in keys}}
                for k, (src, rep) in meta.items()]
     print(smi)
     print(json.dumps({"kernels": kernels}))

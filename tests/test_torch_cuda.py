@@ -7,9 +7,9 @@ are absent:
 
 Tolerances: hit ids, occlusion masks and gathered values are exact, and so
 are t, u, v: the ray/triangle kernels (K1/K2) and the clustered traversal
-(K5/K6) are built with --fmad=false and keep the plain version's operation
-order, and PyTorch runs each operation of the plain version as its own
-kernel, so both round every step alike. K4
+(K5/K6, and its Woop variant K7/K8) are built with --fmad=false and keep
+the plain version's operation order, and PyTorch runs each operation of
+the plain version as its own kernel, so both round every step alike. K4
 (scatter_local) is exact on integer cotangents (exact in any summation
 order) and within 1e-5 on normal ones (its plain version, index_add_, sums
 in atomic order). Gradients on cuda and cpu: closest_hit's (go, gd) at
@@ -382,3 +382,69 @@ def test_ptrace_gradient_cuda_matches_cpu(cuda):
     assert float(grads["cpu"][0].abs().max()) > 0.0
     for a, b in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def _woop_terrain(dev, n):
+    """terrain_scene(n) rebuilt at cluster size 128 (Woop blocks)."""
+    from tpu_restir_torch.scene.procedural import TERRAIN_SPECS
+    from tpu_restir_torch.scene.scene import build_scene
+    t = terrain_scene("cpu", n)
+    return build_scene(t.tri_v.numpy(), t.tri_mat.numpy(), TERRAIN_SPECS,
+                       dev, cluster_size=128)
+
+
+@pytest.mark.parametrize("n", [1, 700, 100_003])
+def test_trace_closest_mxu_kernel_matches_plain(cuda, n):
+    """K7 against its plain version on every ray (terrain_scene(5_000) at
+    cluster size 128: 40 clusters)."""
+    scene = _woop_terrain(cuda, 5_000)
+    pk = _packets(scene, _cluster_rays(cuda, n, n, 4.0, 1e4, 0.1))
+    before = ct.LAUNCHES["trace_closest_mxu"]
+    got = ct.closest_packets_mxu(scene.cluster_woop, pk)
+    assert ct.LAUNCHES["trace_closest_mxu"] == before + 1
+    want = ct.trace_closest_mxu_ref(scene.cluster_woop, pk)
+    torch.cuda.synchronize()
+    assert got[3].dtype == torch.int32
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if n > 1:
+        assert 0 < int((got[3] >= 0).sum()) < n
+
+
+def test_trace_any_mxu_kernel_matches_plain(cuda):
+    """K8 against its plain version; dead rays are never occluded."""
+    scene = _woop_terrain(cuda, 5_000)
+    rays = _cluster_rays(cuda, 100_003, 3, 4.0, 2.0, 0.1)
+    pk = _packets(scene, rays)
+    before = ct.LAUNCHES["trace_any_mxu"]
+    got = ct.any_packets_mxu(scene.cluster_woop, pk)
+    assert ct.LAUNCHES["trace_any_mxu"] == before + 1
+    want = ct.trace_any_mxu_ref(scene.cluster_woop, pk)
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    assert 0 < int(got.sum()) < got.numel()
+    assert not got[:pk.n_rays][rays[3] < rays[2]].any()
+
+
+def test_ptrace_mxu_selects_k7_k8(cuda):
+    """Through the query: ptrace_mxu on a cluster-size-128 scene launches
+    K7/K8 and not K5/K6, once per chunk; their dead-packet results miss."""
+    from tpu_restir_torch.config import IntersectorConfig
+    from tpu_restir_torch.render import intersect
+    scene = _woop_terrain(cuda, 5_000)
+    o, d, tn, tf = _cluster_rays(cuda, 20_000, 9, 4.0, 1e4)
+    cfg = IntersectorConfig(backend="ptrace", ptrace_mxu=True,
+                            ptrace_chunk=8192)
+    before = dict(ct.LAUNCHES)
+    h = intersect.intersect_closest(scene, o, d, tn, tf, cfg)
+    occ = intersect.intersect_any(scene, o, d, tn, torch.full_like(tf, 2.0),
+                                  cfg)
+    torch.cuda.synchronize()
+    grew = {k: ct.LAUNCHES[k] - before[k] for k in before}
+    assert grew == {"trace_closest": 0, "trace_any": 0,
+                    "trace_closest_mxu": 3, "trace_any_mxu": 3}
+    assert 0 < int(h.hit.sum()) < 20_000 and 0 < int(occ.sum()) < 20_000
+    dead = torch.full_like(tf, -1.0)
+    t, _u, _v, tri = ct.trace_closest(scene.cluster_tris, scene.cluster_min,
+                                      scene.cluster_max, o, d, tn, dead,
+                                      cwoop=scene.cluster_woop)
+    assert bool((tri == -1).all()) and bool(torch.isinf(t).all())

@@ -1,8 +1,10 @@
 """The port never imports JAX: a fresh interpreter imports tpu_restir_torch,
-renders a 16x16 frame on the CPU and takes its gradient w.r.t. the
-material table (`diff`), builds a clustered terrain and renders it through
-the clustered traversal, and neither JAX nor the JAX package
-(`tpu_restir`) may be loaded. It runs in a subprocess because the test
+renders a 16x16 frame on the CPU and exports it, takes its gradient
+w.r.t. the material table (`diff`), builds a clustered terrain and renders
+it through the clustered traversal (and a cluster-size-128 terrain through
+its Woop variant), runs the CLI with a denoised, profiled, checkpointed
+16x16 render, and neither JAX nor the JAX package (`tpu_restir`) may be
+loaded. It runs in a subprocess because the test
 session itself has JAX loaded (the root conftest configures it).
 
 The port keeps its own copy of the config dataclasses; the second test
@@ -34,6 +36,10 @@ r = Renderer(cornell_box("cpu"), cfg, device="cpu")
 r.run(2)
 mean, var = r.stats()
 assert mean > 0.0 and var >= 0.0, (mean, var)
+import os, tempfile
+tmp = tempfile.mkdtemp()
+r.export(os.path.join(tmp, "frame.png"))
+assert os.path.exists(os.path.join(tmp, "frame.png.txt"))
 import torch
 from tpu_restir_torch.diff import optimize, params, render
 from tpu_restir_torch.render.camera import make_camera
@@ -53,6 +59,20 @@ r = Renderer(terrain, cfg.replace(camera=cfg.camera.__class__(
     view_at=(0.0, 0.0, 0.5))), device="cpu")
 r.run(1)
 assert r.stats()[0] > 0.0
+from tpu_restir_torch.scene.procedural import TERRAIN_SPECS
+from tpu_restir_torch.scene.scene import build_scene
+woop = build_scene(terrain.tri_v.numpy(), terrain.tri_mat.numpy(),
+                   TERRAIN_SPECS, "cpu", cluster_size=128)
+hit = cluster_trace.trace_closest(
+    woop.cluster_tris, woop.cluster_min, woop.cluster_max,
+    torch.tensor([[0.0, -7.0, 4.0]]), torch.tensor([[0.0, 0.8, -0.6]]),
+    torch.tensor([1e-3]), torch.tensor([1e4]), cwoop=woop.cluster_woop)
+assert int(hit[3][0]) >= 0
+from tpu_restir_torch import cli
+assert cli.main(["--size", "16x16", "--frames", "2", "--temporal",
+                 "--denoise", "--profile-passes", "--device", "cpu",
+                 "--checkpoint", os.path.join(tmp, "ck"),
+                 "--out", os.path.join(tmp, "cli.png")]) == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "tpu_restir"))
 print("LOADED", bad)

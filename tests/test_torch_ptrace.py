@@ -1,7 +1,8 @@
 """The port's clustered traversal ("ptrace": phase 1 and the plain versions
-of K5/K6, `kernels/cluster_trace.py`, and its use in `render/intersect.py`)
-against the JAX package's, whose Pallas kernels run in the interpreter on
-the CPU as tests/test_ptrace.py runs them.
+of K5/K6 and of their Woop variant K7/K8, `kernels/cluster_trace.py`, and
+its use in `render/intersect.py`) against the JAX package's, whose Pallas
+kernels run in the interpreter on the CPU as tests/test_ptrace.py runs
+them.
 
 Tolerances:
   * phase 1 (tfar clamp, packet counts, shortlists, entry distances) is
@@ -17,7 +18,17 @@ Tolerances:
     on terrain_scene(20_000)) turns one rounding of either side into
     1e-5 of u;
   * gradients of the detached winner: rtol 2e-4, atol 2e-5, as
-    tests/test_ptrace.py holds the JAX backends to each other.
+    tests/test_ptrace.py holds the JAX backends to each other;
+  * the Woop variant (K7/K8, terrain_scene(5_000) rebuilt at cluster size
+    128 as tests/test_ptrace.py builds it): the JAX kernels take the six
+    dot products as jnp.dot at HIGHEST precision, which XLA on the CPU may
+    sum in another order or with FMA; a Woop term o_x w_0 reaches ~400 on
+    that terrain (w ~ 1 / edge), so one rounding of a sum moves u, v or t
+    by up to ~1e-4. Ids and masks are exact except on rays within
+    WOOP_MARGIN = 1e-4 of a barycentric bound (u, v, u + v against the
+    1e-5 slack), of the t range or of a t tie over every triangle of the
+    scene, and those may be at most 0.1% of the rays (on 640 rays: none);
+    t within rtol 1e-5, u and v within the conditioning bound above.
 
 The kernels themselves run only on a card: tests/test_torch_cuda.py.
 """
@@ -32,21 +43,31 @@ import torch
 
 from tpu_restir.config import IntersectorConfig as JIntersectorConfig
 from tpu_restir.kernels import cluster_trace as jct
+from tpu_restir.kernels.woop import build_woop_matrices as j_build_woop
 from tpu_restir.render import intersect as jintersect
+from tpu_restir.scene.materials import MaterialSpec as JMaterialSpec
+from tpu_restir.scene.materials import MatType as JMatType
 from tpu_restir.scene.procedural import terrain_scene as j_terrain
 from tpu_restir.scene.procedural import triangle_soup as j_soup
+from tpu_restir.scene.scene import build_scene as j_build_scene
+from tpu_restir_torch import convert
 from tpu_restir_torch.config import IntersectorConfig
 from tpu_restir_torch.kernels import cluster_trace as tct
 from tpu_restir_torch.render import intersect as tintersect
 from tpu_restir_torch.scene.cornell import cornell_box as t_cornell_box
+from tpu_restir_torch.scene.procedural import TERRAIN_SPECS
 from tpu_restir_torch.scene.procedural import terrain_scene as t_terrain
 from tpu_restir_torch.scene.procedural import triangle_soup as t_soup
+from tpu_restir_torch.scene.scene import SceneArrays, build_scene
 
 MARGIN = 1e-6
+WOOP_MARGIN = 1e-4
 MAX_MARGIN_SHARE = 1e-3
 TOL = dict(rtol=1e-5, atol=1e-5)
 J_PT = JIntersectorConfig(backend="ptrace")
 T_PT = IntersectorConfig(backend="ptrace")
+J_MXU = JIntersectorConfig(backend="ptrace", ptrace_mxu=True)
+T_MXU = IntersectorConfig(backend="ptrace", ptrace_mxu=True)
 
 
 @pytest.fixture(autouse=True)
@@ -77,10 +98,23 @@ _BUILT = {}
 
 
 def _scenes(name):
-    """(JAX scene, port scene), built once per test process."""
+    """(JAX scene, port scene), built once per test process. "woop5k" is
+    terrain5k rebuilt at cluster size 128 with the terrain's materials,
+    the scene of tests/test_ptrace.py's Woop-variant test."""
     if name not in _BUILT:
-        j, t = _BUILDERS[name]
-        _BUILT[name] = (j(), t())
+        if name == "woop5k":
+            js, ts = _scenes("terrain5k")
+            jspecs = [JMaterialSpec(s.name, JMatType.LAMBERT,
+                                    diffuse=s.diffuse, emission=s.emission)
+                      for s in TERRAIN_SPECS]
+            _BUILT[name] = (
+                j_build_scene(np.asarray(js.tri_v), np.asarray(js.tri_mat),
+                              jspecs, cluster_size=128),
+                build_scene(ts.tri_v.numpy(), ts.tri_mat.numpy(),
+                            TERRAIN_SPECS, "cpu", cluster_size=128))
+        else:
+            j, t = _BUILDERS[name]
+            _BUILT[name] = (j(), t())
     return _BUILT[name]
 
 
@@ -378,8 +412,8 @@ def test_backend_selection():
         tintersect._backend(small, T_PT)
     with pytest.raises(ValueError, match="fused_max_tris"):
         tintersect._backend(big, IntersectorConfig(backend="fused"))
-    with pytest.raises(NotImplementedError, match="K7/K8"):
-        tintersect._backend(big, dataclasses.replace(T_PT, ptrace_mxu=True))
+    # ptrace_mxu is a variant of "ptrace" (K7/K8 where they apply)
+    assert tintersect._backend(big, T_MXU) == "ptrace"
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         tintersect._backend(big, IntersectorConfig(backend="fcluster"))
     tintersect.QUERY_LOG = log = []
@@ -410,3 +444,231 @@ def test_plain_versions_on_cpu_only():
         tct.trace_any(ts.cluster_tris.to("meta"), ts.cluster_min.to("meta"),
                       ts.cluster_max.to("meta"), o.to("meta"), d.to("meta"),
                       tn.to("meta"), tf.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# The Woop variant: K7/K8 (ptrace_mxu), plain versions against the JAX
+# kernels `_closest_kernel_mxu` / `_any_kernel_mxu` in the interpreter
+# ---------------------------------------------------------------------------
+
+def _woop_margin(ts, o, d, tn, tf):
+    """Per ray: the least distance of the Woop test of any triangle of the
+    scene to a decision boundary (u, v and u + v against the 1e-5 slack,
+    the t range, t ties), from the plain test over every Woop block."""
+    w = ts.cluster_woop
+    eps = 1e-5
+    out = []
+    for s in range(0, o.shape[0], 128):
+        sl = slice(s, s + 128)
+        ch = [torch.from_numpy(np.ascontiguousarray(x[sl]))[None, None]
+              for x in (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
+                        d[:, 2], tn, tf)]
+        t, u, v, ok = (x.numpy().astype(np.float64)
+                       .transpose(2, 0, 1).reshape(-1, w.shape[0] * 128)
+                       for x in tct._woop(w, *ch))
+        fin = np.isfinite(t) & (np.abs(t) < 1e30)
+        tt = np.where(fin, t, 0.0)
+        with np.errstate(invalid="ignore"):
+            m = np.minimum.reduce([
+                np.abs(u + eps), np.abs(v + eps), np.abs(1.0 + eps - u - v),
+                np.abs(tt - tn[sl, None]),
+                np.where(np.isfinite(tf[sl, None]),
+                         np.abs(tt - tf[sl, None]), np.inf)])
+        m = np.where(fin, np.nan_to_num(m, nan=0.0), np.inf).min(axis=1)
+        ts_ = np.sort(np.where(ok > 0, t, np.inf), axis=1)
+        with np.errstate(invalid="ignore"):
+            tie = np.abs(ts_[:, 1] - ts_[:, 0]) \
+                / np.maximum(np.abs(ts_[:, 0]), 1.0)
+        out.append(np.minimum(m, np.where(np.isfinite(tie), tie, np.inf)))
+    return np.concatenate(out)
+
+
+def _check_woop_ids(got, want, margin, what):
+    bad = got != want
+    assert np.all(margin[bad] < WOOP_MARGIN), \
+        f"{what}: {int(bad.sum())} mismatches, some away from any margin"
+    assert bad.sum() <= MAX_MARGIN_SHARE * len(got), what
+    return ~bad
+
+
+def test_woop_blocks_match_jax():
+    """The (C, 4, 384) Woop blocks equal rows 0-3 of the JAX package's
+    (C, 8, 384) blocks (rows 4-7 are zero padding), through build_scene
+    and through convert.from_tree; a degenerate triangle's inf marker is
+    zeroed, as in the JAX builder."""
+    js, ts = _scenes("woop5k")
+    jw = np.asarray(js.cluster_woop)
+    c = ts.cluster_tris.shape[0]
+    assert ts.cluster_size == 128 and ts.cluster_woop.shape == (c, 4, 384)
+    np.testing.assert_array_equal(ts.cluster_woop.numpy(), jw[:, :4])
+    assert not jw[:, 4:].any()
+    got = convert.from_tree(SceneArrays, jax.tree.map(np.asarray, js), "cpu")
+    assert torch.equal(got.cluster_woop, ts.cluster_woop)
+    assert torch.equal(got.cluster_tris, ts.cluster_tris)
+    v = np.random.default_rng(3).random((130, 3, 3)).astype(np.float32)
+    v[5, 2] = v[5, 0]                              # degenerate
+    woop = j_build_woop(v)
+    assert not np.isfinite(woop[5]).all()
+    want = jct.build_cluster_woop(woop, 128)
+    blocks = tct.build_cluster_woop(woop, 128)
+    assert np.isfinite(blocks).all()
+    np.testing.assert_array_equal(blocks, want[:, :4])
+    with pytest.raises(ValueError, match="128"):
+        tct.build_cluster_woop(woop, 64)
+
+
+def test_trace_closest_mxu_plain_matches_jax():
+    """Plain K7 against `_trace_closest_mxu` (the JAX kernel in the
+    interpreter) on tests/test_ptrace.py's rays (seed 41, 640 rays)."""
+    js, ts = _scenes("woop5k")
+    o, d, tn, tf = _random_rays(41, 640, 4.0)
+    want = [np.asarray(x) for x in jct._trace_closest_mxu(
+        js.cluster_woop, js.cluster_min, js.cluster_max, *_j(o, d, tn, tf),
+        128)]
+    pk = tct.pack(ts.cluster_min, ts.cluster_max, *_t(o, d, tn, tf), 1)
+    got = [x[:640].numpy() for x in tct.trace_closest_mxu_ref(
+        ts.cluster_woop, pk)]
+    assert got[3].dtype == np.int32
+    same = _check_woop_ids(got[3], want[3], _woop_margin(ts, o, d, tn, tf),
+                           "closest")
+    hit = same & (want[3] >= 0)
+    assert hit.sum() > 100
+    np.testing.assert_allclose(got[0][hit], want[0][hit], rtol=1e-5,
+                               atol=1e-5)
+    tol = _uv_tol(ts, o[hit], d[hit], want[3][hit])
+    for g, w in zip(got[1:3], want[1:3]):
+        assert np.all(np.abs(g[hit] - w[hit]) <= tol)
+    assert np.all(np.isinf(got[0][got[3] < 0]))
+
+
+def test_trace_any_mxu_plain_matches_jax():
+    """Plain K8 against `_trace_any_mxu`, shadow segments of half the
+    range and a third of them dead."""
+    js, ts = _scenes("woop5k")
+    o, d, tn, tf = _dead(_random_rays(41, 640, 4.0))
+    tf = np.where(tf < tn, tf, np.float32(2.0)).astype(np.float32)
+    want = np.asarray(jct._trace_any_mxu(
+        js.cluster_woop, js.cluster_min, js.cluster_max, *_j(o, d, tn, tf),
+        128))
+    pk = tct.pack(ts.cluster_min, ts.cluster_max, *_t(o, d, tn, tf), 1)
+    got = tct.trace_any_mxu_ref(ts.cluster_woop, pk)[:640].numpy()
+    assert got.dtype == np.bool_
+    _check_woop_ids(got, want, _woop_margin(ts, o, d, tn, tf), "any")
+    assert 0 < got.sum() < got.size
+    assert not got[tf < tn].any()
+
+
+def test_intersect_ptrace_mxu_grid_matches_jax():
+    """A 16x64 pixel grid through the query with ptrace_mxu on both sides
+    (8x32-tile swizzle, the Woop kernels): ids within the Woop margin
+    rules, and the occlusion query likewise."""
+    js, ts = _scenes("woop5k")
+    o, d = _grid_rays(32, 16, 64)
+    tn, tf = np.float32(1e-3), np.float32(1e4)
+    hj = jintersect.intersect_closest(js, *_j(o, d), tn, tf, J_MXU)
+    ht = tintersect.intersect_closest(ts, *_t(o, d), tn, tf, T_MXU)
+    n = 16 * 64
+    of, df = o.reshape(-1, 3), d.reshape(-1, 3)
+    tnf, tff = np.full(n, tn), np.full(n, tf)
+    same = _check_woop_ids(ht.tri.numpy().reshape(-1),
+                           np.asarray(hj.tri).reshape(-1),
+                           _woop_margin(ts, of, df, tnf, tff), "grid")
+    hit = same & (np.asarray(hj.tri).reshape(-1) >= 0)
+    assert hit.mean() > 0.5
+    np.testing.assert_allclose(ht.t.numpy().reshape(-1)[hit],
+                               np.asarray(hj.t).reshape(-1)[hit], rtol=1e-5,
+                               atol=1e-5)
+    oj = jintersect.intersect_any(js, *_j(o, d), tn, np.float32(6.0), J_MXU)
+    ot = tintersect.intersect_any(ts, *_t(o, d), tn, 6.0, T_MXU)
+    _check_woop_ids(ot.numpy().reshape(-1), np.asarray(oj).reshape(-1),
+                    _woop_margin(ts, of, df, tnf,
+                                 np.full(n, np.float32(6.0))), "grid any")
+
+
+def _spy(monkeypatch):
+    """Record which plain phase-2 function each query takes."""
+    calls = []
+    for name in ("closest_packets", "any_packets", "closest_packets_mxu",
+                 "any_packets_mxu"):
+        fn = getattr(tct, name)
+
+        def rec(*a, _fn=fn, _name=name):
+            calls.append(_name)
+            return _fn(*a)
+
+        monkeypatch.setattr(tct, name, rec)
+    return calls
+
+
+def test_woop_selection_rule(monkeypatch):
+    """K7/K8 run when Woop blocks are given, B is 128 and the factor is 1
+    (cluster_trace.py:1122-1127); otherwise K5/K6, with results equal to
+    the query without the blocks: at B = 64 (no blocks: the port's
+    terrain5k under ptrace_mxu, or blocks beside 64-row clusters), and at
+    B = 128 once the scene needs superclusters (SUPER_MAX lowered so that
+    pick_factor gives 3) or a factor is forced."""
+    calls = _spy(monkeypatch)
+    _js, ts = _scenes("woop5k")
+    _js, t64 = _scenes("terrain5k")
+    o, d, tn, tf = _t(*_random_rays(42, 300, 4.0))
+    args = (ts.cluster_tris, ts.cluster_min, ts.cluster_max, o, d, tn, tf)
+    tct.trace_closest(*args, cwoop=ts.cluster_woop)
+    tct.trace_any(*args, cwoop=ts.cluster_woop)
+    assert calls == ["closest_packets_mxu", "any_packets_mxu"]
+    calls.clear()
+
+    plain = tct.trace_closest(*args)
+    forced = tct.trace_closest(*args, cwoop=ts.cluster_woop, factor=4)
+    monkeypatch.setattr(tct, "SUPER_MAX", 16)
+    assert tct.pick_factor(ts.cluster_tris.shape[0]) == 3
+    sup = tct.trace_closest(*args, cwoop=ts.cluster_woop)
+    assert calls == ["closest_packets"] * 3
+    for a, b, c in zip(plain, forced, sup):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    monkeypatch.setattr(tct, "SUPER_MAX", 4096)
+    calls.clear()
+
+    fake = torch.zeros((t64.cluster_tris.shape[0], 4, 384))
+    a64 = (t64.cluster_tris, t64.cluster_min, t64.cluster_max, o, d, tn, tf)
+    for x, y in zip(tct.trace_closest(*a64),
+                    tct.trace_closest(*a64, cwoop=fake)):
+        assert torch.equal(x, y)
+    assert t64.cluster_woop is None
+    h0 = tintersect.intersect_closest(t64, o, d, tn, tf, T_PT)
+    h1 = tintersect.intersect_closest(t64, o, d, tn, tf, T_MXU)
+    assert torch.equal(h0.tri, h1.tri) and torch.equal(h0.t, h1.t)
+    assert set(calls) == {"closest_packets"}
+
+
+def test_ptrace_mxu_gradient_matches_jax():
+    """d(t, u, v)/d(o, d) through the ptrace_mxu query: the detached
+    winner's Woop derivative (the same VJP as K5's), against jax.grad of
+    the JAX ptrace_mxu query."""
+    js, ts = _scenes("woop5k")
+    g = np.random.default_rng(44)
+    n = 300
+    o = np.tile(np.array([0.0, -5.0, 3.0], np.float32), (n, 1))
+    at = g.uniform(-3, 3, (n, 3)).astype(np.float32)
+    at[:, 2] = 0.2
+    d = at - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    w = g.standard_normal((3, n)).astype(np.float32)
+    tn, tf = np.float32(1e-3), np.float32(1e4)
+
+    def jloss(o, d):
+        h = jintersect.intersect_closest(js, o, d, tn, tf, J_MXU)
+        return jnp.sum(jnp.where(h.hit, h.t, 0.0) * w[0] + h.u * w[1]
+                       + h.v * w[2])
+
+    go_j, gd_j = jax.grad(jloss, argnums=(0, 1))(*_j(o, d))
+    ot, dt = (x.requires_grad_(True) for x in _t(o, d))
+    h = tintersect.intersect_closest(ts, ot, dt, tn, tf, T_MXU)
+    ww = torch.from_numpy(w)
+    loss = (torch.where(h.hit, h.t, 0.0) * ww[0] + h.u * ww[1]
+            + h.v * ww[2]).sum()
+    go_t, gd_t = torch.autograd.grad(loss, (ot, dt))
+    assert float(go_t.abs().max()) > 0.0
+    np.testing.assert_allclose(go_t.numpy(), np.asarray(go_j), rtol=2e-4,
+                               atol=2e-5)
+    np.testing.assert_allclose(gd_t.numpy(), np.asarray(gd_j), rtol=2e-4,
+                               atol=2e-5)

@@ -5,7 +5,12 @@ sides (the JAX package's Pallas kernels in the interpreter). The scenes:
 terrain_scene(5_000) under the bench's terrain camera, many_lights_scene
 (500) (the BRDF candidate intersects its emissive subset), and the two
 cases of the BRDF candidate's full closest hit: many_lights_scene(4100)
-(more than 4096 lights) and a scene without lights.
+(more than 4096 lights) and a scene without lights; and terrain_scene
+(5_000) rebuilt at cluster size 128 under `ptrace_mxu`, where every scene
+query takes the Woop variant (K7/K8; the JAX package's `_closest_kernel_mxu`
+and `_any_kernel_mxu` in the interpreter) and two whole 32x16 frames are
+held to the JAX frames (image means within a standard error, as
+tests/test_torch_restir.py holds the Cornell frames).
 
 Each port pass gets the JAX pass's own inputs (through convert), so drift
 cannot compound. Tolerances as tests/test_torch_restir.py states them:
@@ -25,25 +30,31 @@ import pytest
 import torch
 
 from tpu_restir import rng as jrng
-from tpu_restir.config import (CameraConfig, RenderConfig, RenderParams,
-                               RestirParams)
+from tpu_restir.config import (CameraConfig, IntersectorConfig,
+                               RenderConfig, RenderParams, RestirParams)
 from tpu_restir.kernels import cluster_trace as jct
 from tpu_restir.kernels import ray_tri as jrt
 from tpu_restir.render import camera as jcam
 from tpu_restir.render.integrators.restir import gbuffer as jgb
 from tpu_restir.render.integrators.restir import initial as jinit
+from tpu_restir.render.integrators.restir import pipeline as jpipe
 from tpu_restir.scene.cornell import many_lights_scene as j_many_lights
 from tpu_restir.scene.materials import MaterialSpec as JMaterialSpec
+from tpu_restir.scene.materials import MatType as JMatType
 from tpu_restir.scene.procedural import terrain_scene as j_terrain
 from tpu_restir.scene.scene import build_scene as j_build_scene
 from tpu_restir_torch import convert
+from tpu_restir_torch import rng as trng
+from tpu_restir_torch.kernels import cluster_trace as tct
 from tpu_restir_torch.render import camera as tcam
 from tpu_restir_torch.render import intersect as tintersect
 from tpu_restir_torch.render.integrators.restir import gbuffer as tgb
 from tpu_restir_torch.render.integrators.restir import initial as tinit
+from tpu_restir_torch.render.integrators.restir import pipeline as tpipe
 from tpu_restir_torch.render.integrators.restir.gbuffer import GBuffer
 from tpu_restir_torch.scene.cornell import many_lights_scene as t_many_lights
 from tpu_restir_torch.scene.materials import MaterialSpec
+from tpu_restir_torch.scene.procedural import TERRAIN_SPECS
 from tpu_restir_torch.scene.procedural import terrain_scene as t_terrain
 from tpu_restir_torch.scene.scene import build_scene
 
@@ -54,15 +65,16 @@ CORNELL_VIEW = ((0.0, -3.9, 1.0), (0.0, 0.0, 1.0))
 TERRAIN_VIEW = ((0.0, -7.0, 4.0), (0.0, 0.0, 0.5))
 
 
-def _cfg(view):
+def _cfg(view, mxu=False, width=W, height=H):
     return RenderConfig(
-        camera=CameraConfig(width=W, height=H, fov_y_deg=45.0,
+        camera=CameraConfig(width=width, height=height, fov_y_deg=45.0,
                             view_from=view[0], view_at=view[1],
                             pixel_sampler="random"),
         params=RenderParams(use_skybox=False),
         restir=RestirParams(m_area=1, m_brdf=1, do_temporal_reuse=True,
                             do_spatial_reuse=True, spatial_neighbor_count=5,
                             spatial_mis="pairwise"),
+        intersector=IntersectorConfig(ptrace_mxu=mxu),
         integrator="restir")
 
 
@@ -78,9 +90,25 @@ def _lightless(kind):
     return build_scene(v, mats, [MaterialSpec()], "cpu")
 
 
+def _woop_terrain(kind):
+    """terrain_scene(5_000) rebuilt at cluster size 128 (Woop blocks), as
+    tests/test_ptrace.py builds its Woop-variant scene."""
+    if kind == "jax":
+        t = j_terrain(5_000)
+        specs = [JMaterialSpec(m.name, JMatType.LAMBERT, diffuse=m.diffuse,
+                               emission=m.emission) for m in TERRAIN_SPECS]
+        return j_build_scene(np.asarray(t.tri_v), np.asarray(t.tri_mat),
+                             specs, cluster_size=128)
+    t = t_terrain("cpu", 5_000)
+    return build_scene(t.tri_v.numpy(), t.tri_mat.numpy(), TERRAIN_SPECS,
+                       "cpu", cluster_size=128)
+
+
 SCENES = {
     "terrain5k": (lambda: j_terrain(5_000), lambda: t_terrain("cpu", 5_000),
                   TERRAIN_VIEW),
+    "woop5k": (lambda: _woop_terrain("jax"), lambda: _woop_terrain("port"),
+               TERRAIN_VIEW),
     "lights500": (lambda: j_many_lights(500),
                   lambda: t_many_lights("cpu", 500), CORNELL_VIEW),
     "lights4100": (lambda: j_many_lights(4100),
@@ -121,7 +149,7 @@ def _ref(name):
     if name not in _REFS:
         jfn, tfn, view = SCENES[name]
         js = jfn()
-        cfg = _cfg(view)
+        cfg = _cfg(view, mxu=name == "woop5k")
         ys, xs = jnp.meshgrid(jnp.arange(H), jnp.arange(W), indexing="ij")
         seed = jrng.make_frame_seed(0, 1)
         gb = jax.jit(jgb.gbuffer_fill, static_argnames=("cfg",))(
@@ -150,9 +178,25 @@ def _assert_reservoirs(port, want):
     return same
 
 
-@pytest.mark.parametrize("name", ["terrain5k", "lights500"])
-def test_gbuffer_pass_on_clustered_scenes(name):
+def _spy_woop(monkeypatch):
+    """Count the plain K7/K8 (and K5/K6) calls of the port's queries."""
+    calls = []
+    for name in ("closest_packets", "any_packets", "closest_packets_mxu",
+                 "any_packets_mxu"):
+        fn = getattr(tct, name)
+
+        def rec(*a, _fn=fn, _name=name):
+            calls.append(_name)
+            return _fn(*a)
+
+        monkeypatch.setattr(tct, name, rec)
+    return calls
+
+
+@pytest.mark.parametrize("name", ["terrain5k", "lights500", "woop5k"])
+def test_gbuffer_pass_on_clustered_scenes(name, monkeypatch):
     r = _ref(name)
+    calls = _spy_woop(monkeypatch)
     tintersect.QUERY_LOG = log = []
     try:
         got = tgb.gbuffer_fill(r["ts"], r["cam"], r["cfg"], r["seed"],
@@ -160,6 +204,8 @@ def test_gbuffer_pass_on_clustered_scenes(name):
     finally:
         tintersect.QUERY_LOG = None
     assert [e["backend"] for e in log] == ["ptrace"]
+    assert calls == ["closest_packets_mxu" if name == "woop5k"
+                     else "closest_packets"]
     want = r["gb"]
     same = got.mat_type.numpy() == want.mat_type
     same &= np.abs(got.depth.numpy() - want.depth) <= 1e-4
@@ -172,13 +218,15 @@ def test_gbuffer_pass_on_clustered_scenes(name):
 
 
 @pytest.mark.parametrize("name", ["terrain5k", "lights500", "lights4100",
-                                  "lightless"])
-def test_initial_pass_on_clustered_scenes(name):
+                                  "lightless", "woop5k"])
+def test_initial_pass_on_clustered_scenes(name, monkeypatch):
     """The initial pass on the JAX pass's G-buffer. lights4100 takes the
     BRDF candidate's full closest hit (more than 4096 lights); the
-    lightless scene returns empty reservoirs, as the JAX pass does."""
+    lightless scene returns empty reservoirs, as the JAX pass does; under
+    ptrace_mxu every scene query of woop5k takes K8."""
     r = _ref(name)
     gb = convert.from_tree(GBuffer, r["gb"], "cpu")
+    calls = _spy_woop(monkeypatch)
     tintersect.QUERY_LOG = log = []
     try:
         got = tinit.initial_pass(r["seed"], r["ts"], gb, r["cfg"], r["ys"],
@@ -186,6 +234,8 @@ def test_initial_pass_on_clustered_scenes(name):
     finally:
         tintersect.QUERY_LOG = None
     assert {e["backend"] for e in log} <= {"ptrace"}
+    if name == "woop5k":
+        assert calls and set(calls) == {"any_packets_mxu"}
     same = _assert_reservoirs(got, r["res"])
     if name == "lightless":
         assert not got.sample.valid.any() and not log
@@ -222,3 +272,40 @@ def test_brdf_candidate_full_closest_hit(name):
         assert not valid.any()
     else:
         assert both.sum() > 5
+
+
+def test_woop_whole_frames():
+    """Two whole 32x16 frames of the bench config on woop5k under
+    ptrace_mxu (28 scene queries a frame, all K7/K8) against the JAX frames
+    (jitted restir_step, its Woop kernels in the interpreter): image means
+    within a standard error of the JAX image, and the reservoirs as
+    tests/test_torch_restir.py holds two Cornell frames."""
+    w, h = 32, 16
+    js, ts = _woop_terrain("jax"), _woop_terrain("port")
+    cfg = _cfg(TERRAIN_VIEW, mxu=True, width=w, height=h)
+    step = jax.jit(jpipe.restir_step, static_argnames=("cfg",))
+    jc = jcam.make_camera(cfg.camera)
+    jstate = jpipe.init_restir_state(h, w)
+    tc = tcam.make_camera(cfg.camera, "cpu")
+    tstate = tpipe.init_restir_state(h, w, "cpu")
+    tintersect.QUERY_LOG = log = []
+    try:
+        for f in range(2):
+            want, jstate = step(js, jc, cfg, jrng.make_frame_seed(0, f),
+                                jstate, jnp.asarray(f))
+            got, tstate = tpipe.restir_step(ts, tc, cfg,
+                                            trng.make_frame_seed(0, f),
+                                            tstate, f)
+            want, got = np.asarray(want), got.numpy()
+            pix = want.mean(-1)
+            stderr = pix.std() / np.sqrt(pix.size)
+            assert np.isfinite(got).all() and want.mean() > 0.1
+            assert abs(got.mean() - want.mean()) <= stderr
+    finally:
+        tintersect.QUERY_LOG = None
+    assert {e["backend"] for e in log} == {"ptrace"} and len(log) == 56
+    want_res = jax.tree.map(np.asarray, jstate.res_prev)
+    same = (np.abs(tstate.res_prev.sample.point.numpy()
+                   - want_res.sample.point).max(-1) <= 1e-4) \
+        & (tstate.res_prev.sample.valid.numpy() == want_res.sample.valid)
+    assert 1.0 - same.mean() < MAX_DIFF_SHARE

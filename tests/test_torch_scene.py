@@ -77,21 +77,26 @@ def test_convert_scene_round_trip():
 def test_build_scene_refuses_large_scenes():
     """Scenes above 64 triangles are built clustered (tests/
     test_torch_accel.py holds them to the JAX build); on them the port
-    refuses what it has not ported: the MXU traversal kernels K7/K8 and
-    the JAX package's other backends."""
+    refuses what it has not ported, the JAX package's other backends.
+    ptrace_mxu on a scene of 64-triangle clusters (no Woop blocks) takes
+    K5/K6, as the JAX package does: the same hits as without it."""
     from tpu_restir_torch.config import IntersectorConfig
     from tpu_restir_torch.render import intersect
 
     v = np.random.default_rng(0).random((65, 3, 3)).astype(np.float32)
     scene = build_scene(v, np.zeros(65, np.int32), [MaterialSpec()], "cpu")
     assert scene.cluster_tris.shape == (2, 64, 9)
-    assert scene.cluster_size == 64
-    o = torch.zeros((4, 3))
-    d = torch.tensor([[0.0, 0.0, 1.0]]).expand(4, 3)
-    with pytest.raises(NotImplementedError, match="K7/K8"):
-        intersect.intersect_closest(
-            scene, o, d, 1e-3, 1e4,
-            IntersectorConfig(backend="ptrace", ptrace_mxu=True))
+    assert scene.cluster_size == 64 and scene.cluster_woop is None
+    g = np.random.default_rng(1)
+    o = torch.from_numpy(g.random((64, 3), dtype=np.float32))
+    d = torch.from_numpy(g.standard_normal((64, 3)).astype(np.float32))
+    d = d / d.norm(dim=-1, keepdim=True)
+    hits = [intersect.intersect_closest(
+        scene, o, d, 1e-3, 1e4, IntersectorConfig(backend="ptrace",
+                                                  ptrace_mxu=mxu))
+        for mxu in (False, True)]
+    assert torch.equal(hits[0].tri, hits[1].tri)
+    assert torch.equal(hits[0].t, hits[1].t) and bool(hits[0].hit.any())
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         intersect.intersect_any(scene, o, d, 1e-3, 1e4,
                                 IntersectorConfig(backend="bvh"))

@@ -6,12 +6,12 @@ become CUDA kernels under `csrc/`, built at first CUDA use
 (`tpu_restir_torch.kernels.build`). Every kernel keeps a plain PyTorch
 version in its module, taken only for tensors that lie on the CPU.
 
-Nothing here imports JAX, and rendering imports nothing of the JAX
-package: the config dataclasses are the port's own copy
-(`tpu_restir_torch.config`, the same fields as `tpu_restir.config`), and
-only `Renderer.export` reaches into the JAX package's plain-numpy image
-exporter, `tpu_restir.io.export`. Every function that makes a tensor takes
-the device it is given: there is no automatic device pick.
+Nothing here imports JAX or the JAX package: the config dataclasses
+(`tpu_restir_torch.config`, the same fields as `tpu_restir.config`) and
+the image exporter (`tpu_restir_torch.io.export`) are the port's own
+copies. Every function that makes a tensor takes the device it is given:
+there is no automatic device pick; the CLI renders on --device (cuda by
+default) and raises where it is missing.
 """
 
 __version__ = "0.1.0"

@@ -4,7 +4,8 @@ The same fields and defaults as `tpu_restir.config` (a test holds the two
 field by field), kept in the port so that it stands without the JAX
 package. Attributes are read by name only, so a config of either package
 drives the port; the tests hand the JAX package's config to both.
-The file loaders of `tpu_restir.config` are not ported.
+`load_config_file` reads a TOML or JSON render config, as
+`tpu_restir.config` does.
 """
 
 from __future__ import annotations
@@ -107,7 +108,8 @@ class CameraConfig:
 class IntersectorConfig:
     """Intersection backend selection. The port runs "fused" (K1/K2, up to
     `fused_max_tris` triangles) and "ptrace" (K5/K6, clustered scenes, in
-    chunks of `ptrace_chunk` rays), or "auto" between the two; the other
+    chunks of `ptrace_chunk` rays; K7/K8 with `ptrace_mxu` on scenes built
+    at cluster size 128), or "auto" between the two; the other
     fields configure the JAX package's backends and are kept for parity."""
 
     backend: str = "auto"
@@ -156,3 +158,57 @@ class RenderConfig:
 def replace(cfg, **kw):
     """dataclasses.replace that reads as config.replace for sub-configs."""
     return dataclasses.replace(cfg, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Config files: TOML/JSON -> RenderConfig. Section names match the field
+# names ([camera], [params], [restir], [intersector]); top-level keys set
+# the RenderConfig scalars. CLI flags override file values
+# (tpu_restir_torch.cli --config).
+# ---------------------------------------------------------------------------
+
+_SECTIONS = {
+    "camera": CameraConfig,
+    "params": RenderParams,
+    "restir": RestirParams,
+    "intersector": IntersectorConfig,
+}
+
+
+def _build_section(cls, d: dict):
+    fields = {f.name for f in dataclasses.fields(cls)}
+    kw = {}
+    for k, v in d.items():
+        if k not in fields:
+            raise KeyError(f"unknown {cls.__name__} key {k!r}")
+        kw[k] = tuple(v) if isinstance(v, list) else v
+    return cls(**kw)
+
+
+def config_from_dict(d: dict) -> RenderConfig:
+    """Nested dict (parsed TOML/JSON) -> RenderConfig."""
+    kw = {}
+    top_fields = {f.name for f in dataclasses.fields(RenderConfig)}
+    for k, v in d.items():
+        if k in _SECTIONS:
+            kw[k] = _build_section(_SECTIONS[k], v)
+        elif k in top_fields:
+            kw[k] = tuple(v) if isinstance(v, list) else v
+        else:
+            raise KeyError(f"unknown config key {k!r}")
+    return RenderConfig(**kw)
+
+
+def load_config_file(path: str) -> RenderConfig:
+    """Load a .toml or .json render config."""
+    if path.endswith(".toml"):
+        import tomllib
+
+        with open(path, "rb") as f:
+            return config_from_dict(tomllib.load(f))
+    if path.endswith(".json"):
+        import json
+
+        with open(path) as f:
+            return config_from_dict(json.load(f))
+    raise ValueError(f"config file must be .toml or .json, got {path!r}")

@@ -37,13 +37,16 @@ _NESTED = {
 def from_tree(cls, tree, device):
     """Numpy tree with the fields of `cls` -> `cls` with tensors on device.
     A clustered scene's (C, B, 128) cluster blocks keep their first 9
-    channels (v0, e1, e2), the port's (C, B, 9) layout; the JAX scene's
-    `cluster_woop` and `bvh` have no field in the port and are not read."""
+    channels (v0, e1, e2), the port's (C, B, 9) layout, and its (C, 8, 384)
+    Woop blocks their 4 meaningful rows, the port's (C, 4, 384); the JAX
+    scene's `bvh` has no field in the port and is not read."""
     kw = {}
     for f in dataclasses.fields(cls):
         v = getattr(tree, f.name)
         if cls is SceneArrays and f.name == "cluster_tris" and v is not None:
             v = np.asarray(v)[..., :9]
+        if cls is SceneArrays and f.name == "cluster_woop" and v is not None:
+            v = np.asarray(v)[:, :4]
         sub = _NESTED.get((cls, f.name))
         if sub is not None:
             kw[f.name] = from_tree(sub, v, device)

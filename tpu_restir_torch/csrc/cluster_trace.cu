@@ -1,46 +1,62 @@
 // Packet-shortlist cluster traversal for large scenes: K5 closest hit and
 // K6 any hit of packets of 256 rays over their own front-to-back cluster
-// shortlists (phase 1, `build_shortlists` in kernels/cluster_trace.py).
+// shortlists (phase 1, `build_shortlists` in kernels/cluster_trace.py), by
+// fused Moller-Trumbore, and their Woop variant K7/K8 (`ptrace_mxu`), the
+// same traversal with K1's Woop test at factor 1.
 //
 // Replaces the Pallas TPU kernels tpu_restir/kernels/cluster_trace.py
-// `_closest_kernel` (K5) and `_any_kernel` (K6). The TPU versions loop over
-// 8 or 32 packets per grid step, read shortlists and a packed (8, NB) box
-// table from SMEM by scalar prefetch, DMA rounds of 4 cluster blocks of
-// (64, 128) lanes into VMEM double buffers and carry the mode-5 cull flags
-// one round ahead; none of that is needed here.
+// `_closest_kernel` (K5), `_any_kernel` (K6), `_closest_kernel_mxu` (K7)
+// and `_any_kernel_mxu` (K8). The TPU versions loop over 8 or 32 packets
+// per grid step, read shortlists and a packed (8, NB) box table from SMEM
+// by scalar prefetch, DMA rounds of cluster blocks into VMEM double
+// buffers and carry the mode-5 cull flags one round ahead; K7/K8 compute
+// the Woop test of a round as two (256, 4) x (4, 3 * 128 * 2) matrix
+// products on the MXU, then a lowest-lane argmin, and clamp the last slot
+// to n - 1. None of that is needed here, and none of it changes a result.
 //
 // What bounds it on the H100: arithmetic. Each (ray, triangle) pair is a
-// fused Moller-Trumbore test of ~40 float32 operations, and this file is
+// fused Moller-Trumbore test of ~46 float32 operations (K5/K6) or six 3-
+// or 4-term dot products and the hit test, ~40 (K7/K8), and this file is
 // compiled with --fmad=false, so they issue as separate multiplies and
-// adds. A cluster block is 64 x 9 floats (2.3 KB); a 100k-triangle
-// scene's blocks (3.6 MB) stay in the 50 MB L2, so device memory is not
-// the limit. The other cost is divergence between packets: the work of a
-// packet is its shortlist, from a few clusters to over a thousand.
+// adds. The Woop products stay on the CUDA cores in float32: the TPU
+// kernel asks for Precision.HIGHEST because bf16 products gave false hits,
+// and TF32 keeps about as few mantissa bits, so the tensor cores would
+// need a 3xTF32 split to be exact enough (a later redesign). A cluster
+// block is 64 x 9 floats (2.3 KB), a Woop block 4 x 384 (6 KB); a
+// 100k-triangle scene's blocks (3.6 or 4.8 MB) stay in the 50 MB L2, so
+// device memory is not the limit. The other cost is divergence between
+// packets: the work of a packet is its shortlist, from a few clusters to
+// over a thousand.
 //
 // Design: one thread block per packet, one thread per ray; the block reads
 // its own count, shortlist and entries. Per shortlist slot (an entry of a
 // supercluster expands into F cluster slots) the block
-//   1. votes on the early-out: K5 stops once no ray's min(best_t, tfar)
-//      reaches the slot's entry distance (__syncthreads_or, the TPU
-//      kernel's packet watermark); K6 stops once every ray is occluded or
-//      dead (__syncthreads_and, its all-occluded exit);
-//   2. in mode 5 (above 64 clusters: K6 always, K5 once superclusters
-//      expand) votes on the per-ray slab test of the slot's box with the
-//      TPU kernel's slack, and skips the slot only if no ray is live, so
-//      every ray of a tested slot is tested, as on the TPU;
-//   3. stages the cluster's 64 x 9 floats in shared memory; each thread
-//      tests its ray against every row, a broadcast read.
+//   1. votes on the early-out: closest hit stops once no ray's
+//      min(best_t, tfar) reaches the slot's entry distance
+//      (__syncthreads_or, the TPU kernel's packet watermark); any hit stops
+//      once every ray is occluded or dead, tfar < tnear (__syncthreads_and,
+//      its all-occluded exit);
+//   2. in mode 5 (K6 above 64 clusters, K5 once superclusters expand;
+//      never K7/K8, as on the TPU) votes on the per-ray slab test of the
+//      slot's box with the TPU kernel's slack, and skips the slot only if
+//      no ray is live, so every ray of a tested slot is tested, as on the
+//      TPU;
+//   3. stages the cluster's block in shared memory (a Woop block by float4
+//      loads); each thread tests its ray against every row (lane), a
+//      broadcast read.
 // The vote barriers also fence the tile: no thread overwrites it before
 // every thread has finished the previous slot. The early-outs and the cull
 // only skip work that cannot change a result, so the kernels must equal
-// the plain versions `trace_closest_ref` / `trace_any_ref`, which test
-// every listed slot.
+// the plain versions `trace_closest_ref` / `trace_any_ref` (and `_mxu_ref`),
+// which test every listed slot.
 //
-// Rounding: the test keeps `_mt_cluster`'s operation order, the division
-// is IEEE and nothing contracts (--fmad=false), so t, u, v and the ids are
-// bit-identical to the plain PyTorch version. The running minimum replaces
-// only on a strictly smaller t, in shortlist order and then row order: a
-// tie goes to the earlier-listed cluster, then the lower row.
+// Rounding: the tests keep `_mt_cluster`'s operation order, or K1's
+// (`_woop_tuvok`: ((o_x w_0 + o_y w_1) + o_z w_2) + w_3; the direction
+// without the translation), the division is IEEE and nothing contracts
+// (--fmad=false), so t, u, v and the ids are bit-identical to the plain
+// PyTorch versions. The running minimum replaces only on a strictly
+// smaller t, in shortlist order and then row order: a tie goes to the
+// earlier-listed cluster, then the lower row.
 //
 // C interface (ctypes): every entry returns cudaGetLastError().
 
@@ -50,6 +66,11 @@
 namespace {
 
 constexpr int kP = 256;   // rays per packet == threads per block
+constexpr int kWoopB = 128;            // triangles per Woop block
+constexpr int kWoopRow = 3 * kWoopB;   // floats per coefficient row (u|v|w)
+constexpr int kWoopFloats = 4 * kWoopRow;
+constexpr float kBaryEps = 1e-5f;
+constexpr float kBaryMax = (float)(1.0 + 1e-5);
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, tn, tf;
@@ -67,7 +88,7 @@ struct Args {
   const float* bmin;       // (NB, 3) slab-cull boxes
   const float* bmax;
   int box_per_cluster;     // boxes per cluster (1) or per supercluster (0)
-  const float* ctris;      // (C, B, 9) v0, e1, e2
+  const float* ctris;      // (C, B, 9) v0, e1, e2, or (C, 4, 384) Woop
   int n_clusters;          // C
   int block;               // B
   int factor;              // F
@@ -100,6 +121,42 @@ __device__ __forceinline__ bool mt(const Ray& r, const float* tr, float& t,
          t <= r.tf;
 }
 
+// Coefficient row k (x, y, z, translation) of component c (u, v, w) of lane
+// j of a Woop block: w[k * kWoopRow + c * kWoopB + j].
+__device__ __forceinline__ float aff(const Ray& r, const float* w) {
+  return r.ox * w[0] + r.oy * w[kWoopRow] + r.oz * w[2 * kWoopRow] +
+         w[3 * kWoopRow];
+}
+
+__device__ __forceinline__ float lin(const Ray& r, const float* w) {
+  return r.dx * w[0] + r.dy * w[kWoopRow] + r.dz * w[2 * kWoopRow];
+}
+
+// The Woop test of lane j of a staged Woop block; the order is
+// _woop_tuvok's.
+__device__ __forceinline__ bool woop_test(const Ray& r, const float* tile,
+                                          int j, float& t, float& u,
+                                          float& v) {
+  const float* wu = tile + j;
+  const float* wv = tile + kWoopB + j;
+  const float* ww = tile + 2 * kWoopB + j;
+  const float ow = aff(r, ww);
+  const float dw = lin(r, ww);
+  t = fabsf(dw) > 1e-18f ? -ow / dw : INFINITY;
+  u = aff(r, wu) + t * lin(r, wu);
+  v = aff(r, wv) + t * lin(r, wv);
+  return (u >= -kBaryEps) && (v >= -kBaryEps) && (u + v <= kBaryMax) &&
+         isfinite(t) && (t >= r.tn) && (t <= r.tf);
+}
+
+// Row j of the staged block by the kernel's test.
+template <bool kWoop>
+__device__ __forceinline__ bool test(const Ray& r, const float* tile, int j,
+                                     float& t, float& u, float& v) {
+  return kWoop ? woop_test(r, tile, j, t, u, v)
+               : mt(r, tile + 9 * j, t, u, v);
+}
+
 // Safe reciprocal direction of `_ray_inv`: near-zero components become
 // +-1e20 with the component's sign.
 __device__ __forceinline__ float safe_inv(float c) {
@@ -126,12 +183,12 @@ __device__ __forceinline__ bool slab_live(const Ray& r, float ix, float iy,
   return tent <= texit + slack && tent - slack <= upper;
 }
 
-template <bool kClosest>
+template <bool kClosest, bool kWoop>
 __global__ void __launch_bounds__(kP)
     trace_kernel(Args a, float* __restrict__ t_out, float* __restrict__ u_out,
                  float* __restrict__ v_out, int* __restrict__ tri_out,
                  bool* __restrict__ occ_out) {
-  extern __shared__ float tile[];   // block x 9 floats
+  extern __shared__ float tile[];   // B x 9 floats, or a Woop block
   const int p = blockIdx.x;
   const long long i = (long long)p * kP + threadIdx.x;
   Ray r;
@@ -143,7 +200,8 @@ __global__ void __launch_bounds__(kP)
   const int* sl = a.shortlist + (long long)p * a.n_super;
   const float* ent = a.entry + (long long)p * a.n_super;
   const int n_slots = a.count[p] * a.factor;
-  const int row_floats = a.block * 9;
+  const int rows = kWoop ? kWoopB : a.block;
+  const int tile_floats = kWoop ? kWoopFloats : a.block * 9;
 
   float bt = INFINITY, bu = 0.f, bv = 0.f;
   int btri = -1;
@@ -161,27 +219,32 @@ __global__ void __launch_bounds__(kP)
     const int c = a.factor == 1 ? sc
                                 : min(sc * a.factor + s % a.factor,
                                       a.n_clusters - 1);
-    if (a.skip == 5) {
+    if (!kWoop && a.skip == 5) {
       const float upper = kClosest ? fminf(bt, r.tf) : r.tf;
       const bool live = (kClosest || !occ) &&
                         slab_live(r, ix, iy, iz, a.bmin, a.bmax,
                                   a.box_per_cluster ? c : sc, upper);
       if (!__syncthreads_or(live)) continue;
     }
-    const float* src = a.ctris + (long long)c * row_floats;
-    for (int k = threadIdx.x; k < row_floats; k += kP) tile[k] = src[k];
+    const float* src = a.ctris + (long long)c * tile_floats;
+    if (kWoop) {   // 16-byte aligned (the wrapper checks)
+      for (int k = threadIdx.x; k < kWoopFloats / 4; k += kP)
+        ((float4*)tile)[k] = ((const float4*)src)[k];
+    } else {
+      for (int k = threadIdx.x; k < tile_floats; k += kP) tile[k] = src[k];
+    }
     __syncthreads();
     if (kClosest) {
-      for (int j = 0; j < a.block; ++j) {
+      for (int j = 0; j < rows; ++j) {
         float t, u, v;
-        if (mt(r, tile + 9 * j, t, u, v) && t < bt) {
-          bt = t; bu = u; bv = v; btri = c * a.block + j;
+        if (test<kWoop>(r, tile, j, t, u, v) && t < bt) {
+          bt = t; bu = u; bv = v; btri = c * rows + j;
         }
       }
     } else if (!occ) {
-      for (int j = 0; j < a.block; ++j) {
+      for (int j = 0; j < rows; ++j) {
         float t, u, v;
-        if (mt(r, tile + 9 * j, t, u, v)) {
+        if (test<kWoop>(r, tile, j, t, u, v)) {
           occ = true;   // an OR: the first occluder decides
           break;
         }
@@ -215,28 +278,43 @@ Args make_args(const void* o, const void* d, const void* tnear,
   return a;
 }
 
+template <bool kClosest>
+int launch(const Args& a, int n_packets, int woop, void* stream, float* t,
+           float* u, float* v, int* tri, bool* occ) {
+  if (woop)
+    trace_kernel<kClosest, true><<<n_packets, kP, kWoopFloats * sizeof(float),
+                                   (cudaStream_t)stream>>>(a, t, u, v, tri,
+                                                           occ);
+  else
+    trace_kernel<kClosest, false><<<n_packets, kP,
+                                    a.block * 9 * sizeof(float),
+                                    (cudaStream_t)stream>>>(a, t, u, v, tri,
+                                                            occ);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Inputs: packed rays (n_packets * 256), count/shortlist/entry of phase 1,
-// the slab-cull boxes, the cluster blocks. Outputs t, u, v (float32) and
-// tri (int32), each n_packets * 256.
+// the slab-cull boxes, the cluster blocks and woop: 0 for the (C, B, 9)
+// blocks of K5/K6, 1 for the (C, 4, 384) Woop blocks of K7/K8 (block 128,
+// factor 1, skip 0). Outputs t, u, v (float32) and tri (int32), each
+// n_packets * 256.
 int cluster_trace_closest(const void* o, const void* d, const void* tnear,
                           const void* tfar, const void* count,
                           const void* shortlist, const void* entry,
                           int n_packets, int n_super, const void* bmin,
                           const void* bmax, int box_per_cluster,
                           const void* ctris, int n_clusters, int block,
-                          int factor, int skip, void* t, void* u, void* v,
-                          void* tri, void* stream) {
+                          int factor, int skip, int woop, void* t, void* u,
+                          void* v, void* tri, void* stream) {
   const Args a = make_args(o, d, tnear, tfar, count, shortlist, entry,
                            n_super, bmin, bmax, box_per_cluster, ctris,
                            n_clusters, block, factor, skip);
-  trace_kernel<true><<<n_packets, kP, block * 9 * sizeof(float),
-                       (cudaStream_t)stream>>>(
-      a, (float*)t, (float*)u, (float*)v, (int*)tri, nullptr);
-  return (int)cudaGetLastError();
+  return launch<true>(a, n_packets, woop, stream, (float*)t, (float*)u,
+                      (float*)v, (int*)tri, nullptr);
 }
 
 // As cluster_trace_closest; output occ (bool), n_packets * 256.
@@ -245,15 +323,13 @@ int cluster_trace_any(const void* o, const void* d, const void* tnear,
                       const void* shortlist, const void* entry, int n_packets,
                       int n_super, const void* bmin, const void* bmax,
                       int box_per_cluster, const void* ctris, int n_clusters,
-                      int block, int factor, int skip, void* occ,
+                      int block, int factor, int skip, int woop, void* occ,
                       void* stream) {
   const Args a = make_args(o, d, tnear, tfar, count, shortlist, entry,
                            n_super, bmin, bmax, box_per_cluster, ctris,
                            n_clusters, block, factor, skip);
-  trace_kernel<false><<<n_packets, kP, block * 9 * sizeof(float),
-                        (cudaStream_t)stream>>>(
-      a, nullptr, nullptr, nullptr, nullptr, (bool*)occ);
-  return (int)cudaGetLastError();
+  return launch<false>(a, n_packets, woop, stream, nullptr, nullptr, nullptr,
+                       nullptr, (bool*)occ);
 }
 
 const char* cluster_trace_error_string(int err) {

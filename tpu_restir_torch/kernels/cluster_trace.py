@@ -1,6 +1,7 @@
 """Packet-shortlist cluster traversal ("ptrace"), the large-scene queries:
 K5 (closest hit) and K6 (any hit), the counterparts of
-`tpu_restir.kernels.cluster_trace` `_closest_kernel` and `_any_kernel`.
+`tpu_restir.kernels.cluster_trace` `_closest_kernel` and `_any_kernel`,
+and their Woop variant K7/K8 (`_closest_kernel_mxu`, `_any_kernel_mxu`).
 
 Rays are grouped into packets of P = 256 consecutive rays (an 8x32 pixel
 tile after `render.intersect`'s swizzle).
@@ -28,6 +29,15 @@ leaf-order clusters into one supercluster for phase 1; shortlist slot s
 maps to cluster min(sl[s // F] * F + s % F, C - 1). Triangle ids are
 leaf-order ids cluster * B + row; a miss is t = inf, tri = -1, and dead
 rays (tfar < tnear, including the padding) miss, or are not occluded.
+
+The Woop variant (`ptrace_mxu`): scenes built at B = WOOP_BLOCK = 128
+carry (C, 4, 384) Woop blocks (`build_cluster_woop`), and where F is 1
+`trace_closest` / `trace_any` given them run K7/K8
+(`csrc/cluster_trace.cu` with the Woop test; plain versions
+`trace_closest_mxu_ref` / `trace_any_mxu_ref`) in place of K5/K6: the same phase 1, slots and
+fold, with K1's Woop test (`kernels/ray_tri.py`, watertight epsilon
+1e-5) in place of Moller-Trumbore, and no per-ray cull. Otherwise they
+take K5/K6, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 
+import numpy as np
 import torch
 
 from tpu_restir_torch.accel.fcluster import _clamp_tfar_bbox, _packet_bounds
@@ -45,10 +56,14 @@ SUPER_MAX = 4096   # most shortlist entries per packet (see pick_factor)
 BOX_MAX = 16_000   # mode-5 culls use per-cluster boxes up to this count
 SMALL_C = 64       # scenes of at most this many clusters run no cull
 
+WOOP_BLOCK = 128   # triangles per cluster of the Woop variant (one lane tile)
+
 # kernel launches per wrapper (the plain versions do not count)
-LAUNCHES = {"trace_closest": 0, "trace_any": 0}
+LAUNCHES = {"trace_closest": 0, "trace_any": 0, "trace_closest_mxu": 0,
+            "trace_any_mxu": 0}
 
 _INF = float("inf")
+_BARY_EPS = 1e-5   # the Woop test's watertight slack, as kernels/ray_tri.py
 _BIG = 3.0e38
 _REF_PACKETS = 256   # packets per broadcast in the plain versions
 _P = ctypes.c_void_p
@@ -253,10 +268,10 @@ def _mt(tr, ox, oy, oz, dx, dy, dz, tn, tf):
     return t, u, v, ok
 
 
-def _slots(ctris, pk: Packets):
-    """Yield (packet index (A,), cluster (A,)) for every listed slot, for
-    at most _REF_PACKETS packets at a time, slot by slot in order."""
-    c = ctris.shape[0]
+def _slots(c: int, pk: Packets):
+    """Yield (packet index (A,), cluster (A,)) for every listed slot of a
+    scene of c clusters, for at most _REF_PACKETS packets at a time, slot
+    by slot in order."""
     f = pk.factor
     s_last = pk.shortlist.shape[1] - 1
     ns = pk.count.long() * f
@@ -278,12 +293,36 @@ def _packet_rays(pk: Packets):
             pk.tnear.reshape(rp, 1, P), pk.tfar.reshape(rp, 1, P))
 
 
-def trace_closest_ref(ctris, pk: Packets):
-    """Plain version of K5 -> (t, u, v, tri int32), each (Rp*P,): per ray
-    the hit of least t over the listed clusters' triangles, ties to the
-    earlier slot and then the lower row (a strict-< fold in that order)."""
+def _woop(wc, ox, oy, oz, dx, dy, dz, tn, tf):
+    """K1's Woop test (`ray_tri._woop_tuvok`, in its operation order:
+    ((o_x w_0 + o_y w_1) + o_z w_2) + w_3, the direction without the
+    translation) of Woop blocks wc (A, 4, 3 * WOOP_BLOCK) against rays
+    (A, 1, P) -> t, u, v, ok of shape (A, WOOP_BLOCK, P)."""
+    w = wc.reshape(wc.shape[0], 4, 3, WOOP_BLOCK, 1)   # (A, k, comp, lane)
+
+    def aff(c):
+        return ox * w[:, 0, c] + oy * w[:, 1, c] + oz * w[:, 2, c] \
+            + w[:, 3, c]
+
+    def lin(c):
+        return dx * w[:, 0, c] + dy * w[:, 1, c] + dz * w[:, 2, c]
+
+    ow, dw = aff(2), lin(2)
+    t = torch.where(torch.abs(dw) > 1e-18, -ow / dw, _INF)
+    u = aff(0) + t * lin(0)
+    v = aff(1) + t * lin(1)
+    ok = ((u >= -_BARY_EPS) & (v >= -_BARY_EPS)
+          & (u + v <= 1.0 + _BARY_EPS) & torch.isfinite(t)
+          & (t >= tn) & (t <= tf))
+    return t, u, v, ok
+
+
+def _fold_closest(test, blocks, b: int, pk: Packets):
+    """Closest hit of every listed slot's block by `test` (_mt or _woop)
+    -> (t, u, v, tri int32), each (Rp*P,): per ray the hit of least t,
+    ties to the earlier slot and then the lower row (a strict-< fold in
+    that order)."""
     rp = pk.count.shape[0]
-    b = ctris.shape[1]
     dev = pk.o.device
     bt = torch.full((rp, P), _INF, device=dev)
     bu = torch.zeros((rp, P), device=dev)
@@ -291,8 +330,8 @@ def trace_closest_ref(ctris, pk: Packets):
     btri = torch.full((rp, P), -1, dtype=torch.int32, device=dev)
     rays = _packet_rays(pk)
     rows = torch.arange(b, device=dev)[None, :, None]
-    for a, cl in _slots(ctris, pk):
-        t, u, v, ok = _mt(ctris[cl], *(x[a] for x in rays))
+    for a, cl in _slots(blocks.shape[0], pk):
+        t, u, v, ok = test(blocks[cl], *(x[a] for x in rays))
         tt = torch.where(ok, t, _INF)
         tmin = tt.amin(1, keepdim=True)                      # (A, 1, P)
         jwin = torch.where(tt <= tmin, rows, b).amin(1, keepdim=True)
@@ -308,52 +347,96 @@ def trace_closest_ref(ctris, pk: Packets):
     return bt.reshape(-1), bu.reshape(-1), bv.reshape(-1), btri.reshape(-1)
 
 
-def trace_any_ref(ctris, pk: Packets):
-    """Plain version of K6 -> (Rp*P,) bool: any listed triangle hit within
-    [tnear, tfar]."""
+def _fold_any(test, blocks, pk: Packets):
+    """(Rp*P,) bool: any listed block's triangle hit within [tnear, tfar]."""
     rp = pk.count.shape[0]
     occ = torch.zeros((rp, P), dtype=torch.bool, device=pk.o.device)
     rays = _packet_rays(pk)
-    for a, cl in _slots(ctris, pk):
-        ok = _mt(ctris[cl], *(x[a] for x in rays))[3]
-        occ[a] |= ok.any(1)
+    for a, cl in _slots(blocks.shape[0], pk):
+        occ[a] |= test(blocks[cl], *(x[a] for x in rays))[3].any(1)
     return occ.reshape(-1)
 
 
+def trace_closest_ref(ctris, pk: Packets):
+    """Plain version of K5 -> (t, u, v, tri int32), each (Rp*P,)."""
+    return _fold_closest(_mt, ctris, ctris.shape[1], pk)
+
+
+def trace_any_ref(ctris, pk: Packets):
+    """Plain version of K6 -> (Rp*P,) bool."""
+    return _fold_any(_mt, ctris, pk)
+
+
+def trace_closest_mxu_ref(cwoop, pk: Packets):
+    """Plain version of K7: K5's fold over the Woop test of the listed
+    clusters' Woop blocks cwoop (C, 4, 384); factor 1."""
+    return _fold_closest(_woop, cwoop, WOOP_BLOCK, pk)
+
+
+def trace_any_mxu_ref(cwoop, pk: Packets):
+    """Plain version of K8 -> (Rp*P,) bool."""
+    return _fold_any(_woop, cwoop, pk)
+
+
+def build_cluster_woop(woop, block: int):
+    """Per-triangle Woop maps (N, 3, 4) (`kernels/woop.py`: rows u, v, w;
+    column 3 the translation), leaf-ordered -> (C, 4, 3 * block) float32
+    Woop blocks, as `build_cluster_woop` (cluster_trace.py:1218-1241) keeps
+    them in its rows 0-3: element [c, k, comp * block + j] is coefficient
+    k of component comp of triangle c * block + j. Padding triangles are
+    zero (d'w = 0: t = inf, never hit), and so are degenerate triangles,
+    whose inf translation marker would make a NaN of 0 * inf."""
+    if block != WOOP_BLOCK:
+        raise ValueError(f"Woop blocks need cluster size {WOOP_BLOCK}, got "
+                         f"{block}")
+    n = woop.shape[0]
+    c = -(-n // block)
+    wp = np.zeros((c * block, 3, 4), np.float32)
+    wp[:n] = woop
+    wp[~np.isfinite(wp).all(axis=(1, 2))] = 0.0
+    return np.ascontiguousarray(
+        wp.reshape(c, block, 3, 4).transpose(0, 3, 2, 1)
+        .reshape(c, 4, 3 * block))
+
+
 # ---------------------------------------------------------------------------
-# Phase 2, the kernels (csrc/cluster_trace.cu)
+# Phase 2, the kernels (csrc/cluster_trace.cu: K5-K8)
 # ---------------------------------------------------------------------------
 
-_IN = [_P] * 7 + [_I, _I] + [_P, _P, _I] + [_P] + [_I] * 4
+_IN = [_P] * 7 + [_I, _I] + [_P, _P, _I] + [_P] + [_I] * 5
 _SIGNATURES = {
     "cluster_trace_closest": (_IN + [_P] * 5, ctypes.c_int),
     "cluster_trace_any": (_IN + [_P] * 2, ctypes.c_int),
     "cluster_trace_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
-# K5/K6 keep the plain version's rounding: no contracted multiply-adds
+# K5-K8 keep the plain version's rounding: no contracted multiply-adds
 FLAGS = ("--fmad=false",)
+
+# kind -> (C entry, Woop test)
+_KINDS = {"trace_closest": ("cluster_trace_closest", False),
+          "trace_any": ("cluster_trace_any", False),
+          "trace_closest_mxu": ("cluster_trace_closest", True),
+          "trace_any_mxu": ("cluster_trace_any", True)}
 
 
 def _lib():
     return build.load("cluster_trace", _SIGNATURES, extra_flags=FLAGS)
 
 
-def _check_args(ctris, pk: Packets, bmin, bmax):
+def _check_tensors(pk: Packets, **blocks):
+    """Validate the packed rays, phase 1's tables and the named blocks
+    (name -> (tensor, shape, dtype)): one device, contiguous."""
     n = pk.o.shape[0]
     rp = pk.count.shape[0]
     s = pk.shortlist.shape[1]
-    c, b, _ = ctris.shape
-    want = {"ctris": (ctris, (c, b, 9), torch.float32),
-            "o": (pk.o, (rp * P, 3), torch.float32),
+    want = {"o": (pk.o, (rp * P, 3), torch.float32),
             "d": (pk.d, (n, 3), torch.float32),
             "tnear": (pk.tnear, (n,), torch.float32),
             "tfar": (pk.tfar, (n,), torch.float32),
             "count": (pk.count, (rp,), torch.int32),
             "shortlist": (pk.shortlist, (rp, s), torch.int32),
-            "entry": (pk.entry, (rp, s), torch.float32),
-            "bmin": (bmin, (bmin.shape[0], 3), torch.float32),
-            "bmax": (bmax, (bmin.shape[0], 3), torch.float32)}
+            "entry": (pk.entry, (rp, s), torch.float32), **blocks}
     for name, (x, shape, dtype) in want.items():
         if x.device != pk.o.device or x.dtype != dtype \
                 or tuple(x.shape) != shape or not x.is_contiguous():
@@ -361,30 +444,46 @@ def _check_args(ctris, pk: Packets, bmin, bmax):
                 f"cluster_trace: {name} must be a contiguous {dtype} tensor "
                 f"of shape {shape} on {pk.o.device}; got {x.dtype} "
                 f"{tuple(x.shape)} on {x.device}")
-    if b * 9 * 4 > 48 * 1024:
-        raise ValueError(f"cluster_trace: cluster size {b} exceeds the "
-                         "kernel's 48 KB shared-memory tile")
 
 
-def _launch(kind, ctris, cmin, cmax, pk: Packets, outs):
-    c, b, _ = ctris.shape
-    bmin, bmax, per_cluster = cull_boxes(cmin, cmax, pk.factor)
-    bmin, bmax = bmin.contiguous(), bmax.contiguous()
-    _check_args(ctris, pk, bmin, bmax)
+def _launch(kind, blocks, pk: Packets, outs, cmin=None, cmax=None):
+    """Launch `kind` on the cluster blocks (C, B, 9) with their AABBs, or
+    the Woop blocks (C, 4, 384) at factor 1 (no cull, no boxes)."""
+    entry, woop = _KINDS[kind]
+    c = blocks.shape[0]
+    if woop:
+        if pk.factor != 1:
+            raise ValueError(f"cluster_trace: the Woop kernels take factor "
+                             f"1, got {pk.factor}")
+        _check_tensors(pk, cwoop=(blocks, (c, 4, 3 * WOOP_BLOCK),
+                                  torch.float32))
+        if blocks.data_ptr() % 16:
+            raise ValueError("cluster_trace: the Woop blocks must be "
+                             "16-byte aligned (the kernel stages them as "
+                             "float4)")
+        b, skip, boxes = WOOP_BLOCK, 0, (0, 0, 1)
+    else:
+        b = blocks.shape[1]
+        bmin, bmax, per_cluster = cull_boxes(cmin, cmax, pk.factor)
+        bmin, bmax = bmin.contiguous(), bmax.contiguous()
+        _check_tensors(pk, ctris=(blocks, (c, b, 9), torch.float32),
+                       bmin=(bmin, (bmin.shape[0], 3), torch.float32),
+                       bmax=(bmax, (bmin.shape[0], 3), torch.float32))
+        if b * 9 * 4 > 48 * 1024:
+            raise ValueError(f"cluster_trace: cluster size {b} exceeds the "
+                             "kernel's 48 KB shared-memory tile")
+        skip = _skip_for("closest" if kind == "trace_closest" else "any", c,
+                         pk.factor)
+        boxes = (bmin.data_ptr(), bmax.data_ptr(), int(per_cluster))
     lib = _lib()
-    skip = _skip_for("closest" if kind == "trace_closest" else "any", c,
-                     pk.factor)
     with torch.cuda.device(pk.o.device):
         stream = torch.cuda.current_stream(pk.o.device).cuda_stream
-        fn = lib.cluster_trace_closest if kind == "trace_closest" \
-            else lib.cluster_trace_any
-        err = fn(pk.o.data_ptr(), pk.d.data_ptr(), pk.tnear.data_ptr(),
-                 pk.tfar.data_ptr(), pk.count.data_ptr(),
-                 pk.shortlist.data_ptr(), pk.entry.data_ptr(),
-                 pk.count.shape[0], pk.shortlist.shape[1],
-                 bmin.data_ptr(), bmax.data_ptr(), int(per_cluster),
-                 ctris.data_ptr(), c, b, pk.factor, skip,
-                 *[x.data_ptr() for x in outs], stream)
+        err = getattr(lib, entry)(
+            pk.o.data_ptr(), pk.d.data_ptr(), pk.tnear.data_ptr(),
+            pk.tfar.data_ptr(), pk.count.data_ptr(), pk.shortlist.data_ptr(),
+            pk.entry.data_ptr(), pk.count.shape[0], pk.shortlist.shape[1],
+            *boxes, blocks.data_ptr(), c, b, pk.factor, skip, int(woop),
+            *[x.data_ptr() for x in outs], stream)
     if err:
         raise RuntimeError(f"cluster_trace {kind}: launch failed: "
                            f"{lib.cluster_trace_error_string(err).decode()}")
@@ -408,7 +507,7 @@ def closest_packets(ctris, cmin, cmax, pk: Packets):
                  for _ in range(3)) \
         + (torch.empty((n,), dtype=torch.int32, device=pk.o.device),)
     if n:
-        _launch("trace_closest", ctris, cmin, cmax, pk, outs)
+        _launch("trace_closest", ctris, pk, outs, cmin, cmax)
     return outs
 
 
@@ -418,30 +517,71 @@ def any_packets(ctris, cmin, cmax, pk: Packets):
         return trace_any_ref(ctris, pk)
     occ = torch.empty((pk.o.shape[0],), dtype=torch.bool, device=pk.o.device)
     if pk.o.shape[0]:
-        _launch("trace_any", ctris, cmin, cmax, pk, (occ,))
+        _launch("trace_any", ctris, pk, (occ,), cmin, cmax)
     return occ
 
 
-def trace_closest(ctris, cmin, cmax, o, d, tnear, tfar, factor: int = 1):
+def closest_packets_mxu(cwoop, pk: Packets):
+    """K7 on CUDA tensors, `trace_closest_mxu_ref` on CPU tensors, over
+    rays packed at factor 1 -> (t, u, v, tri), each (Rp*P,)."""
+    if not _on_cuda(pk.o):
+        return trace_closest_mxu_ref(cwoop, pk)
+    n = pk.o.shape[0]
+    outs = tuple(torch.empty((n,), dtype=torch.float32, device=pk.o.device)
+                 for _ in range(3)) \
+        + (torch.empty((n,), dtype=torch.int32, device=pk.o.device),)
+    if n:
+        _launch("trace_closest_mxu", cwoop, pk, outs)
+    return outs
+
+
+def any_packets_mxu(cwoop, pk: Packets):
+    """K8 on CUDA tensors, `trace_any_mxu_ref` on CPU tensors -> (Rp*P,)
+    bool."""
+    if not _on_cuda(pk.o):
+        return trace_any_mxu_ref(cwoop, pk)
+    occ = torch.empty((pk.o.shape[0],), dtype=torch.bool, device=pk.o.device)
+    if pk.o.shape[0]:
+        _launch("trace_any_mxu", cwoop, pk, (occ,))
+    return occ
+
+
+def _factor_and_woop(ctris, cwoop, factor: int):
+    """The JAX package's selection (cluster_trace.py:1122-1127): factor 1
+    picks `pick_factor(C)`; the Woop kernels run when Woop blocks are
+    given, B is WOOP_BLOCK and the factor is 1 -> (factor, use_woop)."""
+    if factor == 1:
+        factor = pick_factor(ctris.shape[0])
+    return factor, (cwoop is not None and ctris.shape[1] == WOOP_BLOCK
+                    and factor == 1)
+
+
+def trace_closest(ctris, cmin, cmax, o, d, tnear, tfar, cwoop=None,
+                  factor: int = 1):
     """Closest hit of flat rays o, d (R, 3), tnear, tfar (R,) or () against
     the cluster blocks ctris (C, B, 9) with AABBs cmin, cmax (C, 3) ->
     (t, u, v, tri int32), each (R,); t = inf and tri = -1 on a miss.
-    factor 1 picks `pick_factor(C)`. Computed without a graph."""
-    if factor == 1:
-        factor = pick_factor(ctris.shape[0])
+    factor 1 picks `pick_factor(C)`; with Woop blocks cwoop (C, 4, 384)
+    K7 runs where it applies (`_factor_and_woop`), else K5. Computed
+    without a graph."""
+    factor, woop = _factor_and_woop(ctris, cwoop, factor)
     with torch.no_grad():
         pk = pack(cmin, cmax, o, d, tnear, tfar, factor)
-        out = closest_packets(ctris, cmin, cmax, pk)
+        out = closest_packets_mxu(cwoop, pk) if woop \
+            else closest_packets(ctris, cmin, cmax, pk)
     return tuple(x[:pk.n_rays] for x in out)
 
 
-def trace_any(ctris, cmin, cmax, o, d, tnear, tfar, factor: int = 1):
-    """Any hit (occlusion) of flat rays -> (R,) bool."""
-    if factor == 1:
-        factor = pick_factor(ctris.shape[0])
+def trace_any(ctris, cmin, cmax, o, d, tnear, tfar, cwoop=None,
+              factor: int = 1):
+    """Any hit (occlusion) of flat rays -> (R,) bool; K8 or K6 as
+    `trace_closest` picks K7 or K5."""
+    factor, woop = _factor_and_woop(ctris, cwoop, factor)
     with torch.no_grad():
         pk = pack(cmin, cmax, o, d, tnear, tfar, factor)
-        return any_packets(ctris, cmin, cmax, pk)[:pk.n_rays]
+        occ = any_packets_mxu(cwoop, pk) if woop \
+            else any_packets(ctris, cmin, cmax, pk)
+    return occ[:pk.n_rays]
 
 
 def supports(scene) -> bool:

@@ -164,3 +164,9 @@ def sanitize(radiance):
     """Zero NaN and negative radiance (reference pg/Integrator.cpp:6-23)."""
     bad = torch.isnan(radiance) | (radiance < 0.0)
     return torch.where(bad, 0.0, radiance)
+
+
+def luminance(c):
+    """Rec.709 luminance of an (..., 3) color."""
+    return (0.2126 * c[..., 0] + 0.7152 * c[..., 1]
+            + 0.0722 * c[..., 2])

@@ -1,6 +1,10 @@
-"""Image statistics and the analytic ray count of a ReSTIR frame."""
+"""Image statistics, per-pass timing and the analytic ray count of a
+ReSTIR frame."""
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Dict
 
 import torch
 
@@ -11,6 +15,41 @@ def image_mean_variance(img):
     pix = torch.mean(img, dim=-1)
     mean = torch.mean(pix)
     return mean, torch.mean(pix * pix) - mean * mean
+
+
+def sync(obj) -> None:
+    """Wait for the CUDA devices of the tensors in obj (a tensor, a tuple
+    or list, or a dataclass of them): the counterpart of
+    jax.block_until_ready."""
+    if isinstance(obj, torch.Tensor):
+        if obj.device.type == "cuda":
+            torch.cuda.synchronize(obj.device)
+    elif isinstance(obj, (tuple, list)):
+        for x in obj:
+            sync(x)
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            sync(getattr(obj, f.name))
+
+
+class PassTimers:
+    """Wall-clock per-pass timers (reference pg/simpleguidx11.h:120-127),
+    filled by the renderer's prefix profiling (`Renderer._timed_step`,
+    which syncs the device before each reading)."""
+
+    def __init__(self):
+        self.durations: Dict[str, float] = {}
+        self.counts: Dict[str, int] = {}
+
+    def record(self, name: str, seconds: float) -> None:
+        """Add one measured duration of a pass."""
+        self.durations[name] = self.durations.get(name, 0.0) + seconds
+        self.counts[name] = self.counts.get(name, 0) + 1
+
+    def mean_ms(self) -> Dict[str, float]:
+        """Average per-invocation milliseconds per pass."""
+        return {k: 1e3 * v / max(self.counts.get(k, 1), 1)
+                for k, v in self.durations.items()}
 
 
 def rays_per_pixel(cfg) -> int:

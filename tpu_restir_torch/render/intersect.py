@@ -7,7 +7,9 @@ cut to its two production backends):
 * "ptrace": clustered scenes above that go to the packet-shortlist
   traversal K5 and K6 (`kernels/cluster_trace.py`; intersect.py:453-525),
   with rays of a 2-D pixel grid swizzled into 8x32-tile packets and long
-  queries cut into chunks of `ptrace_chunk` rays.
+  queries cut into chunks of `ptrace_chunk` rays; with `ptrace_mxu` the
+  scene's Woop blocks go along, and the traversal takes its Woop variant
+  K7/K8 where it applies (scenes built at cluster_size 128, factor 1).
 
 Both closest-hit queries are differentiable in the ray origins and
 directions by the detached-winner derivative of `ray_tri.closest_hit_bwd`;
@@ -86,11 +88,6 @@ def _backend(scene, cfg: IntersectorConfig) -> str:
                 f"backend 'ptrace' needs a clustered scene (more than "
                 f"build_scene's cluster_size triangles; got "
                 f"{scene.num_tris} without cluster blocks)")
-        if cfg.ptrace_mxu:
-            raise NotImplementedError(
-                "ptrace_mxu=True runs the Woop/MXU traversal kernels K7/K8 "
-                "(cluster_trace.py _closest_kernel_mxu/_any_kernel_mxu), not "
-                "ported yet (ROADMAP queue 2)")
     return backend
 
 
@@ -131,13 +128,17 @@ def _tile_unfold(x, h, w, q):
     return xr.transpose(2, 3).reshape((q * h * w,) + rest)
 
 
-def _ptrace(fn, scene, shape, chunk, of, df, tn, tf):
+def _ptrace(fn, scene, cfg: IntersectorConfig, shape, of, df, tn, tf):
     """fn (cluster_trace.trace_closest or trace_any) over flat rays, in
-    8x32-tile packet order where the shape allows, in chunks of `chunk`
-    rays (intersect.py:178-211). The tail chunk is not padded to `chunk`:
+    8x32-tile packet order where the shape allows, in chunks of
+    `cfg.ptrace_chunk` rays (intersect.py:178-211), with the scene's Woop
+    blocks where `cfg.ptrace_mxu` asks for them (intersect.py:514-525).
+    The tail chunk is not padded to the chunk size:
     the trace pads it to a packet multiple with the same dead rays
     (tfar = -1), so every packet holds the rays it holds in the JAX
     package's padded chunk."""
+    chunk = cfg.ptrace_chunk
+    cwoop = scene.cluster_woop if cfg.ptrace_mxu else None
     swizzle = _swizzle_applicable(shape)
     if swizzle:
         h, w = shape[-2], shape[-1]
@@ -145,7 +146,7 @@ def _ptrace(fn, scene, shape, chunk, of, df, tn, tf):
         of, df, tn, tf = (_tile_fold(x, h, w, q) for x in (of, df, tn, tf))
     parts = [fn(scene.cluster_tris, scene.cluster_min, scene.cluster_max,
                 of[s:s + chunk], df[s:s + chunk], tn[s:s + chunk],
-                tf[s:s + chunk])
+                tf[s:s + chunk], cwoop=cwoop)
              for s in range(0, max(of.shape[0], 1), chunk)]
     single = not isinstance(parts[0], tuple)
     if single:
@@ -167,7 +168,7 @@ def intersect_closest(scene, o, d, tnear, tfar,
     else:
         bt, bu, bv, btri = ray_tri.ClosestHit.apply(
             functools.partial(_ptrace, cluster_trace.trace_closest, scene,
-                              shape, cfg.ptrace_chunk),
+                              cfg, shape),
             ray_tri.woop_rows(scene), of, df, tn, tf)
     hit = (btri >= 0).reshape(shape)
     return Hit(t=torch.where(hit, bt.reshape(shape), 0.0),
@@ -183,9 +184,8 @@ def intersect_any(scene, o, d, tnear, tfar,
     shape, of, df, tn, tf = _flat_rays(o, d, tnear, tfar)
     if backend == "fused":
         return ray_tri.any_hit(scene, of, df, tn, tf).reshape(shape)
-    return _ptrace(cluster_trace.trace_any, scene, shape, cfg.ptrace_chunk,
-                   of.detach(), df.detach(), tn.detach(),
-                   tf.detach()).reshape(shape)
+    return _ptrace(cluster_trace.trace_any, scene, cfg, shape, of.detach(),
+                   df.detach(), tn.detach(), tf.detach()).reshape(shape)
 
 
 def test_occlusion(scene, from_p, to_p, params,

@@ -32,6 +32,14 @@ def _fbm(n: int, rng: np.random.Generator, octaves: int = 5) -> np.ndarray:
     return (h - h.min()) / max(h.max() - h.min(), 1e-9)
 
 
+# the terrain's materials: ground, and the emissive panel ("sun")
+TERRAIN_SPECS = [
+    MaterialSpec("ground", MatType.LAMBERT, diffuse=(0.45, 0.42, 0.35)),
+    MaterialSpec("sun", MatType.LAMBERT, diffuse=(0.78, 0.78, 0.78),
+                 emission=(40.0, 36.0, 30.0)),
+]
+
+
 def terrain_scene(device, n_tris: int = 100_000, seed: int = 3,
                   extent: float = 10.0, height: float = 1.6) -> SceneArrays:
     """Heightfield terrain of at least n_tris triangles (a (g, g) vertex
@@ -60,12 +68,8 @@ def terrain_scene(device, n_tris: int = 100_000, seed: int = 3,
                       [[-s, -s, zl], [-s, s, zl], [s, s, zl]]], np.float32)
     mats = np.concatenate([np.zeros(len(t1) + len(t2), np.int32),
                            np.ones(2, np.int32)])
-    specs = [
-        MaterialSpec("ground", MatType.LAMBERT, diffuse=(0.45, 0.42, 0.35)),
-        MaterialSpec("sun", MatType.LAMBERT, diffuse=(0.78, 0.78, 0.78),
-                     emission=(40.0, 36.0, 30.0)),
-    ]
-    return build_scene(np.concatenate([t1, t2, panel]), mats, specs, device)
+    return build_scene(np.concatenate([t1, t2, panel]), mats, TERRAIN_SPECS,
+                       device)
 
 
 def triangle_soup(device, n_tris: int = 10_000, seed: int = 5,

@@ -2,7 +2,8 @@
 (counterpart of `tpu_restir.scene.scene`): triangle vertices, per-vertex
 attributes, per-triangle material ids, the emissive CDF, the Woop rows
 of the ray/triangle kernels and, for scenes above `cluster_size`
-triangles, the cluster blocks of the clustered traversal."""
+triangles, the cluster blocks of the clustered traversal (and, at
+`cluster_size` 128, the Woop blocks of its Woop variant)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from tpu_restir_torch.kernels.cluster_trace import (WOOP_BLOCK,
+                                                    build_cluster_woop)
 from tpu_restir_torch.kernels.woop import build_woop_matrices
 from tpu_restir_torch.scene.lights import EmissiveCDF, build_emissive_cdf
 from tpu_restir_torch.scene.materials import (MaterialSpec, MaterialTable,
@@ -37,6 +40,8 @@ class SceneArrays:
     cluster_max: Optional[torch.Tensor] = None   # (C, 3)
     cluster_tris: Optional[torch.Tensor] = None  # (C, B, 9) v0/e1/e2 xyz
     cluster_size: int = 0                        # B (0: not clustered)
+    # (C, 4, 384) Woop blocks of K7/K8, built only at B = 128
+    cluster_woop: Optional[torch.Tensor] = None
     textures: Optional[torch.Tensor] = None
     envmap: Optional[torch.Tensor] = None
 
@@ -55,10 +60,11 @@ def build_scene(vertices: np.ndarray, material_ids: np.ndarray,
     `cluster_size` triangles are put in BVH2 leaf order (every per-triangle
     array permuted alike) and get the cluster blocks of the clustered
     traversal (`kernels/cluster_trace.py`), as at
-    tpu_restir/scene/scene.py:80-107."""
+    tpu_restir/scene/scene.py:80-107; at cluster_size 128 also the Woop
+    blocks of its Woop variant (`ptrace_mxu`, K7/K8)."""
     v = np.asarray(vertices, np.float32)
     n_tris = v.shape[0]
-    cluster_min = cluster_max = cluster_tris = None
+    cluster_min = cluster_max = cluster_tris = cluster_woop = None
     if n_tris > cluster_size:
         from tpu_restir_torch.accel.bvh import build_bvh2
 
@@ -75,6 +81,9 @@ def build_scene(vertices: np.ndarray, material_ids: np.ndarray,
             vertex_tangents = np.asarray(vertex_tangents)[perm]
         cluster_min, cluster_max, cluster_tris = build_clusters(
             v, cluster_size)
+        if cluster_size == WOOP_BLOCK:
+            cluster_woop = build_cluster_woop(build_woop_matrices(v),
+                                              cluster_size)
     e1 = v[:, 1] - v[:, 0]
     e2 = v[:, 2] - v[:, 0]
     areas = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
@@ -107,7 +116,8 @@ def build_scene(vertices: np.ndarray, material_ids: np.ndarray,
         cluster_min=None if cluster_min is None else dev(cluster_min),
         cluster_max=None if cluster_max is None else dev(cluster_max),
         cluster_tris=None if cluster_tris is None else dev(cluster_tris),
-        cluster_size=0 if cluster_min is None else cluster_size)
+        cluster_size=0 if cluster_min is None else cluster_size,
+        cluster_woop=None if cluster_woop is None else dev(cluster_woop))
 
 
 def build_clusters(v: np.ndarray, block: int):
