@@ -10,10 +10,14 @@ line is not printed:
      together) and the host BVH builder (g++); print times and registers.
   3. each kernel against its plain PyTorch version on the card, at the
      main path's shapes: exact ids, masks and copies; float error printed
-     with the tolerance stated; kernel and plain times (CUDA events), the
-     bound (the least time for the bytes and operations the inputs need)
-     and, for K3/K4, the time of one PyTorch call computing the same
-     function. K5/K6 and their plain versions run on whole 1080p queries
+     with the tolerance stated; kernel and plain times (CUDA events around
+     runs enqueued back to back), the bound (the least time for the bytes
+     and operations the inputs need, operations at the card's unfused
+     float32 issue rate) and, for K3/K4, the time of one PyTorch call
+     computing the same function. K2 and K3 also run on the main path's
+     own inputs, captured from a Cornell bench frame: its first full-frame
+     shadow query and its spatial pass's taps and payload.
+     K5/K6 and their plain versions run on whole 1080p queries
      of a terrain100k and a lights1k bench frame, each any-hit kernel
      held on each scene to a query with occluded and visible rays;
      factor 4 (superclusters) must equal factor 1 on
@@ -94,11 +98,15 @@ CLI_FRAMES, CLI_RESUMED = 8, 4   # CLI frames, then frames resumed from them
 CORNELL_VIEW = ((0.0, -3.9, 1.0), (0.0, 0.0, 1.0))
 TERRAIN_VIEW = ((0.0, -7.0, 4.0), (0.0, 0.0, 0.5))
 
-# the bound of a kernel: the larger of its bytes over the memory rate and
-# its operations over the float32 rate outside the tensor cores (H100 SXM,
-# NVIDIA's data sheet, at its 700 W limit)
+# the bound of a kernel: the larger of its bytes over the memory rate (H100
+# SXM, NVIDIA's data sheet, at its 700 W limit) and its operations over the
+# card's float32 issue rate without contraction. The ray/triangle kernels
+# are built with --fmad=false, so every product and every sum is its own
+# instruction, and an SM issues at most one per lane per clock: 132 SMs x
+# 128 lanes x 1.98 GHz = 33.5e12 operations/s (the data sheet's 67e12
+# counts a fused multiply-add as two)
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+FP32_OPS_PER_S = 33.5e12
 WOOP_OPS = 40   # float32 operations of one Woop test (K1/K2/K7/K8)
 MT_OPS = 46     # ... of one fused Moller-Trumbore test (K5/K6)
 RAY_BYTES = 32  # o, d, tnear, tfar of one ray
@@ -132,20 +140,24 @@ def bench_cfg(width, height, view=CORNELL_VIEW, mxu=False):
         integrator="restir")
 
 
-def cuda_ms(fn, reps):
-    """Median milliseconds of fn() over reps runs (CUDA events), after a
-    warm-up run."""
+def cuda_ms(fn, reps, windows=3):
+    """Milliseconds of one fn() on the device: after a warm-up run, reps
+    runs enqueued back to back between two CUDA events, so the device does
+    not wait on the host between them; the median over `windows` such
+    windows of their mean."""
     import torch
     fn()
+    torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(windows):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
@@ -202,6 +214,95 @@ def _random_rays(gen, n, dev):
         - torch.tensor([1.0, 1.0, 0.0], device=dev)
     d = torch.randn((n, 3), generator=gen, device=dev)
     return o, d / d.norm(dim=-1, keepdim=True)
+
+
+def capture_cornell_queries(scene, cfg, dev):
+    """The inputs of K2 and K3 on the main path, from one Cornell bench
+    frame: the first full-frame shadow query (o, d, tnear, tfar) and the
+    spatial pass's gather (payload, tys, txs, r)."""
+    from tpu_restir_torch.kernels import local_gather as lg
+    from tpu_restir_torch.kernels import ray_tri
+    n = cfg.camera.width * cfg.camera.height
+    k = cfg.restir.spatial_neighbor_count
+    got = {}
+    orig_any, orig_gather = ray_tri.any_hit, lg.gather_local
+
+    def any_hit(sc, o, d, tn, tf):
+        if "any" not in got and o.shape[0] == n:
+            got["any"] = tuple(x.detach().clone() for x in (o, d, tn, tf))
+        return orig_any(sc, o, d, tn, tf)
+
+    def gather_local(payload, tys, txs, r, *args, **kwargs):
+        if "gather" not in got and tys.shape[0] == k:
+            got["gather"] = (payload.detach().clone(), tys.clone(),
+                             txs.clone(), r)
+        return orig_gather(payload, tys, txs, r, *args, **kwargs)
+
+    ray_tri.any_hit, lg.gather_local = any_hit, gather_local
+    try:
+        run_frames(scene, cfg, dev, 1)
+    finally:
+        ray_tri.any_hit, lg.gather_local = orig_any, orig_gather
+    require(set(got) == {"any", "gather"},
+            f"a 1080p frame made no full-frame query of kind "
+            f"{ {'any', 'gather'} - set(got)}")
+    return got["any"], got["gather"]
+
+
+def check_any(label, scene, o, d, tn, tf, record):
+    """K2 against any_hit_ref on one query: 0 mask mismatches; times and
+    the bound of what the query needs."""
+    import torch
+
+    from tpu_restir_torch.kernels import ray_tri
+    n = o.shape[0]
+    w = ray_tri.woop_rows(scene)
+    got = ray_tri.any_hit(scene, o, d, tn, tf)
+    want = ray_tri.any_hit_ref(w, o, d, tn, tf)
+    torch.cuda.synchronize()
+    mis = int((got != want).sum())
+    ms = cuda_ms(lambda: ray_tri.any_hit(scene, o, d, tn, tf), 10)
+    plain = cuda_ms(lambda: ray_tri.any_hit_ref(w, o, d, tn, tf), 3)
+    # a visible live ray needs every triangle, an occluded one at least one
+    visible = int(((tf >= tn) & ~want).sum())
+    bnd = bound(n * (RAY_BYTES + 1) + w.shape[0] * 48,
+                (visible * w.shape[0] + int(want.sum())) * WOOP_OPS)
+    print(f"[K2 any_hit] {label}: {n} rays x {w.shape[0]} tris, "
+          f"{int((tf < tn).sum())} dead; mask mismatches {mis} (must be 0); "
+          f"occluded {int(want.sum())}, visible {visible}; kernel {ms:.3f} "
+          f"ms, plain {plain:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}), "
+          f"kernel/bound {ms / bnd[0]:.2f}", flush=True)
+    require(mis == 0, f"K2 {label}: occlusion masks differ")
+    record("any_hit", float((got.float() - want.float()).abs().max()), ms,
+           plain, bnd)
+
+
+def check_gather(label, payload, ty, tx, r, record):
+    """K3 against gather_local_ref: bit-identical; kernel, plain and
+    PyTorch-indexing times and the bytes bound."""
+    import torch
+
+    from tpu_restir_torch.kernels import local_gather as lg
+    (k, h, w), c = ty.shape, payload.shape[-1]
+    got = lg.gather_local(payload, ty, tx, r)
+    want = lg.gather_local_ref(payload, ty, tx)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got, want))
+    err = float((got - want).abs().max())
+    # the library call: advanced indexing (int64 indices made first)
+    tyl, txl = ty.long(), tx.long()
+    ms, library, plain = (
+        cuda_ms(fn, 10) for fn in (
+            lambda: lg.gather_local(payload, ty, tx, r),
+            lambda: payload[tyl, txl],
+            lambda: lg.gather_local_ref(payload, ty, tx)))
+    bnd = bound(4 * (payload.numel() + 2 * k * h * w + k * h * w * c), 0)
+    print(f"[K3 gather_local] {label}: K={k} r={r} C={c} at {h}x{w}; "
+          f"bit-identical {equal}; kernel {ms:.3f} ms, PyTorch indexing "
+          f"{library:.3f} ms, plain {plain:.3f} ms, bound {bnd[0]:.3f} ms "
+          f"({bnd[1]}), kernel/bound {ms / bnd[0]:.2f}", flush=True)
+    require(equal, f"K3 {label}: gather differs from the plain version")
+    record("gather_local", err, ms, plain, bnd, library)
 
 
 def phase_kernels(dev):
@@ -271,7 +372,9 @@ def phase_kernels(dev):
                   inf)
 
     # K2: random shadow segments; 10% zero-length (dead: tfar < tnear,
-    # direction 0) as phat.py makes for pixels whose f is already 0
+    # direction 0) as phat.py makes for pixels whose f is already 0; then
+    # the main path's own query, the first full-frame shadow query of a
+    # bench frame
     from tpu_restir_torch import mathx
     a, _ = _random_rays(gen, n, dev)
     b, _ = _random_rays(gen, n, dev)
@@ -281,27 +384,14 @@ def phase_kernels(dev):
     dist = mathx.length(seg)
     sd = mathx.normalize(seg).contiguous()
     tf = (dist - cfg.params.tfar_offset).contiguous()
-    w = ray_tri.woop_rows(scene)
-    got = ray_tri.any_hit(scene, a, sd, tn, tf)
-    want = ray_tri.any_hit_ref(w, a, sd, tn, tf)
-    torch.cuda.synchronize()
-    mis = int((got != want).sum())
-    ms = cuda_ms(lambda: ray_tri.any_hit(scene, a, sd, tn, tf), 10)
-    plain = cuda_ms(lambda: ray_tri.any_hit_ref(w, a, sd, tn, tf), 3)
-    # a visible live ray needs every triangle, an occluded one at least one
-    visible = int(((tf >= tn) & ~want).sum())
-    bnd = bound(n * (RAY_BYTES + 1) + w.shape[0] * 48,
-                (visible * w.shape[0] + int(want.sum())) * WOOP_OPS)
-    print(f"[K2 any_hit] shadow segments: {n} rays x {w.shape[0]} tris, "
-          f"{int((tf < tn).sum())} dead; mask mismatches {mis} (must be 0); "
-          f"occluded {int(want.sum())}; kernel {ms:.3f} ms, plain "
-          f"{plain:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]})", flush=True)
-    require(mis == 0, "K2: occlusion masks differ")
-    record("any_hit", float((got.float() - want.float()).abs().max()), ms,
-           plain, bnd)
+    shadow, spatial = capture_cornell_queries(scene, cfg, dev)
+    for label, rays in (("random shadow segments", (a, sd, tn, tf)),
+                        ("bench frame's first shadow query", shadow)):
+        check_any(label, scene, *rays, record)
 
     # K3: spatial taps (K=5, r=5, C=24 slim and C=32 full), temporal
-    # reprojection taps (K=1, r=8, C=24 and the C=3 position tap)
+    # reprojection taps (K=1, r=8, C=24 and the C=3 position tap); then the
+    # spatial pass's own taps and payload of a bench frame
     def taps(k, r):
         ty = ys[None] + torch.randint(-r, r + 1, (k, HEIGHT, WIDTH),
                                       generator=gen, device=dev)
@@ -313,25 +403,8 @@ def phase_kernels(dev):
     for label, k, r, c in (("spatial", 5, 5, 24), ("spatial full", 5, 5, 32),
                            ("temporal", 1, 8, 24), ("temporal pos", 1, 8, 3)):
         payload = torch.randn((HEIGHT, WIDTH, c), generator=gen, device=dev)
-        ty, tx = taps(k, r)
-        got = lg.gather_local(payload, ty, tx, r)
-        want = lg.gather_local_ref(payload, ty, tx)
-        torch.cuda.synchronize()
-        equal = bool(torch.equal(got, want))
-        err = float((got - want).abs().max())
-        ms = cuda_ms(lambda: lg.gather_local(payload, ty, tx, r), 10)
-        plain = cuda_ms(lambda: lg.gather_local_ref(payload, ty, tx), 10)
-        # the library call: advanced indexing (int64 indices made first)
-        tyl, txl = ty.long(), tx.long()
-        library = cuda_ms(lambda: payload[tyl, txl], 10)
-        bnd = bound(4 * (HEIGHT * WIDTH * c + 2 * k * HEIGHT * WIDTH
-                         + k * HEIGHT * WIDTH * c), 0)
-        print(f"[K3 gather_local] {label}: K={k} r={r} C={c} at "
-              f"{HEIGHT}x{WIDTH}; bit-identical {equal}; kernel {ms:.3f} ms, "
-              f"plain {plain:.3f} ms, PyTorch indexing {library:.3f} ms, "
-              f"bound {bnd[0]:.3f} ms ({bnd[1]})", flush=True)
-        require(equal, f"K3 {label}: gather differs from the plain version")
-        record("gather_local", err, ms, plain, bnd, library)
+        check_gather(f"{label}, random taps", payload, *taps(k, r), r, record)
+    check_gather("bench frame's spatial pass", *spatial, record)
 
     # K4: the backward of the spatial taps (K=5, r=5, disk_r2=30), taps
     # drawn from the pass's own disk-offset table and clamped to the screen
@@ -968,7 +1041,7 @@ def phase_denoise_cost(dev, smi):
     print(f"[denoise cost] terrain100k {WIDTH}x{HEIGHT}: without --denoise "
           f"{s0:.2f} ms/frame, display {d0:.2f} ms; with --denoise "
           f"{s1:.2f} ms/frame, display {d1:.2f} ms; alone (CUDA events, "
-          f"median of 5): SVGF temporal update {update_ms:.3f} ms, SVGF "
+          f"cuda_ms of 5 runs): SVGF temporal update {update_ms:.3f} ms, SVGF "
           f"filter {filter_ms:.3f} ms (frame differences: update "
           f"{s1 - s0:.2f} ms, filter {d1 - d0:.2f} ms) ({smi})", flush=True)
 

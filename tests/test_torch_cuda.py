@@ -22,7 +22,9 @@ import dataclasses
 import os
 import subprocess
 import sys
+import types
 
+import numpy as np
 import pytest
 import torch
 
@@ -31,6 +33,7 @@ from tpu_restir_torch.config import (CameraConfig, RenderConfig,
 from tpu_restir_torch.kernels import cluster_trace as ct
 from tpu_restir_torch.kernels import local_gather as lg
 from tpu_restir_torch.kernels import ray_tri
+from tpu_restir_torch.kernels.woop import build_woop_matrices
 from tpu_restir_torch.render import camera as cam_mod
 from tpu_restir_torch.render.integrators.restir.pipeline import (
     render_restir_frames)
@@ -100,6 +103,111 @@ def test_any_hit_kernel_matches_plain(cuda):
     assert 0 < int(got.sum()) < got.numel()
 
 
+def _woop_table(dev, n, seed):
+    """A scene-like table of n random triangles (edges up to 0.6) in and
+    around the unit box, the middle one degenerate when n > 1."""
+    g = np.random.default_rng(seed)
+    centres = g.uniform(-1.5, 1.5, (n, 1, 3))
+    tris = centres + g.uniform(-0.3, 0.3, (n, 3, 3))
+    if n > 1:
+        tris[n // 2, 2] = tris[n // 2, 1]
+    w = torch.from_numpy(build_woop_matrices(tris)).to(dev)
+    return types.SimpleNamespace(woop=w, num_tris=n)
+
+
+def _table(dev, name):
+    """"cornell36" (the Cornell box) or "random<n>" (_woop_table)."""
+    if name == "cornell36":
+        return cornell_box(dev)
+    n = int(name[len("random"):])
+    return _woop_table(dev, n, n)
+
+
+@pytest.mark.parametrize("table", ["random1", "cornell36", "random512",
+                                   "random700"])
+@pytest.mark.parametrize("n", [1, 255, 257, 100_003])
+def test_any_hit_kernel_tables(cuda, n, table):
+    """K2 against its plain version at ray counts off the kernel's
+    blocking (2 rays a thread, 256 a block) and on tables of 1, 36, 512
+    (one shared-memory tile) and 700 rows (two tiles)."""
+    scene = _table(cuda, table)
+    o, d, tn, tf = _rays(cuda, n, n + 1, dead_share=0.1)
+    before = ray_tri.LAUNCHES["any_hit"]
+    got = ray_tri.any_hit(scene, o, d, tn, tf)
+    assert ray_tri.LAUNCHES["any_hit"] == before + 1
+    want = ray_tri.any_hit_ref(ray_tri.woop_rows(scene), o, d, tn, tf)
+    assert torch.equal(got, want)
+    if n == 100_003 and table != "random1":
+        assert 0 < int(got.sum()) < n
+
+
+@pytest.mark.parametrize("pattern", ["occluded", "visible", "alternating"])
+def test_any_hit_kernel_whole_warps(cuda, pattern):
+    """Warps whose rays are all occluded (the warp leaves the triangle
+    loop early) or all visible, and both kinds in one launch: rays from
+    z = 1 straight down onto a floor of two triangles at z = 0, with
+    tfar 2 (occluded) or 0.5 (visible); "alternating" flips the verdict
+    every 64 rays, so each warp (32 threads of 2 adjacent rays) is
+    uniform."""
+    floor = np.array([[[-2, -2, 0], [2, -2, 0], [2, 2, 0]],
+                      [[-2, -2, 0], [2, 2, 0], [-2, 2, 0]]], np.float64)
+    scene = types.SimpleNamespace(
+        woop=torch.from_numpy(build_woop_matrices(floor)).to(cuda),
+        num_tris=2)
+    n = 4096 + 37
+    g = torch.Generator(device=cuda)
+    g.manual_seed(17)
+    o = torch.rand((n, 3), generator=g, device=cuda) * 2.0 - 1.0
+    o[:, 2] = 1.0
+    d = torch.tensor([0.0, 0.0, -1.0], device=cuda).expand(n, 3).contiguous()
+    tn = torch.full((n,), 1e-3, device=cuda)
+    occluded = {"occluded": torch.ones(n, dtype=torch.bool, device=cuda),
+                "visible": torch.zeros(n, dtype=torch.bool, device=cuda),
+                "alternating": (torch.arange(n, device=cuda) // 64) % 2 == 0
+                }[pattern]
+    tf = torch.where(occluded, 2.0, 0.5)
+    got = ray_tri.any_hit(scene, o, d, tn, tf)
+    assert torch.equal(got, occluded)
+    assert torch.equal(got, ray_tri.any_hit_ref(ray_tri.woop_rows(scene), o,
+                                                d, tn, tf))
+
+
+def test_any_hit_kernel_special_ranges(cuda):
+    """K2 folds [tnear, tfar] once per ray: infinite and NaN bounds, empty
+    and single-point ranges, zero and NaN directions give the plain
+    version's mask."""
+    scene = cornell_box(cuda)
+    o, d, tn, tf = _rays(cuda, 8192, 21)
+    inf, nan = float("inf"), float("nan")
+    cases = [(-inf, inf), (0.0, inf), (-inf, 2.0), (nan, 2.0), (0.0, nan),
+             (2.0, 1.0), (inf, inf), (-inf, -inf), (1.0, 1.0), (0.0, 0.0)]
+    k = torch.arange(o.shape[0], device=cuda) % (len(cases) + 1)
+    for i, (a, b) in enumerate(cases):
+        tn = torch.where(k == i, a, tn)
+        tf = torch.where(k == i, b, tf)
+    d = d.clone()
+    d[::97] = 0.0
+    d[5::101] = nan
+    want = ray_tri.any_hit_ref(ray_tri.woop_rows(scene), o, d, tn, tf)
+    got = ray_tri.any_hit(scene, o, d, tn.contiguous(), tf.contiguous())
+    assert torch.equal(got, want)
+    assert 0 < int(got.sum()) < got.numel()
+
+
+@pytest.mark.parametrize("table", ["random1", "random512", "random700"])
+def test_closest_hit_kernel_tables(cuda, table):
+    """K1 (which shares the tile staging with K2) on tables of 1, 512 and
+    700 rows (two tiles): ids and t, u, v bit-identical."""
+    scene = _table(cuda, table)
+    o, d, tn, _tf = _rays(cuda, 50_003, 5)
+    tf = torch.full_like(tn, float("inf"))
+    got = ray_tri.closest_hit(scene, o, d, tn, tf)
+    want = ray_tri.closest_hit_ref(ray_tri.woop_rows(scene), o, d, tn, tf)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int((got[3] >= 0).sum()) > 0
+
+
 def test_ray_tri_refuses_bad_inputs(cuda):
     scene = cornell_box(cuda)
     o, d, tn, tf = _rays(cuda, 64, 1)
@@ -111,12 +219,24 @@ def test_ray_tri_refuses_bad_inputs(cuda):
 
 @pytest.mark.parametrize("h,w,c,k,top", [(7, 13, 5, 3, 0),
                                          (32, 48, 24, 5, 0),
-                                         (20, 40, 32, 1, 4)])
-def test_gather_local_kernel_matches_plain(cuda, h, w, c, k, top):
+                                         (20, 40, 32, 1, 4),
+                                         (33, 47, 3, 1, 0),
+                                         (33, 47, 24, 5, 2),
+                                         (9, 300, 32, 5, 0),
+                                         (16, 16, 24, 1, 0),
+                                         (5, 61, 8, 2, 1)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_gather_local_kernel_matches_plain(cuda, h, w, c, k, top, aligned):
+    """K3 against its plain version: C = 3, 5, 8, 24, 32, K = 1 to 5, top
+    != 0, tap slices of 91 to 2,700 taps (whole blocks of 256 and partial
+    ones); with the payload 16-byte aligned and, unaligned, a view 4
+    bytes into its buffer (one float a thread)."""
     g = torch.Generator(device=cuda)
     g.manual_seed(h * w)
     eh = h + 2 * top
-    payload = torch.randn((eh, w, c), generator=g, device=cuda)
+    buf = torch.randn((eh * w * c + 1,), generator=g, device=cuda)
+    payload = (buf[:-1] if aligned else buf[1:]).view(eh, w, c)
+    assert (payload.data_ptr() % 16 == 0) == aligned
     tys = torch.randint(0, eh, (k, h, w), generator=g, device=cuda,
                         dtype=torch.int32)
     txs = torch.randint(0, w, (k, h, w), generator=g, device=cuda,
@@ -125,6 +245,36 @@ def test_gather_local_kernel_matches_plain(cuda, h, w, c, k, top):
     got = lg.gather_local(payload, tys, txs, 8, top=top)
     assert lg.LAUNCHES["gather_local"] == before + 1
     assert torch.equal(got, lg.gather_local_ref(payload, tys, txs))
+
+
+_GATHER_TRAP = """
+import torch
+from tpu_restir_torch.kernels import local_gather as lg
+dev = torch.device("cuda")
+payload = torch.ones((16, 16, 24), device=dev)
+tys = torch.zeros((5, 16, 16), dtype=torch.int32, device=dev)
+txs = torch.zeros((5, 16, 16), dtype=torch.int32, device=dev)
+tys[3, 7, 9], txs[3, 7, 9] = {ty}, {tx}
+lg.gather_local(payload, tys, txs, 8)
+torch.cuda.synchronize()
+print("finished")
+"""
+
+
+@pytest.mark.parametrize("ty,tx,traps", [(15, 15, False), (16, 0, True),
+                                         (0, -1, True), (-1, 3, True)])
+def test_gather_local_traps_out_of_range_taps(cuda, ty, tx, traps):
+    """A tap outside the payload faults the device (in a subprocess: a
+    trap leaves its CUDA context unusable)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", _GATHER_TRAP.format(ty=ty, tx=tx)], cwd=root,
+        capture_output=True, text=True, timeout=300)
+    if traps:
+        assert proc.returncode != 0 and "finished" not in proc.stdout
+    else:
+        assert proc.returncode == 0 and "finished" in proc.stdout, \
+            proc.stderr
 
 
 def test_small_frame_cuda_matches_cpu(cuda):

@@ -28,7 +28,7 @@ LAUNCHES = {"gather_local": 0, "scatter_local": 0}
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "local_gather": ([_P] * 3 + [ctypes.c_int] * 3
+    "local_gather": ([_P] * 3 + [ctypes.c_int] * 4
                      + [ctypes.c_longlong, ctypes.c_int, _P, _P],
                      ctypes.c_int),
     "local_gather_error_string": ([ctypes.c_int], ctypes.c_char_p),
@@ -61,13 +61,16 @@ def _gather_cuda(payload, tys, txs):
                       device=payload.device)
     if out.numel() == 0:
         return out
-    vec4 = c % 4 == 0 and payload.data_ptr() % 16 == 0
+    vec4 = c % 4 == 0 and payload.data_ptr() % 16 == 0 \
+        and out.data_ptr() % 16 == 0
+    k = tys.shape[0]
     lib = build.load("local_gather", _SIGNATURES)
     with torch.cuda.device(payload.device):
         stream = torch.cuda.current_stream(payload.device).cuda_stream
         err = lib.local_gather(payload.data_ptr(), tys.data_ptr(),
-                               txs.data_ptr(), eh, w, c, tys.numel(),
-                               int(vec4), out.data_ptr(), stream)
+                               txs.data_ptr(), eh, w, c, k,
+                               tys.numel() // k, int(vec4), out.data_ptr(),
+                               stream)
     if err:
         raise RuntimeError("gather_local: launch failed: "
                            f"{lib.local_gather_error_string(err).decode()}")
