@@ -23,8 +23,16 @@ line is not printed:
      factor 4 (superclusters) must equal factor 1 on
      terrain_scene(20_000). K7/K8 (the Woop variant) likewise on a
      terrain100k-128 bench frame under ptrace_mxu (terrain100k rebuilt at
-     cluster size 128), t/u/v bit-identical, with K5/K6 timed on the same
-     scene and queries beside them.
+     cluster size 128), with K5/K6 timed on the same scene and queries
+     beside them. t/u/v of K1, K5 and K7 bit-identical. The bounds of
+     the ray/triangle kernels count operations per (ray, row) from the
+     plain test on the query's own rays: a row is charged the leading part
+     of its test that rules it out (the t half, or the test through u),
+     else the whole test; a closest-hit query of K5/K7 tests each live ray
+     against the clusters its own min(t, tfar) reaches. Each line prints
+     beside it the bound with the whole test on every pair (and for K5/K7
+     the pairs counted per packet); K6's lines in cull mode 5 print the
+     share of listed pairs that the per-ray slab test leaves live.
   4. the main path: Renderer on the Cornell box at 1920x1080, the bench
      config (m_area=1, m_brdf=1, temporal, 5-neighbour pairwise spatial),
      8 frames; the traced rays per pixel must equal the analytic 28, every
@@ -109,6 +117,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 33.5e12
 WOOP_OPS = 40   # float32 operations of one Woop test (K1/K2/K7/K8)
 MT_OPS = 46     # ... of one fused Moller-Trumbore test (K5/K6)
+# ... of the leading parts of a test that can rule a pair out alone
+WOOP_T_OPS = 13   # the Woop t half: dw (5), ow (6), t = -ow / dw (2)
+WOOP_TU_OPS = 26  # ... and u = ou + t du (13)
+MT_U_OPS = 24     # p = d x e2 (9), det (5), 1 / det, tv = o - v0 (3), u (6)
+BARY_EPS = 1e-5   # the Woop test's slack (kernels/ray_tri.py)
 RAY_BYTES = 32  # o, d, tnear, tfar of one ray
 
 
@@ -122,6 +135,74 @@ def bound(n_bytes, n_ops):
 def require(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+# The operations a query's data needs, counted per (ray, row) from the
+# plain versions on the query's own inputs: a row's test is charged only as
+# far as it must run before one of its parts rules the row out, as the
+# kernels' warp skips stop it (K1, K5), and the whole test otherwise.
+
+def woop_row_ops(t, u, ok, tn, tf, best=None):
+    """Operations per (ray, row) of Woop tests, rows along dim 1 in their
+    fold order (t, u, ok as `_woop_tuvok` gives them; tn, tf and best with
+    a singleton there): the t half of every row; u where t is finite and
+    within [tn, tf] (closest hit: also below the ray's least hit t so far,
+    best before the first row); v and the rest where u alone does not rule
+    a hit out (u >= -1e-5 and fl(u - 1e-5) <= 1 + 1e-5: with v >= -1e-5,
+    fl(u + v) >= fl(u - 1e-5), as rounding is monotone)."""
+    import torch
+    keep = torch.isfinite(t) & (t >= tn) & (t <= tf)
+    if best is not None:
+        run = torch.cummin(torch.where(ok, t, math.inf), 1).values
+        keep &= t < torch.minimum(
+            best, torch.cat([torch.full_like(run[:, :1], math.inf),
+                             run[:, :-1]], 1))
+    u_ok = keep & (u >= -BARY_EPS) & (u - BARY_EPS <= 1.0 + BARY_EPS)
+    return WOOP_T_OPS + (WOOP_TU_OPS - WOOP_T_OPS) * keep.long() \
+        + (WOOP_OPS - WOOP_TU_OPS) * u_ok.long()
+
+
+def mt_det(tr, dx, dy, dz):
+    """det = e1 . (d x e2) of `cluster_trace._mt` in its operation order,
+    triangles tr (A, B, 9) against ray directions (A, 1, P) -> (A, B, P)."""
+    e1x, e1y, e1z = tr[..., 3:4], tr[..., 4:5], tr[..., 5:6]
+    e2x, e2y, e2z = tr[..., 6:7], tr[..., 7:8], tr[..., 8:9]
+    return e1x * (dy * e2z - dz * e2y) + e1y * (dz * e2x - dx * e2z) \
+        + e1z * (dx * e2y - dy * e2x)
+
+
+def mt_row_ops(u, det):
+    """Operations per (ray, row) of Moller-Trumbore tests (`_mt`'s u and
+    mt_det): the half through u of every row; q, v, t and the rest where
+    |det| > 1e-18 and 0 <= u <= 1, which every hit needs (with v >= 0,
+    fl(u + v) >= u)."""
+    ok = (det.abs() > 1e-18) & (u >= 0.0) & (u <= 1.0)
+    return MT_U_OPS + (MT_OPS - MT_U_OPS) * ok.long()
+
+
+def ray_tri_ops(w, o, d, tn, tf, occ=None):
+    """Operations per ray (R,) that K1's closest-hit query (occ None) or
+    K2's any-hit query (occ: its result) needs against the Woop rows w in
+    triangle order: a dead ray (tfar < tnear) none; an occluded ray one
+    whole test; a live ray of closest hit, or a visible one of any hit,
+    every row by woop_row_ops."""
+    import torch
+
+    from tpu_restir_torch.kernels import ray_tri
+    n = o.shape[0]
+    ops = torch.zeros((n,), dtype=torch.int64, device=o.device)
+    need = tf >= tn if occ is None else (tf >= tn) & ~occ
+    for s in range(0, n, ray_tri._REF_CHUNK):
+        e = min(n, s + ray_tri._REF_CHUNK)
+        t, u, _v, ok = ray_tri._woop_tuvok(o[s:e], d[s:e], tn[s:e],
+                                           tf[s:e], w)
+        best = None if occ is not None \
+            else torch.full_like(t[:, :1], math.inf)
+        rows = woop_row_ops(t, u, ok, tn[s:e, None], tf[s:e, None], best)
+        ops[s:e] = torch.where(need[s:e], rows.sum(1), 0)
+    if occ is not None:
+        ops += WOOP_OPS * occ.long()
+    return ops
 
 
 def bench_cfg(width, height, view=CORNELL_VIEW, mxu=False):
@@ -263,15 +344,20 @@ def check_any(label, scene, o, d, tn, tf, record):
     mis = int((got != want).sum())
     ms = cuda_ms(lambda: ray_tri.any_hit(scene, o, d, tn, tf), 10)
     plain = cuda_ms(lambda: ray_tri.any_hit_ref(w, o, d, tn, tf), 3)
-    # a visible live ray needs every triangle, an occluded one at least one
+    # for comparison, the whole test: a visible live ray against every
+    # triangle, an occluded one against one
     visible = int(((tf >= tn) & ~want).sum())
-    bnd = bound(n * (RAY_BYTES + 1) + w.shape[0] * 48,
-                (visible * w.shape[0] + int(want.sum())) * WOOP_OPS)
+    n_bytes = n * (RAY_BYTES + 1) + w.shape[0] * 48
+    bnd = bound(n_bytes, int(ray_tri_ops(w, o, d, tn, tf, want).sum()))
+    whole = bound(n_bytes,
+                  (visible * w.shape[0] + int(want.sum())) * WOOP_OPS)
     print(f"[K2 any_hit] {label}: {n} rays x {w.shape[0]} tris, "
           f"{int((tf < tn).sum())} dead; mask mismatches {mis} (must be 0); "
           f"occluded {int(want.sum())}, visible {visible}; kernel {ms:.3f} "
-          f"ms, plain {plain:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}), "
-          f"kernel/bound {ms / bnd[0]:.2f}", flush=True)
+          f"ms, plain {plain:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}; "
+          f"operations counted per (ray, row); {whole[0]:.3f} ms with the "
+          f"whole test on every pair), kernel/bound {ms / bnd[0]:.2f}",
+          flush=True)
     require(mis == 0, f"K2 {label}: occlusion masks differ")
     record("any_hit", float((got.float() - want.float()).abs().max()), ms,
            plain, bnd)
@@ -340,17 +426,21 @@ def phase_kernels(dev):
                   for g, p in zip(got[:3], want[:3]))
         ms = cuda_ms(lambda: ray_tri.closest_hit(sc, o, d, tn, tf), 10)
         plain = cuda_ms(lambda: ray_tri.closest_hit_ref(w, o, d, tn, tf), 3)
-        # every live ray is tested against every triangle
+        # for comparison, the whole test on every (live ray, triangle)
         n_live = int((tf >= tn).sum())
-        bnd = bound(o.shape[0] * (RAY_BYTES + 16) + w.shape[0] * 48,
-                    n_live * w.shape[0] * WOOP_OPS)
+        n_bytes = o.shape[0] * (RAY_BYTES + 16) + w.shape[0] * 48
+        bnd = bound(n_bytes, int(ray_tri_ops(w, o, d, tn, tf).sum()))
+        whole = bound(n_bytes, n_live * w.shape[0] * WOOP_OPS)
         print(f"[K1 closest_hit] {label}: {o.shape[0]} rays x "
               f"{w.shape[0]} tris; tri mismatches {tri_mis} (must be 0); "
               f"hits {int(hit.sum())}; max |t,u,v err| {err:.3g} "
-              f"(tolerance 1e-6); kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-              f"bound {bnd[0]:.3f} ms ({bnd[1]})", flush=True)
+              f"(tolerance 0: bit-identical); kernel {ms:.3f} ms, plain "
+              f"{plain:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}; operations "
+              f"counted per (ray, row); {whole[0]:.3f} ms with the whole "
+              f"test on every pair), bound/kernel {bnd[0] / ms:.2f}",
+              flush=True)
         require(tri_mis == 0, f"K1 {label}: triangle ids differ")
-        require(err <= 1e-6, f"K1 {label}: t/u/v differ by {err}")
+        require(err == 0.0, f"K1 {label}: t/u/v differ by {err}")
         record("closest_hit", err, ms, plain, bnd)
 
     # K1: primary rays of the bench camera, and the emissive subset
@@ -525,47 +615,155 @@ def capture_packets(scene, cfg, dev):
     return got["closest"], got["any"]
 
 
-def trace_bound(kind, scene, pk, out):
-    """(bound_ms, bound_by) of a clustered query at factor 1, from what
-    its data needs at the packets' granularity: a closest-hit packet tests
-    its live rays against every listed cluster whose entry distance is
-    within the packet's max(min(t, tfar)) at the end (the least any
-    front-to-back traversal tests); an any-hit packet tests each visible
-    live ray against every listed cluster and each occluded ray against
-    one triangle. Bytes: the rays, the outputs, the listed shortlist
-    entries (id and entry distance) and every cluster block once."""
+def closest_pairs(pk, t):
+    """(per ray, per packet): the (live ray, listed slot) pairs that a
+    closest-hit query at factor 1 needs, whose result has the t given.
+    Per ray: each live ray against the listed slots whose entry distance
+    is at most its own min(t, tfar), the least any front-to-back traversal
+    of these shortlists must test. Per packet: every live ray of a packet
+    against the listed slots whose entry is within the packet's largest
+    min(t, tfar), the count of a traversal that stops per packet."""
     import torch
 
     from tpu_restir_torch.kernels import cluster_trace as ct
-    require(pk.factor == 1, "the bound is written for factor 1")
+    rp = pk.count.shape[0]
+    live = (pk.tfar >= pk.tnear).view(rp, ct.P)
+    count = pk.count.long()
+    reach = torch.minimum(t.view(rp, ct.P), pk.tfar.view(rp, ct.P))
+    # entries ascend along a row (+inf past count): a searchsorted count
+    within = torch.searchsorted(pk.entry, reach.contiguous(), right=True)
+    per_ray = int(torch.where(live, torch.minimum(within, count[:, None]),
+                              0).sum())
+    top = torch.where(live, reach, -float("inf")).amax(1)
+    listed = torch.arange(pk.entry.shape[1], device=count.device)[None] \
+        < count[:, None]
+    needed = ((pk.entry <= top[:, None]) & listed).sum(1)
+    per_packet = int((live.sum(1) * needed).sum())
+    return per_ray, per_packet
+
+
+def trace_ops(kind, scene, pk, out):
+    """Operations per ray (Rp*P,) that a clustered query at factor 1 needs,
+    from the plain test slot by slot in shortlist order: closest hit, each
+    live ray every row of the listed slots whose entry is within its own
+    min(t, tfar) at the end (as `closest_pairs` counts them); any hit, each
+    visible live ray every row of every listed slot, each occluded ray one
+    whole test; a dead ray none. Rows by mt_row_ops, or woop_row_ops under
+    ptrace_mxu (closest hit: the least hit t carried from slot to slot)."""
+    import torch
+
+    from tpu_restir_torch.kernels import cluster_trace as ct
+    require(pk.factor == 1, "the count is written for factor 1")
+    woop = kind.endswith("_mxu")
+    closest = kind.startswith("trace_closest")
+    blocks = scene.cluster_woop if woop else scene.cluster_tris
+    rp = pk.count.shape[0]
+    *ray, tn, tf = ct._packet_rays(pk)                 # each (rp, 1, P)
+    need = (pk.tfar >= pk.tnear).view(rp, 1, ct.P)
+    if closest:
+        reach = torch.minimum(out[0], pk.tfar).view(rp, 1, ct.P)
+        best = torch.full((rp, 1, ct.P), math.inf, device=pk.o.device)
+    else:
+        need = need & ~out.view(rp, 1, ct.P)
+    ops = torch.zeros((rp, ct.P), dtype=torch.int64, device=pk.o.device)
+    for j in range(int(pk.count.max()) if rp else 0):
+        act = torch.nonzero(pk.count > j)[:, 0]
+        for k in range(0, act.shape[0], ct._REF_PACKETS):
+            a = act[k:k + ct._REF_PACKETS]
+            tr = blocks[pk.shortlist[a, j].long()]
+            r = [x[a] for x in ray]
+            slot = need[a]
+            if closest:
+                slot = slot & (pk.entry[a, j, None, None] <= reach[a])
+            if woop:
+                t, u, _v, ok = ct._woop(tr, *r, tn[a], tf[a])
+                rows = woop_row_ops(t, u, ok, tn[a], tf[a],
+                                    best[a] if closest else None)
+                if closest:
+                    best[a] = torch.minimum(
+                        best[a], torch.where(ok, t, math.inf).amin(
+                            1, keepdim=True))
+            else:
+                u = ct._mt(tr, *r, tn[a], tf[a])[1]
+                rows = mt_row_ops(u, mt_det(tr, *r[3:]))
+            ops[a] += torch.where(slot, rows, 0).sum(1)
+    if not closest:
+        ops += (WOOP_OPS if woop else MT_OPS) * out.view(rp, ct.P).long()
+    return ops.reshape(-1)
+
+
+def trace_bound(kind, scene, pk, out):
+    """The bound of a clustered query at factor 1, from what its data
+    needs: the operations of `trace_ops`. Bytes: the rays, the outputs,
+    the listed shortlist entries (id and entry distance) and every cluster
+    block once. -> ((bound_ms, bound_by), {what: (count, bound)}) where the
+    second part holds for comparison the (ray, triangle) pairs that the
+    count tests, with the whole test on each ("pairs"), and for closest hit
+    the same counted per packet ("pairs per packet")."""
+    from tpu_restir_torch.kernels import cluster_trace as ct
     woop = kind.endswith("_mxu")
     if woop:
-        rows, ops = ct.WOOP_BLOCK, WOOP_OPS
+        rows, whole = ct.WOOP_BLOCK, WOOP_OPS
         block_bytes = scene.cluster_woop[0].numel() * 4
     else:
-        rows, ops = scene.cluster_tris.shape[1], MT_OPS
+        rows, whole = scene.cluster_tris.shape[1], MT_OPS
         block_bytes = scene.cluster_tris[0].numel() * 4
     rp = pk.count.shape[0]
     live = (pk.tfar >= pk.tnear).view(rp, ct.P)
     count = pk.count.long()
     if kind.startswith("trace_closest"):
-        t = out[0].view(rp, ct.P)
-        reach = torch.where(live, torch.minimum(t, pk.tfar.view(rp, ct.P)),
-                            -float("inf")).amax(1)
-        listed = torch.arange(pk.entry.shape[1], device=count.device)[None] \
-            < count[:, None]
-        needed = ((pk.entry <= reach[:, None]) & listed).sum(1)
-        pairs = int((live.sum(1) * needed).sum()) * rows
+        per_ray, per_packet = closest_pairs(pk, out[0])
+        pairs = {"pairs": per_ray * rows, "pairs per packet": per_packet * rows}
         out_bytes = 16
     else:
         occ = out.view(rp, ct.P)
         visible = (live & ~occ).sum(1)
-        pairs = int((visible * count).sum()) * rows + int(occ.sum())
+        pairs = {"pairs": int((visible * count).sum()) * rows
+                 + int(occ.sum())}
         out_bytes = 1
     n = pk.o.shape[0]
     n_bytes = n * (RAY_BYTES + out_bytes) + int(count.sum()) * 8 \
         + scene.cluster_tris.shape[0] * block_bytes
-    return bound(n_bytes, pairs * ops)
+    return (bound(n_bytes, int(trace_ops(kind, scene, pk, out).sum())),
+            {k: (v, bound(n_bytes, v * whole)) for k, v in pairs.items()})
+
+
+def slab_live_share(scene, pk, occ, chunk=16):
+    """An any-hit query in cull mode 5 at factor 1: (listed (visible live
+    ray, cluster) pairs, the share of them that the per-ray slab test
+    (`slab_live` of csrc/cluster_trace.cu, upper = tfar) leaves live, the
+    share of them in slots that some visible ray's test keeps, which the
+    block then tests whole). The any-hit bound counts every listed pair."""
+    import torch
+
+    from tpu_restir_torch.kernels import cluster_trace as ct
+    require(pk.factor == 1, "the count is written for factor 1")
+    rp = pk.count.shape[0]
+    o = pk.o.view(rp, 1, ct.P, 3)
+    d = pk.d.view(rp, 1, ct.P, 3)
+    tn = pk.tnear.view(rp, 1, ct.P)
+    tf = pk.tfar.view(rp, 1, ct.P)
+    vis = ((pk.tfar >= pk.tnear) & ~occ).view(rp, 1, ct.P)
+    inv = torch.where(d.abs() > 1e-20, 1.0 / d,
+                      torch.where(d >= 0, 1e20, -1e20))
+    listed_n = live_n = kept_n = 0
+    for j0 in range(0, int(pk.count.max()), chunk):
+        sl = pk.shortlist[:, j0:j0 + chunk].long()
+        listed = (torch.arange(j0, j0 + sl.shape[1], device=sl.device)[None]
+                  < pk.count[:, None])[..., None]               # (rp, J, 1)
+        t1 = (scene.cluster_min[sl][:, :, None] - o) * inv      # (rp, J, P, 3)
+        t2 = (scene.cluster_max[sl][:, :, None] - o) * inv
+        lo, hi = torch.fmin(t1, t2), torch.fmax(t1, t2)
+        tent = torch.fmax(torch.fmax(lo[..., 0], lo[..., 1]),
+                          torch.fmax(lo[..., 2], tn))
+        texit = torch.fmin(torch.fmin(hi[..., 0], hi[..., 1]), hi[..., 2])
+        slack = 1e-4 * (tent.abs() + texit.abs()) + 1e-5
+        pairs = vis & listed
+        live = pairs & (tent <= texit + slack) & (tent - slack <= tf)
+        listed_n += int(pairs.sum())
+        live_n += int(live.sum())
+        kept_n += int((pairs & live.any(2, keepdim=True)).sum())
+    return listed_n, live_n / max(listed_n, 1), kept_n / max(listed_n, 1)
 
 
 def _trace_fns(kind, scene):
@@ -586,7 +784,8 @@ def _trace_fns(kind, scene):
     }[kind]
 
 
-def phase_ptrace_kernels(dev, results):
+def phase_ptrace_kernels(dev, results,
+                         scenes=("terrain100k", "lights1k", "terrain100k-128")):
     """K5-K8 against their plain versions on the card, both on the whole
     of 1080p queries of a bench frame. terrain100k: the G-buffer query
     (K5), the area candidate's shadow query (K6) and the G-buffer rays as
@@ -598,14 +797,15 @@ def phase_ptrace_kernels(dev, results):
     ray (the sun stands high above a terrain that cannot shadow itself
     from it), so each any-hit kernel must also be held, on each scene, to a
     query with occluded and visible rays. Then factor 4 against factor 1
-    on terrain_scene(20_000). Adds the JSON entries (the first check of
-    each kernel) to results."""
+    on terrain_scene(20_000). `scenes` picks the scenes whose queries are
+    checked. Adds the JSON entries (the first check of each kernel) to
+    results."""
     import torch
 
     from tpu_restir_torch.kernels import cluster_trace as ct
     from tpu_restir_torch.scene.procedural import terrain_scene
     checks = []
-    for name in ("terrain100k", "lights1k", "terrain100k-128"):
+    for name in scenes:
         scene, view = large_scene(name, dev)
         mxu = name.endswith("-128")
         closest_pk, any_pk = capture_packets(
@@ -650,17 +850,24 @@ def phase_ptrace_kernels(dev, results):
             if n_pos and bool((live & ~want).any()):
                 both_sides.add((name, kind))
         ms = cuda_ms(lambda: kernel(pk), 5)
-        bnd = trace_bound(kind, scene, pk, got)
+        bnd, whole = trace_bound(kind, scene, pk, got)
         dead = int((~live[:pk.n_rays]).sum())
         mode = 0 if kind.endswith("_mxu") else ct._skip_for(
             "closest" if closest else "any", scene.cluster_tris.shape[0],
             pk.factor)
-        extra = ""
+        extra = "; the whole test on every pair: " + ", ".join(
+            f"{n} {what} (bound {b[0]:.3f} ms)"
+            for what, (n, b) in whole.items())
+        if mode == 5:
+            listed_n, live_share, kept_share = slab_live_share(scene, pk, want)
+            extra += f"; listed (visible ray, cluster) pairs {listed_n}: " \
+                f"slab-live {live_share:.4f}, in slots the block tests " \
+                f"{kept_share:.4f}"
         if kind.endswith("_mxu"):
             # the fused Moller-Trumbore kernel on the same scene and packets
             other = kind[:-4]
             ms_mt = cuda_ms(lambda: _trace_fns(other, scene)[0](pk), 5)
-            extra = f"; {other} (K5/K6) on the same packets {ms_mt:.3f} ms"
+            extra += f"; {other} (K5/K6) on the same packets {ms_mt:.3f} ms"
         print(f"[K5-K8 {kind}] {name} {label}: {pk.n_rays} rays in "
               f"{rp} packets, {dead} dead after the scene-box clamp; C="
               f"{scene.cluster_tris.shape[0]} clusters of "
@@ -668,15 +875,15 @@ def phase_ptrace_kernels(dev, results):
               f"{float(pk.count.float().mean()):.1f}, cull mode {mode}; "
               f"the whole query against the plain version: {what} (must be "
               f"0 mismatches); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {bnd[0]:.3f} ms ({bnd[1]}){extra}", flush=True)
+              f"bound {bnd[0]:.3f} ms ({bnd[1]}; operations counted per "
+              f"(ray, row)), bound/kernel {bnd[0] / ms:.2f}{extra}",
+              flush=True)
         require(mis == 0, f"{kind} {name} {label}: kernel and plain version "
                 f"differ on {mis} rays")
         if closest:
             require(n_pos > 0, f"{kind} {name} {label}: no ray hit")
-        if kind.endswith("_mxu"):
-            require(err == 0.0, f"{kind} {name} {label}: t/u/v differ by "
-                    f"{err}, not bit-identical")
-        require(err <= 1e-6, f"{kind} {name} {label}: t/u/v differ by {err}")
+        require(err == 0.0, f"{kind} {name} {label}: t/u/v differ by {err}, "
+                f"not bit-identical")
         e = results.setdefault(kind, {"max_abs_err": 0.0, "ms": ms,
                                       "plain_ms": plain_ms,
                                       "bound_ms": bnd[0], "bound_by": bnd[1],
@@ -731,6 +938,29 @@ def run_frames(scene, cfg, dev, n_frames, seed=0):
     return acc, state
 
 
+def timed_frames(scene, cfg, dev, n_frames):
+    """The frame yardstick: Renderer.run of n_frames frames after a
+    one-frame warm-up on another Renderer (allocator, libraries), the
+    kernel launch counts zeroed and the query log opened just before it ->
+    (renderer, image, seconds, query log). run ends in a synchronize."""
+    import torch
+
+    from tpu_restir_torch.render import intersect
+    from tpu_restir_torch.renderer import Renderer
+    Renderer(scene, cfg, device=dev).run(1)
+    torch.cuda.synchronize()
+    renderer = Renderer(scene, cfg, device=dev)
+    _zero_launches()
+    intersect.QUERY_LOG = qlog = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        img = renderer.run(n_frames)
+    finally:
+        intersect.QUERY_LOG = None
+    return renderer, img, time.perf_counter() - t0, qlog
+
+
 def scene_and_view(label, dev):
     """(scene on dev, camera view) of "cornell" or a clustered scene."""
     from tpu_restir_torch import cornell_box
@@ -770,21 +1000,10 @@ def phase_main_path(dev, small_mean, small_se, smi):
     import torch
 
     from tpu_restir_torch import cornell_box, metrics
-    from tpu_restir_torch.render import intersect
-    from tpu_restir_torch.renderer import Renderer
 
     cfg = bench_cfg(WIDTH, HEIGHT)
-    scene = cornell_box(dev)
-    Renderer(scene, cfg, device=dev).run(1)      # warm-up (allocator, libs)
-    torch.cuda.synchronize()
-    renderer = Renderer(scene, cfg, device=dev)
-    _zero_launches()
-    intersect.QUERY_LOG = qlog = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    img = renderer.run(N_FRAMES)                  # ends in a synchronize
-    dt = time.perf_counter() - t0
-    intersect.QUERY_LOG = None
+    renderer, img, dt, qlog = timed_frames(cornell_box(dev), cfg, dev,
+                                           N_FRAMES)
     launches = {k: v for k, v in _launches().items()
                 if k != "scatter_local" and not k.startswith("trace_")}
     # (the forward has no backward; a 36-triangle scene no clusters)
@@ -850,22 +1069,11 @@ def phase_large_path(dev, label, smi, small_mean):
     import torch
 
     from tpu_restir_torch import metrics
-    from tpu_restir_torch.render import intersect
-    from tpu_restir_torch.renderer import Renderer
 
     scene, view = large_scene(label, dev)
     mxu = label.endswith("-128")
     cfg = bench_cfg(WIDTH, HEIGHT, view, mxu=mxu)
-    Renderer(scene, cfg, device=dev).run(1)      # warm-up
-    torch.cuda.synchronize()
-    renderer = Renderer(scene, cfg, device=dev)
-    _zero_launches()
-    intersect.QUERY_LOG = qlog = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    img = renderer.run(LARGE_FRAMES)              # ends in a synchronize
-    dt = time.perf_counter() - t0
-    intersect.QUERY_LOG = None
+    renderer, img, dt, qlog = timed_frames(scene, cfg, dev, LARGE_FRAMES)
     launches = _launches()
     rays = sum(e["rays"] for e in qlog)
     traced_rpp = rays / float(WIDTH * HEIGHT * LARGE_FRAMES)
@@ -904,13 +1112,8 @@ def phase_large_path(dev, label, smi, small_mean):
             f"{label}: implausible image mean {mean} (64x32: {small_mean})")
     if mxu:
         # the same scene through K5/K6 (ptrace_mxu off), for comparison
-        cfg_mt = bench_cfg(WIDTH, HEIGHT, view)
-        Renderer(scene, cfg_mt, device=dev).run(1)
-        r_mt = Renderer(scene, cfg_mt, device=dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r_mt.run(LARGE_FRAMES)
-        dt_mt = time.perf_counter() - t0
+        r_mt, _img, dt_mt, _log = timed_frames(
+            scene, bench_cfg(WIDTH, HEIGHT, view), dev, LARGE_FRAMES)
         print(f"[large path] {label} without ptrace_mxu (K5/K6), the same "
               f"scene and frames: {dt_mt / LARGE_FRAMES * 1e3:.2f} ms/frame "
               f"against {dt / LARGE_FRAMES * 1e3:.2f} through K7/K8; image "

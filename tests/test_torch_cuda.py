@@ -39,6 +39,7 @@ from tpu_restir_torch.render.integrators.restir.pipeline import (
     render_restir_frames)
 from tpu_restir_torch.scene.cornell import cornell_box, many_lights_scene
 from tpu_restir_torch.scene.procedural import terrain_scene
+from torch_ray_families import family
 
 pytestmark = pytest.mark.gpu
 
@@ -66,7 +67,7 @@ def _rays(dev, n, seed, dead_share=0.0):
     return o.contiguous(), d, tn, tf
 
 
-@pytest.mark.parametrize("n", [1, 255, 100_003])
+@pytest.mark.parametrize("n", [1, 255, 257, 100_003])
 def test_closest_hit_kernel_matches_plain(cuda, n):
     scene = cornell_box(cuda)
     o, d, tn, _tf = _rays(cuda, n, n)
@@ -206,6 +207,51 @@ def test_closest_hit_kernel_tables(cuda, table):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int((got[3] >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 100_003])
+def test_closest_hit_kernel_shared_edges(cuda, n):
+    """K1 on rays that graze the Cornell box's shared edges: ids (a tie
+    goes to the lowest id) and t, u, v bit-identical."""
+    scene = cornell_box(cuda)
+    w = ray_tri.woop_rows(scene)
+    rays = [torch.from_numpy(x).to(cuda).contiguous()
+            for x in family("shared_edges", n, n)[1:]]
+    got = ray_tri.closest_hit(scene, *rays)
+    want = ray_tri.closest_hit_ref(w, *rays)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    if n == 100_003:
+        t, _u, _v, ok = ray_tri._woop_tuvok(*rays, w)
+        tt = torch.where(ok, t, torch.inf)
+        ties = ((tt == tt.amin(1, keepdim=True)) & ok).sum(1) > 1
+        assert int(ties.sum()) > 0
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 100_003])
+def test_closest_hit_kernel_special_ranges(cuda, n):
+    """K1 folds [tnear, tfar] once per ray as K2 does: infinite and NaN
+    bounds, empty and single-point ranges, zero and NaN directions give
+    the plain version's (t, u, v, tri)."""
+    scene = cornell_box(cuda)
+    o, d, tn, tf = _rays(cuda, n, 21 + n)
+    inf, nan = float("inf"), float("nan")
+    cases = [(-inf, inf), (0.0, inf), (-inf, 2.0), (nan, 2.0), (0.0, nan),
+             (2.0, 1.0), (inf, inf), (-inf, -inf), (1.0, 1.0), (0.0, 0.0)]
+    k = torch.arange(n, device=cuda) % (len(cases) + 1)
+    for i, (a, b) in enumerate(cases):
+        tn = torch.where(k == i, a, tn)
+        tf = torch.where(k == i, b, tf)
+    d = d.clone()
+    d[::97] = 0.0
+    d[5::101] = nan
+    tn, tf = tn.contiguous(), tf.contiguous()
+    want = ray_tri.closest_hit_ref(ray_tri.woop_rows(scene), o, d, tn, tf)
+    got = ray_tri.closest_hit(scene, o, d, tn, tf)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    if n == 100_003:
+        assert 0 < int((got[3] >= 0).sum()) < n
 
 
 def test_ray_tri_refuses_bad_inputs(cuda):
@@ -464,6 +510,48 @@ def test_trace_closest_kernel_matches_plain(cuda, name, n):
         assert torch.equal(g, w)
     if n > 1:
         assert 0 < int((got[3] >= 0).sum()) < n
+
+
+@pytest.mark.parametrize("name", ["terrain5k", "lights500"])
+def test_trace_closest_kernel_warps_and_lengths(cuda, name):
+    """K5 against its plain version, bit for bit, where its warp-level
+    shortcuts fire: the warps of a packet reach different depths (rays of
+    one packet sharing an origin, each pair of rows of the 8x32 packet, a
+    warp of K5, with its own tfar and a tenth of the rays dead), and
+    shortlists of length 0, 1 and S (the many-lights room, whose packets
+    of rays from inside it in every direction list every cluster)."""
+    scene = terrain_scene(cuda, 5_000) if name == "terrain5k" \
+        else many_lights_scene(cuda, 500)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(23)
+    n = 64 * ct.P
+    origin = torch.tensor([0.0, -6.0, 3.0] if name == "terrain5k"
+                          else [0.0, 0.0, 1.0], device=cuda)
+    o = (origin + 0.01 * torch.randn((n, 3), generator=g, device=cuda))
+    d = torch.randn((n, 3), generator=g, device=cuda)
+    if name == "terrain5k":
+        d = d * 0.3 + torch.tensor([0.0, 1.0, -0.5], device=cuda)
+    d = d / d.norm(dim=-1, keepdim=True)
+    depth = torch.tensor([0.5, 2.0, 4.0, 1e4], device=cuda)
+    tf = depth[torch.randint(0, 4, (n // 64,), generator=g, device=cuda)] \
+        .repeat_interleave(64)
+    dead = torch.rand((n,), generator=g, device=cuda) < 0.1
+    tf = torch.where(dead, -1.0, tf)
+    pk = _packets(scene, (o.contiguous(), d.contiguous(),
+                          torch.full((n,), 1e-3, device=cuda), tf))
+    pk.count[0] = 0
+    pk.count[int(torch.nonzero(pk.count[1:] > 1)[0]) + 1] = 1
+    got = ct.closest_packets(scene.cluster_tris, scene.cluster_min,
+                             scene.cluster_max, pk)
+    want = ct.trace_closest_ref(scene.cluster_tris, pk)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    counts = set(pk.count.tolist())
+    assert {0, 1} <= counts
+    if name == "lights500":
+        assert pk.shortlist.shape[1] in counts
+    assert 0 < int((got[3] >= 0).sum()) < n
 
 
 @pytest.mark.parametrize("name", ["terrain5k", "lights500"])

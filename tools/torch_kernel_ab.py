@@ -1,6 +1,6 @@
-"""The kernel checks and timings of chip_smoke.py (K1-K4 at 1080p, phase
-3's Cornell part) and the bench frame's per-pass times, run on the kernels
-of one checkout, for comparing two checkouts on one card:
+"""The kernel checks and timings of chip_smoke.py and the bench frame's
+per-pass, whole-frame and fwd+bwd times, run on the kernels of one
+checkout, for comparing two checkouts on one card:
 
     python3 tools/torch_kernel_ab.py [ROOT]
 
@@ -8,9 +8,19 @@ ROOT (default: this checkout) is the checkout whose `tpu_restir_torch`
 is imported. The inputs, the checks, the timer (`chip_smoke.cuda_ms`:
 runs enqueued back to back between CUDA events) and the bounds come from
 THIS checkout's chip_smoke.py, so two checkouts run in turn (parent,
-change, change, parent) compare like with like. Also prints the host time
-of one any_hit and one gather_local call on inputs too small to keep the
-device busy.
+change, change, parent) compare like with like. A run builds ROOT's
+kernels and prints their registers, then runs phase 3's checks of K1-K4
+at 1080p (its Cornell part) and of K5-K8 on the terrain100k and
+terrain100k-128 queries (the G-buffer query through K5, the shadow and
+occlusion queries through K6, and their Woop twins through K7/K8 with
+K5/K6 on the same packets), the host time of one any_hit and one
+gather_local call on inputs too small to keep the device busy, the
+Cornell bench frame's per-pass times, the ms/frame of the bench frame on
+Cornell, terrain100k and lights1k (`chip_smoke.timed_frames` of
+chip_smoke.LARGE_FRAMES frames), the 1080p fwd+bwd step
+(`chip_smoke.phase_fwd_bwd`), and the device's busy share over two
+Cornell frames and over one fwd+bwd step (`chip_smoke._profile`; tables
+in out/ab_profile/ of this checkout).
 """
 
 import os
@@ -35,7 +45,10 @@ def main():
                == root, f"tpu_restir_torch was not imported from {root}")
     dev, _name, smi = cs.phase_device()
     print(f"[ab] kernels of {root}", flush=True)
+    cs.phase_build()
     cs.phase_kernels(dev)
+    cs.phase_ptrace_kernels(dev, {}, scenes=("terrain100k",
+                                             "terrain100k-128"))
     scene = cornell_box(dev)
     rays = [torch.rand((1, 3), device=dev), torch.rand((1, 3), device=dev),
             torch.zeros((1,), device=dev), torch.ones((1,), device=dev)]
@@ -54,6 +67,21 @@ def main():
         print(f"[ab] host time of one {name} call: {host_ms:.4f} ms "
               f"({smi})", flush=True)
     cs.phase_passes(dev)
+    frames = {}
+    for label in ("cornell", "terrain100k", "lights1k"):
+        big, view = cs.scene_and_view(label, dev)
+        dt = cs.timed_frames(big, cs.bench_cfg(cs.WIDTH, cs.HEIGHT, view),
+                             dev, cs.LARGE_FRAMES)[2]
+        frames[label] = round(dt / cs.LARGE_FRAMES * 1e3, 2)
+    print(f"[ab] ms/frame at {cs.WIDTH}x{cs.HEIGHT}, {cs.LARGE_FRAMES} "
+          f"frames after a warm-up: {frames} ({smi})", flush=True)
+    cs.phase_fwd_bwd(dev, smi)
+    out = os.path.join(HERE, "out", "ab_profile", os.path.basename(root))
+    cfg = cs.bench_cfg(cs.WIDTH, cs.HEIGHT)
+    cs._profile("2 forward frames",
+                lambda: cs.run_frames(scene, cfg, dev, 2), f"{out}_frames.txt")
+    vg, params = cs.bench_step(dev, cs.WIDTH, cs.HEIGHT)
+    cs._profile("1 fwd+bwd step", lambda: vg(params), f"{out}_fwd_bwd.txt")
 
 
 if __name__ == "__main__":

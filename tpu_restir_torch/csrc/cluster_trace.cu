@@ -14,15 +14,16 @@
 // products on the MXU, then a lowest-lane argmin, and clamp the last slot
 // to n - 1. None of that is needed here, and none of it changes a result.
 //
-// What bounds it on the H100: arithmetic. Each (ray, triangle) pair is a
-// fused Moller-Trumbore test of ~46 float32 operations (K5/K6) or six 3-
-// or 4-term dot products and the hit test, ~40 (K7/K8), and this file is
-// compiled with --fmad=false, so they issue as separate multiplies and
-// adds. The Woop products stay on the CUDA cores in float32: the TPU
-// kernel asks for Precision.HIGHEST because bf16 products gave false hits,
-// and TF32 keeps about as few mantissa bits, so the tensor cores would
-// need a 3xTF32 split to be exact enough (a later redesign). A cluster
-// block is 64 x 9 floats (2.3 KB), a Woop block 4 x 384 (6 KB); a
+// What bounds it on the H100: instruction issue. Each (ray, triangle) pair
+// is a fused Moller-Trumbore test of ~46 float32 operations (K5/K6) or six
+// 3- or 4-term dot products and the hit test, ~40 (K7/K8), and this file
+// is compiled with --fmad=false, so they issue as separate multiplies and
+// adds, beside the IEEE reciprocal, the compares, the fold and the loads
+// of the triangle. The Woop products stay on the CUDA cores in float32:
+// the TPU kernel asks for Precision.HIGHEST because bf16 products gave
+// false hits, and TF32 keeps about as few mantissa bits, so the tensor
+// cores would need a 3xTF32 split to be exact enough (a later redesign). A
+// cluster block is 64 x 9 floats (2.3 KB), a Woop block 4 x 384 (6 KB); a
 // 100k-triangle scene's blocks (3.6 or 4.8 MB) stay in the 50 MB L2, so
 // device memory is not the limit. The other cost is divergence between
 // packets: the work of a packet is its shortlist, from a few clusters to
@@ -41,14 +42,27 @@
 //      slot's box with the TPU kernel's slack, and skips the slot only if
 //      no ray is live, so every ray of a tested slot is tested, as on the
 //      TPU;
-//   3. stages the cluster's block in shared memory (a Woop block by float4
-//      loads); each thread tests its ray against every row (lane), a
-//      broadcast read.
+//   3. stages the cluster's block in shared memory (a Moller-Trumbore row
+//      padded to 12 floats, read as three 16-byte broadcasts; a Woop block
+//      by float4 loads); each thread tests its ray against every row.
 // The vote barriers also fence the tile: no thread overwrites it before
-// every thread has finished the previous slot. The early-outs and the cull
-// only skip work that cannot change a result, so the kernels must equal
-// the plain versions `trace_closest_ref` / `trace_any_ref` (and `_mxu_ref`),
-// which test every listed slot.
+// every thread has finished the previous slot.
+// K5 (closest hit, Moller-Trumbore) also works at the warp's grain inside
+// the slot, where K6-K8 test every row:
+//   - a warp none of whose rays can improve in the slot skips its rows
+//     (the block vote's condition, per warp; K7 too);
+//   - per row, u comes first (p, det, its reciprocal, tv and u: 24 of the
+//     46 operations); a warp with no live ray whose u is in [0, 1] skips
+//     q, v, t and the compares (why that is exact: closest_rows_mt);
+//   - the reciprocal directions of the slab test only in mode 5.
+// Kept out, slower on the card: two adjacent rays a thread (128-thread
+// blocks; 72 registers against 48). Not tried: overlapping a slot's
+// staging with the previous slot's tests (cp.async), since staging every
+// block twice cost K5 no measurable time.
+// The early-outs, the skips and the cull only skip work that cannot change
+// a result, so the kernels must equal the plain versions
+// `trace_closest_ref` / `trace_any_ref` (and `_mxu_ref`), which test every
+// listed slot.
 //
 // Rounding: the tests keep `_mt_cluster`'s operation order, or K1's
 // (`_woop_tuvok`: ((o_x w_0 + o_y w_1) + o_z w_2) + w_3; the direction
@@ -65,15 +79,22 @@
 
 namespace {
 
-constexpr int kP = 256;   // rays per packet == threads per block
+constexpr int kP = 256;     // rays per packet == threads per block
+constexpr int kMtRow = 12;  // floats per staged Moller-Trumbore row (9 + 3)
 constexpr int kWoopB = 128;            // triangles per Woop block
 constexpr int kWoopRow = 3 * kWoopB;   // floats per coefficient row (u|v|w)
 constexpr int kWoopFloats = 4 * kWoopRow;
 constexpr float kBaryEps = 1e-5f;
 constexpr float kBaryMax = (float)(1.0 + 1e-5);
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, tn, tf;
+};
+
+struct Best {
+  float t, u, v;
+  int tri;
 };
 
 struct Args {
@@ -95,30 +116,60 @@ struct Args {
   int skip;                // 0: no cull, 5: per-ray slab cull
 };
 
-// Fused Moller-Trumbore of one (ray, triangle) pair; tr points at the
-// triangle's 9 floats. The operation order is `_mt_cluster`'s.
-__device__ __forceinline__ bool mt(const Ray& r, const float* tr, float& t,
-                                   float& u, float& v) {
-  const float v0x = tr[0], v0y = tr[1], v0z = tr[2];
-  const float e1x = tr[3], e1y = tr[4], e1z = tr[5];
-  const float e2x = tr[6], e2y = tr[7], e2z = tr[8];
-  const float px = r.dy * e2z - r.dz * e2y;
-  const float py = r.dz * e2x - r.dx * e2z;
-  const float pz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
-  const bool ok_det = fabsf(det) > 1e-18f;
-  const float inv = ok_det ? 1.0f / det : 0.0f;
-  const float tvx = r.ox - v0x;
-  const float tvy = r.oy - v0y;
-  const float tvz = r.oz - v0z;
-  u = (tvx * px + tvy * py + tvz * pz) * inv;
-  const float qx = tvy * e1z - tvz * e1y;
-  const float qy = tvz * e1x - tvx * e1z;
-  const float qz = tvx * e1y - tvy * e1x;
-  v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
-  t = (e2x * qx + e2y * qy + e2z * qz) * inv;
-  return ok_det && u >= 0.f && v >= 0.f && u + v <= 1.f && t >= r.tn &&
-         t <= r.tf;
+__device__ __forceinline__ Ray load_ray(const Args& a, long long i) {
+  Ray r;
+  r.ox = a.o[3 * i]; r.oy = a.o[3 * i + 1]; r.oz = a.o[3 * i + 2];
+  r.dx = a.d[3 * i]; r.dy = a.d[3 * i + 1]; r.dz = a.d[3 * i + 2];
+  r.tn = a.tnear[i]; r.tf = a.tfar[i];
+  return r;
+}
+
+// The first half of `_mt_cluster` for one (ray, triangle) pair: p = d x e2,
+// det, its reciprocal, tv = o - v0 and u. A staged row is x = (v0, e1.x),
+// y = (e1.y, e1.z, e2.x, e2.y), z = (e2.z, padding).
+struct MtHalf {
+  float tvx, tvy, tvz, inv, u;
+  bool ok_det;
+};
+
+__device__ __forceinline__ MtHalf mt_u(const Ray& r, float4 x, float4 y,
+                                       float4 z) {
+  const float px = r.dy * z.x - r.dz * y.w;
+  const float py = r.dz * y.z - r.dx * z.x;
+  const float pz = r.dx * y.w - r.dy * y.z;
+  const float det = x.w * px + y.x * py + y.y * pz;
+  MtHalf m;
+  m.ok_det = fabsf(det) > 1e-18f;
+  // |det| <= 1e-18 fails the test whatever u is (inv = 0, as in the plain
+  // version); the reciprocal of 1 there keeps off the division's slow path
+  const float inv = 1.0f / (m.ok_det ? det : 1.0f);
+  m.inv = m.ok_det ? inv : 0.0f;
+  m.tvx = r.ox - x.x;
+  m.tvy = r.oy - x.y;
+  m.tvz = r.oz - x.z;
+  m.u = (m.tvx * px + m.tvy * py + m.tvz * pz) * m.inv;
+  return m;
+}
+
+// The second half: q = tv x e1, v and t.
+__device__ __forceinline__ void mt_vt(const Ray& r, const MtHalf& m,
+                                      float4 x, float4 y, float4 z, float& v,
+                                      float& t) {
+  const float qx = m.tvy * y.y - m.tvz * y.x;
+  const float qy = m.tvz * x.w - m.tvx * y.y;
+  const float qz = m.tvx * y.x - m.tvy * x.w;
+  v = (r.dx * qx + r.dy * qy + r.dz * qz) * m.inv;
+  t = (y.z * qx + y.w * qy + z.x * qz) * m.inv;
+}
+
+// The whole fused Moller-Trumbore test of `_mt_cluster`.
+__device__ __forceinline__ bool mt(const Ray& r, float4 x, float4 y,
+                                   float4 z) {
+  const MtHalf m = mt_u(r, x, y, z);
+  float v, t;
+  mt_vt(r, m, x, y, z, v, t);
+  return m.ok_det && m.u >= 0.f && v >= 0.f && m.u + v <= 1.f &&
+         t >= r.tn && t <= r.tf;
 }
 
 // Coefficient row k (x, y, z, translation) of component c (u, v, w) of lane
@@ -149,12 +200,28 @@ __device__ __forceinline__ bool woop_test(const Ray& r, const float* tile,
          isfinite(t) && (t >= r.tn) && (t <= r.tf);
 }
 
-// Row j of the staged block by the kernel's test.
-template <bool kWoop>
-__device__ __forceinline__ bool test(const Ray& r, const float* tile, int j,
-                                     float& t, float& u, float& v) {
-  return kWoop ? woop_test(r, tile, j, t, u, v)
-               : mt(r, tile + 9 * j, t, u, v);
+// K5's rows: the thread's ray against the `rows` staged rows of cluster c,
+// folded into b; `live` is false for a dead ray (tfar < tnear).
+__device__ __forceinline__ void closest_rows_mt(const Ray& r, bool live,
+                                                const float4* tile, int rows,
+                                                int c, Best& b) {
+  for (int j = 0; j < rows; ++j) {
+    const float4 x = tile[3 * j], y = tile[3 * j + 1], z = tile[3 * j + 2];
+    const MtHalf m = mt_u(r, x, y, z);
+    const bool cand = live & m.ok_det & (m.u >= 0.f) & (m.u <= 1.f);
+    // u first. The test asks ok_det, u >= 0, v >= 0 and fl(u + v) <= 1.
+    // With v >= 0, fl(u + v) >= u, because rounding is monotone and
+    // fl(u) = u; so a hit needs u <= 1 (and a NaN u fails u >= 0). A dead
+    // ray (tfar < tnear) fails the t range. So where no lane has a live
+    // ray with ok_det and 0 <= u <= 1, no ray of the warp hits this row,
+    // and skipping q, v, t and the compares changes nothing.
+    if (!__any_sync(kFull, cand)) continue;
+    float v, t;
+    mt_vt(r, m, x, y, z, v, t);
+    if (cand && v >= 0.f && m.u + v <= 1.f && t >= r.tn && t <= r.tf &&
+        t < b.t)
+      b = Best{t, m.u, v, c * rows + j};
+  }
 }
 
 // Safe reciprocal direction of `_ray_inv`: near-zero components become
@@ -183,68 +250,85 @@ __device__ __forceinline__ bool slab_live(const Ray& r, float ix, float iy,
   return tent <= texit + slack && tent - slack <= upper;
 }
 
+// One block per packet, one ray a thread.
 template <bool kClosest, bool kWoop>
 __global__ void __launch_bounds__(kP)
     trace_kernel(Args a, float* __restrict__ t_out, float* __restrict__ u_out,
                  float* __restrict__ v_out, int* __restrict__ tri_out,
                  bool* __restrict__ occ_out) {
-  extern __shared__ float tile[];   // B x 9 floats, or a Woop block
+  extern __shared__ float4 tile[];   // B rows of 3 float4, or a Woop block
   const int p = blockIdx.x;
   const long long i = (long long)p * kP + threadIdx.x;
-  Ray r;
-  r.ox = a.o[3 * i]; r.oy = a.o[3 * i + 1]; r.oz = a.o[3 * i + 2];
-  r.dx = a.d[3 * i]; r.dy = a.d[3 * i + 1]; r.dz = a.d[3 * i + 2];
-  r.tn = a.tnear[i]; r.tf = a.tfar[i];
-  const float ix = safe_inv(r.dx), iy = safe_inv(r.dy), iz = safe_inv(r.dz);
-  const bool dead = r.tf < r.tn;
+  const Ray r = load_ray(a, i);
+  const bool live = !(r.tf < r.tn);
+  float ix = 0.f, iy = 0.f, iz = 0.f;
+  if (!kWoop && a.skip == 5) {
+    ix = safe_inv(r.dx);
+    iy = safe_inv(r.dy);
+    iz = safe_inv(r.dz);
+  }
   const int* sl = a.shortlist + (long long)p * a.n_super;
   const float* ent = a.entry + (long long)p * a.n_super;
   const int n_slots = a.count[p] * a.factor;
   const int rows = kWoop ? kWoopB : a.block;
-  const int tile_floats = kWoop ? kWoopFloats : a.block * 9;
 
-  float bt = INFINITY, bu = 0.f, bv = 0.f;
-  int btri = -1;
+  Best b{INFINITY, 0.f, 0.f, -1};
   bool occ = false;
   for (int s = 0; s < n_slots; ++s) {
     const int q = min(s / a.factor, a.n_super - 1);
+    // closest hit: can the ray still improve in this slot?
+    bool act = false;
     if (kClosest) {
       // front-to-back order: no ray can improve once the next entry
       // passes min(best_t, tfar) of every ray
-      if (!__syncthreads_or(ent[q] <= fminf(bt, r.tf))) break;
+      act = ent[q] <= fminf(b.t, r.tf);
+      if (!__syncthreads_or(act)) break;
     } else {
-      if (__syncthreads_and(occ || dead)) break;
+      if (__syncthreads_and(occ || !live)) break;
     }
     const int sc = sl[q];
     const int c = a.factor == 1 ? sc
                                 : min(sc * a.factor + s % a.factor,
                                       a.n_clusters - 1);
     if (!kWoop && a.skip == 5) {
-      const float upper = kClosest ? fminf(bt, r.tf) : r.tf;
-      const bool live = (kClosest || !occ) &&
+      const float upper = kClosest ? fminf(b.t, r.tf) : r.tf;
+      const bool slab = (kClosest || !occ) &&
                         slab_live(r, ix, iy, iz, a.bmin, a.bmax,
                                   a.box_per_cluster ? c : sc, upper);
-      if (!__syncthreads_or(live)) continue;
+      if (!__syncthreads_or(slab)) continue;
     }
-    const float* src = a.ctris + (long long)c * tile_floats;
     if (kWoop) {   // 16-byte aligned (the wrapper checks)
-      for (int k = threadIdx.x; k < kWoopFloats / 4; k += kP)
-        ((float4*)tile)[k] = ((const float4*)src)[k];
-    } else {
-      for (int k = threadIdx.x; k < tile_floats; k += kP) tile[k] = src[k];
+      const float4* src = (const float4*)a.ctris + (long long)c *
+                          (kWoopFloats / 4);
+      for (int k = threadIdx.x; k < kWoopFloats / 4; k += kP) tile[k] = src[k];
+    } else {       // coalesced reads; row j at tile[3 j]
+      const float* src = a.ctris + (long long)c * a.block * 9;
+      float* dst = reinterpret_cast<float*>(tile);
+      for (int k = threadIdx.x; k < a.block * 9; k += kP)
+        dst[k / 9 * kMtRow + k % 9] = src[k];
     }
     __syncthreads();
     if (kClosest) {
-      for (int j = 0; j < rows; ++j) {
-        float t, u, v;
-        if (test<kWoop>(r, tile, j, t, u, v) && t < bt) {
-          bt = t; bu = u; bv = v; btri = c * rows + j;
+      // the block vote's condition per warp: the entry distance bounds
+      // from below every hit in the slot of every ray of the packet
+      if (!__any_sync(kFull, act)) continue;
+      if (kWoop) {
+        for (int j = 0; j < rows; ++j) {
+          float t, u, v;
+          if (woop_test(r, reinterpret_cast<const float*>(tile), j, t, u,
+                        v) &&
+              t < b.t)
+            b = Best{t, u, v, c * rows + j};
         }
+      } else {
+        closest_rows_mt(r, live, tile, rows, c, b);
       }
     } else if (!occ) {
       for (int j = 0; j < rows; ++j) {
         float t, u, v;
-        if (test<kWoop>(r, tile, j, t, u, v)) {
+        if (kWoop ? woop_test(r, reinterpret_cast<const float*>(tile), j, t,
+                              u, v)
+                  : mt(r, tile[3 * j], tile[3 * j + 1], tile[3 * j + 2])) {
           occ = true;   // an OR: the first occluder decides
           break;
         }
@@ -252,10 +336,10 @@ __global__ void __launch_bounds__(kP)
     }
   }
   if (kClosest) {
-    t_out[i] = bt;
-    u_out[i] = bu;
-    v_out[i] = bv;
-    tri_out[i] = btri;
+    t_out[i] = b.t;
+    u_out[i] = b.u;
+    v_out[i] = b.v;
+    tri_out[i] = b.tri;
   } else {
     occ_out[i] = occ;
   }
@@ -287,7 +371,7 @@ int launch(const Args& a, int n_packets, int woop, void* stream, float* t,
                                                            occ);
   else
     trace_kernel<kClosest, false><<<n_packets, kP,
-                                    a.block * 9 * sizeof(float),
+                                    a.block * kMtRow * sizeof(float),
                                     (cudaStream_t)stream>>>(a, t, u, v, tri,
                                                             occ);
   return (int)cudaGetLastError();

@@ -469,7 +469,7 @@ def _launch(kind, blocks, pk: Packets, outs, cmin=None, cmax=None):
         _check_tensors(pk, ctris=(blocks, (c, b, 9), torch.float32),
                        bmin=(bmin, (bmin.shape[0], 3), torch.float32),
                        bmax=(bmax, (bmin.shape[0], 3), torch.float32))
-        if b * 9 * 4 > 48 * 1024:
+        if b * 12 * 4 > 48 * 1024:   # rows staged as 12 floats
             raise ValueError(f"cluster_trace: cluster size {b} exceeds the "
                              "kernel's 48 KB shared-memory tile")
         skip = _skip_for("closest" if kind == "trace_closest" else "any", c,
