@@ -29,10 +29,16 @@ line is not printed:
      plain test on the query's own rays: a row is charged the leading part
      of its test that rules it out (the t half, or the test through u),
      else the whole test; a closest-hit query of K5/K7 tests each live ray
-     against the clusters its own min(t, tfar) reaches. Each line prints
-     beside it the bound with the whole test on every pair (and for K5/K7
-     the pairs counted per packet); K6's lines in cull mode 5 print the
-     share of listed pairs that the per-ray slab test leaves live.
+     against the clusters its own min(t, tfar) reaches; an any-hit query
+     of K6 in cull mode 5 pays a box test per listed (visible ray,
+     cluster) pair and rows only where the ray's slab test leaves it
+     live. Each line prints beside it the bound with the whole test on
+     every pair (and for K5/K7 the pairs counted per packet, for K6 in
+     mode 5 the rows of every listed pair), and K6's lines in mode 5 the
+     shares of listed pairs that are slab-live and that the kernel's warps
+     and blocks test. K4 must equal its plain version bit for bit on
+     integer cotangents and, on normal ones, the sum in its own order
+     (its sha256 printed).
   4. the main path: Renderer on the Cornell box at 1920x1080, the bench
      config (m_area=1, m_brdf=1, temporal, 5-neighbour pairwise spatial),
      8 frames; the traced rays per pixel must equal the analytic 28, every
@@ -84,6 +90,7 @@ and checks so at its end, after the CLI has exported.
 """
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -121,6 +128,15 @@ MT_OPS = 46     # ... of one fused Moller-Trumbore test (K5/K6)
 WOOP_T_OPS = 13   # the Woop t half: dw (5), ow (6), t = -ow / dw (2)
 WOOP_TU_OPS = 26  # ... and u = ou + t du (13)
 MT_U_OPS = 24     # p = d x e2 (9), det (5), 1 / det, tv = o - v0 (3), u (6)
+# the per-ray slab test of K6's cull (slab_live of csrc/cluster_trace.cu) of
+# one box: the plane distances (6 subtractions, 6 products), the per-axis
+# entries and exits (6 min/max), tent (3 max), texit (2 min), the slack
+# (|tent| + |texit|, times 1e-4, plus 1e-5: 3; an absolute value is an
+# operand modifier), texit + slack and tent - slack (2); the compares and
+# the selects of the clamped axes not counted, as the ray/triangle counts
+# count no compare
+SLAB_OPS = 28
+SAFE_INV_OPS = 3  # a ray's clamped reciprocal direction, once per ray
 BARY_EPS = 1e-5   # the Woop test's slack (kernels/ray_tri.py)
 RAY_BYTES = 32  # o, d, tnear, tfar of one ray
 
@@ -515,6 +531,9 @@ def phase_kernels(dev):
         got = lg.scatter_local(gn, tys, txs, r4, disk_r2)
         want = lg.scatter_local_ref(gn, tys, txs)
         err = float((got - want).abs().max())
+        ordered = bool(torch.equal(got, lg.scatter_local_ordered_ref(
+            gn, tys, txs, r4, disk_r2)))
+        digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
         ms = cuda_ms(lambda: lg.scatter_local(gn, tys, txs, r4, disk_r2), 10)
         plain = cuda_ms(lambda: lg.scatter_local_ref(gn, tys, txs), 10)
         # the library call: index_add of the cotangents into a zero payload
@@ -528,12 +547,15 @@ def phase_kernels(dev):
               f"disk_r2={disk_r2} C={c} at {HEIGHT}x{WIDTH}; integer "
               f"cotangents bit-identical {equal}; normal cotangents max "
               f"|err| {err:.3g} (tolerance 1e-5: the plain index_add_ sums "
-              f"in atomic order); kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+              f"in atomic order), bit-identical to the sum in the kernel's "
+              f"order {ordered}, sha256 {digest}; kernel {ms:.3f} ms, plain "
+              f"{plain:.3f} ms, "
               f"PyTorch index_add {library:.3f} ms, bound {bnd[0]:.3f} ms "
               f"({bnd[1]})", flush=True)
         require(equal, f"K4 C={c}: differs from the plain version on "
                 "integer cotangents")
         require(err <= 1e-5, f"K4 C={c}: max error {err}")
+        require(ordered, f"K4 C={c}: differs from the sum in its order")
         record("scatter_local", err, ms, plain, bnd, library)
     return results
 
@@ -642,14 +664,18 @@ def closest_pairs(pk, t):
     return per_ray, per_packet
 
 
-def trace_ops(kind, scene, pk, out):
+def trace_ops(kind, scene, pk, out, slab=False):
     """Operations per ray (Rp*P,) that a clustered query at factor 1 needs,
     from the plain test slot by slot in shortlist order: closest hit, each
     live ray every row of the listed slots whose entry is within its own
     min(t, tfar) at the end (as `closest_pairs` counts them); any hit, each
     visible live ray every row of every listed slot, each occluded ray one
     whole test; a dead ray none. Rows by mt_row_ops, or woop_row_ops under
-    ptrace_mxu (closest hit: the least hit t carried from slot to slot)."""
+    ptrace_mxu (closest hit: the least hit t carried from slot to slot).
+    slab (any hit, cull mode 5): a visible live ray pays its reciprocal
+    direction once and one box test (SLAB_OPS) per listed slot, and the
+    rows of only the slots whose box `slab_live_ref` leaves it (upper =
+    tfar), since the slab test rules the others out."""
     import torch
 
     from tpu_restir_torch.kernels import cluster_trace as ct
@@ -666,15 +692,26 @@ def trace_ops(kind, scene, pk, out):
     else:
         need = need & ~out.view(rp, 1, ct.P)
     ops = torch.zeros((rp, ct.P), dtype=torch.int64, device=pk.o.device)
+    if slab:
+        require(not closest and not woop, "the slab count is K6's")
+        o = pk.o.view(rp, 1, ct.P, 3)
+        d = pk.d.view(rp, 1, ct.P, 3)
+        ops += SAFE_INV_OPS * need.view(rp, ct.P).long()
     for j in range(int(pk.count.max()) if rp else 0):
         act = torch.nonzero(pk.count > j)[:, 0]
         for k in range(0, act.shape[0], ct._REF_PACKETS):
             a = act[k:k + ct._REF_PACKETS]
-            tr = blocks[pk.shortlist[a, j].long()]
+            cl = pk.shortlist[a, j].long()
+            tr = blocks[cl]
             r = [x[a] for x in ray]
             slot = need[a]
             if closest:
                 slot = slot & (pk.entry[a, j, None, None] <= reach[a])
+            if slab:
+                ops[a] += SLAB_OPS * slot[:, 0].long()
+                slot = slot & ct.slab_live_ref(
+                    o[a], d[a], tn[a], tf[a], scene.cluster_min[cl, None, None],
+                    scene.cluster_max[cl, None, None])
             if woop:
                 t, u, _v, ok = ct._woop(tr, *r, tn[a], tf[a])
                 rows = woop_row_ops(t, u, ok, tn[a], tf[a],
@@ -692,14 +729,17 @@ def trace_ops(kind, scene, pk, out):
     return ops.reshape(-1)
 
 
-def trace_bound(kind, scene, pk, out):
+def trace_bound(kind, scene, pk, out, slab=False):
     """The bound of a clustered query at factor 1, from what its data
-    needs: the operations of `trace_ops`. Bytes: the rays, the outputs,
-    the listed shortlist entries (id and entry distance) and every cluster
-    block once. -> ((bound_ms, bound_by), {what: (count, bound)}) where the
-    second part holds for comparison the (ray, triangle) pairs that the
-    count tests, with the whole test on each ("pairs"), and for closest hit
-    the same counted per packet ("pairs per packet")."""
+    needs: the operations of `trace_ops` (slab: K6's count in cull mode 5,
+    box tests and the rows of slab-live pairs). Bytes: the rays, the
+    outputs, the listed shortlist entries (id and entry distance) and
+    every cluster block once. -> ((bound_ms, bound_by), {what: (count,
+    bound)}) where the second part holds for comparison the bound of the
+    rows of every listed pair (with slab: "listed pairs") and the (ray,
+    triangle) pairs that the listed count tests, with the whole test on
+    each ("pairs"), and for closest hit the same counted per packet
+    ("pairs per packet")."""
     from tpu_restir_torch.kernels import cluster_trace as ct
     woop = kind.endswith("_mxu")
     if woop:
@@ -724,16 +764,23 @@ def trace_bound(kind, scene, pk, out):
     n = pk.o.shape[0]
     n_bytes = n * (RAY_BYTES + out_bytes) + int(count.sum()) * 8 \
         + scene.cluster_tris.shape[0] * block_bytes
-    return (bound(n_bytes, int(trace_ops(kind, scene, pk, out).sum())),
-            {k: (v, bound(n_bytes, v * whole)) for k, v in pairs.items()})
+    listed_ops = int(trace_ops(kind, scene, pk, out).sum())
+    extra = {k: (v, bound(n_bytes, v * whole)) for k, v in pairs.items()}
+    if not slab:
+        return bound(n_bytes, listed_ops), extra
+    slab_ops = int(trace_ops(kind, scene, pk, out, slab=True).sum())
+    return (bound(n_bytes, slab_ops),
+            {"listed pairs": (listed_ops, bound(n_bytes, listed_ops)),
+             **extra})
 
 
 def slab_live_share(scene, pk, occ, chunk=16):
     """An any-hit query in cull mode 5 at factor 1: (listed (visible live
     ray, cluster) pairs, the share of them that the per-ray slab test
-    (`slab_live` of csrc/cluster_trace.cu, upper = tfar) leaves live, the
-    share of them in slots that some visible ray's test keeps, which the
-    block then tests whole). The any-hit bound counts every listed pair."""
+    (`slab_live_ref`, upper = tfar) leaves live, the share of them in warps
+    (32 consecutive rays) of which some visible ray's test keeps the slot,
+    whose rows K6 runs, and the share in slots that some visible ray of the
+    packet keeps, which a block vote alone would test whole)."""
     import torch
 
     from tpu_restir_torch.kernels import cluster_trace as ct
@@ -744,26 +791,23 @@ def slab_live_share(scene, pk, occ, chunk=16):
     tn = pk.tnear.view(rp, 1, ct.P)
     tf = pk.tfar.view(rp, 1, ct.P)
     vis = ((pk.tfar >= pk.tnear) & ~occ).view(rp, 1, ct.P)
-    inv = torch.where(d.abs() > 1e-20, 1.0 / d,
-                      torch.where(d >= 0, 1e20, -1e20))
-    listed_n = live_n = kept_n = 0
+    listed_n = live_n = warp_n = kept_n = 0
     for j0 in range(0, int(pk.count.max()), chunk):
         sl = pk.shortlist[:, j0:j0 + chunk].long()
         listed = (torch.arange(j0, j0 + sl.shape[1], device=sl.device)[None]
                   < pk.count[:, None])[..., None]               # (rp, J, 1)
-        t1 = (scene.cluster_min[sl][:, :, None] - o) * inv      # (rp, J, P, 3)
-        t2 = (scene.cluster_max[sl][:, :, None] - o) * inv
-        lo, hi = torch.fmin(t1, t2), torch.fmax(t1, t2)
-        tent = torch.fmax(torch.fmax(lo[..., 0], lo[..., 1]),
-                          torch.fmax(lo[..., 2], tn))
-        texit = torch.fmin(torch.fmin(hi[..., 0], hi[..., 1]), hi[..., 2])
-        slack = 1e-4 * (tent.abs() + texit.abs()) + 1e-5
         pairs = vis & listed
-        live = pairs & (tent <= texit + slack) & (tent - slack <= tf)
+        live = pairs & ct.slab_live_ref(o, d, tn, tf,
+                                        scene.cluster_min[sl][:, :, None],
+                                        scene.cluster_max[sl][:, :, None])
+        rp_, j_ = live.shape[:2]
+        warp = live.view(rp_, j_, ct.P // 32, 32).any(3, keepdim=True)
         listed_n += int(pairs.sum())
         live_n += int(live.sum())
+        warp_n += int((pairs.view(rp_, j_, ct.P // 32, 32) & warp).sum())
         kept_n += int((pairs & live.any(2, keepdim=True)).sum())
-    return listed_n, live_n / max(listed_n, 1), kept_n / max(listed_n, 1)
+    n = max(listed_n, 1)
+    return listed_n, live_n / n, warp_n / n, kept_n / n
 
 
 def _trace_fns(kind, scene):
@@ -850,18 +894,29 @@ def phase_ptrace_kernels(dev, results,
             if n_pos and bool((live & ~want).any()):
                 both_sides.add((name, kind))
         ms = cuda_ms(lambda: kernel(pk), 5)
-        bnd, whole = trace_bound(kind, scene, pk, got)
         dead = int((~live[:pk.n_rays]).sum())
         mode = 0 if kind.endswith("_mxu") else ct._skip_for(
             "closest" if closest else "any", scene.cluster_tris.shape[0],
             pk.factor)
-        extra = "; the whole test on every pair: " + ", ".join(
+        slab = not closest and mode == 5
+        bnd, whole = trace_bound(kind, scene, pk, got, slab=slab)
+        extra = ""
+        if slab:
+            n_listed, b_listed = whole.pop("listed pairs")
+            extra = f"; that bound is slab-aware (a box test of " \
+                f"{SLAB_OPS} operations a (visible ray, listed cluster) " \
+                f"pair, rows only where the ray is slab-live); with the " \
+                f"rows of every listed pair {n_listed} operations (bound " \
+                f"{b_listed[0]:.3f} ms)"
+        extra += "; the whole test on every pair: " + ", ".join(
             f"{n} {what} (bound {b[0]:.3f} ms)"
             for what, (n, b) in whole.items())
         if mode == 5:
-            listed_n, live_share, kept_share = slab_live_share(scene, pk, want)
+            listed_n, live_share, warp_share, kept_share = slab_live_share(
+                scene, pk, want)
             extra += f"; listed (visible ray, cluster) pairs {listed_n}: " \
-                f"slab-live {live_share:.4f}, in slots the block tests " \
+                f"slab-live {live_share:.4f}, in warps that test the slot " \
+                f"{warp_share:.4f}, in slots the block stages " \
                 f"{kept_share:.4f}"
         if kind.endswith("_mxu"):
             # the fused Moller-Trumbore kernel on the same scene and packets

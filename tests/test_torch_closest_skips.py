@@ -298,10 +298,64 @@ def test_slab_live_share_counts_listed_pairs():
     pk = ct.pack(scene.cluster_min, scene.cluster_max, o, d,
                  torch.full((n,), 1e-3), torch.full((n,), 2.0), 1)
     occ = ct.trace_any_ref(scene.cluster_tris, pk)
-    listed, live, kept = chip_smoke.slab_live_share(scene, pk, occ)
+    listed, live, warp, kept = chip_smoke.slab_live_share(scene, pk, occ)
     rp = pk.count.shape[0]
     visible = ((pk.tfar >= pk.tnear) & ~occ).view(rp, ct.P).sum(1)
     assert listed == int((visible * pk.count.long()).sum()) > 0
-    assert 0.0 < live <= kept <= 1.0
+    assert 0.0 < live <= warp <= kept <= 1.0
     assert chip_smoke.slab_live_share(scene, pk, occ, chunk=3) \
-        == (listed, live, kept)
+        == (listed, live, warp, kept)
+
+
+def test_slab_aware_ops_match_a_loop():
+    """chip_smoke.trace_ops with slab=True, the operations K6 needs per ray
+    in cull mode 5, against a loop over the listed slots of sampled rays: a
+    visible live ray its reciprocal direction, one box test per listed
+    slot and the rows (through u, or whole) of the slots whose box
+    `slab_live_ref` leaves it; an occluded ray one whole test; a dead ray
+    none. The bound it gives lies under the listed-pair bound."""
+    cs = chip_smoke
+    scene = terrain_scene("cpu", 5_000)
+    g = torch.Generator().manual_seed(9)
+    n = 2048
+    o = (torch.rand((n, 3), generator=g) - 0.5) * 8.0
+    d = torch.randn((n, 3), generator=g)
+    d = d / d.norm(dim=-1, keepdim=True)
+    tf = torch.where(torch.arange(n) % 19 == 0, -1.0, 2.0)
+    pk = ct.pack(scene.cluster_min, scene.cluster_max, o, d,
+                 torch.full((n,), 1e-3), tf, 1)
+    occ = ct.trace_any_ref(scene.cluster_tris, pk)
+    got = cs.trace_ops("trace_any", scene, pk, occ, slab=True)
+    seen = set()
+    for i in _sample(pk.o.shape[0], 48, seed=5):
+        p = i // ct.P
+        tn, tf_i = pk.tnear[i], pk.tfar[i]
+        if tf_i < tn:
+            want = 0
+            seen.add("dead")
+        elif bool(occ[i]):
+            want = cs.MT_OPS
+            seen.add("occluded")
+        else:
+            want = cs.SAFE_INV_OPS
+            ray = [x.reshape(1, 1, 1) for x in (*pk.o[i], *pk.d[i], tn, tf_i)]
+            for s in range(int(pk.count[p])):
+                c = int(pk.shortlist[p, s])
+                want += cs.SLAB_OPS
+                if not bool(ct.slab_live_ref(pk.o[i], pk.d[i], tn, tf_i,
+                                             scene.cluster_min[c],
+                                             scene.cluster_max[c])):
+                    seen.add("slab-dead")
+                    continue
+                tr = scene.cluster_tris[c][None]
+                u = ct._mt(tr, *ray)[1][0, :, 0].numpy()
+                det = cs.mt_det(tr, *ray[3:6])[0, :, 0].numpy()
+                full = (np.abs(det) > 1e-18) & (u >= 0) & (u <= 1)
+                want += int(np.where(full, cs.MT_OPS, cs.MT_U_OPS).sum())
+            seen.add("visible")
+        assert int(got[i]) == want, i
+    assert {"dead", "visible", "slab-dead"} <= seen
+    bnd, extra = cs.trace_bound("trace_any", scene, pk, occ, slab=True)
+    assert extra["listed pairs"][0] \
+        == int(cs.trace_ops("trace_any", scene, pk, occ).sum())
+    assert bnd[0] < extra["listed pairs"][1][0] < extra["pairs"][1][0]

@@ -11,8 +11,9 @@ are t, u, v: the ray/triangle kernels (K1/K2) and the clustered traversal
 the plain version's operation order, and PyTorch runs each operation of
 the plain version as its own kernel, so both round every step alike. K4
 (scatter_local) is exact on integer cotangents (exact in any summation
-order) and within 1e-5 on normal ones (its plain version, index_add_, sums
-in atomic order). Gradients on cuda and cpu: closest_hit's (go, gd) at
+order), within 1e-5 of its plain version index_add_ on normal ones (which
+sums in atomic order), and bit for bit the sum in its own order
+(`scatter_local_ordered_ref`). Gradients on cuda and cpu: closest_hit's (go, gd) at
 rtol 1e-6 (the same ops on bit-identical hits); a whole 64x32 frame at
 rtol 1e-3 plus 1e-3 of each field's largest entry (CUDA and the CPU round
 sin, pow and exp differently, which can move a pixel's reservoir choice).
@@ -38,7 +39,8 @@ from tpu_restir_torch.render import camera as cam_mod
 from tpu_restir_torch.render.integrators.restir.pipeline import (
     render_restir_frames)
 from tpu_restir_torch.scene.cornell import cornell_box, many_lights_scene
-from tpu_restir_torch.scene.procedural import terrain_scene
+from tpu_restir_torch.scene.procedural import TERRAIN_SPECS, terrain_scene
+from tpu_restir_torch.scene.scene import build_scene
 from torch_ray_families import family
 
 pytestmark = pytest.mark.gpu
@@ -377,6 +379,61 @@ def test_scatter_local_kernel_matches_plain(cuda, h, w, c, k, r, disk_r2):
                                rtol=0.0, atol=1e-5)
 
 
+def _sink_taps(dev, k, h, w, r, disk_r2, seed):
+    """`_disk_taps`, then every source within the disk of a corner taps
+    that corner and every source within r rows of the top edge taps its
+    column's top pixel: long match lists (up to K times the disk's offsets
+    at a corner) where screen clamping piles taps onto the edge."""
+    tys, txs = _disk_taps(dev, k, h, w, r, disk_r2, seed)
+    ys = torch.arange(h, device=dev)[None, :, None].expand(k, h, w)
+    xs = torch.arange(w, device=dev)[None, None, :].expand(k, h, w)
+    top = ys <= r
+    tys = torch.where(top, 0, tys)
+    txs = torch.where(top, xs, txs)
+    for cy, cx in ((0, 0), (0, w - 1), (h - 1, 0), (h - 1, w - 1)):
+        near = ((ys - cy) ** 2 + (xs - cx) ** 2 <= disk_r2) \
+            & ((ys - cy).abs() <= r) & ((xs - cx).abs() <= r)
+        tys = torch.where(near, cy, tys)
+        txs = torch.where(near, cx, txs)
+    return tys.to(torch.int32).contiguous(), txs.to(torch.int32).contiguous()
+
+
+@pytest.mark.parametrize("taps", ["disk", "sink"])
+@pytest.mark.parametrize("h,w,c,k,r,disk_r2", [(32, 64, 24, 5, 5, 30),
+                                               (40, 96, 32, 5, 5, 30),
+                                               (13, 45, 24, 5, 5, 30),
+                                               (17, 33, 32, 2, 4, None),
+                                               (9, 200, 8, 1, 1, 1),
+                                               (7, 13, 5, 3, 3, None),
+                                               (21, 37, 24, 12, 8, None)])
+def test_scatter_local_kernel_matches_ordered_sum(cuda, taps, h, w, c, k, r,
+                                                  disk_r2):
+    """K4 on normal cotangents equals, bit for bit, the sum in its own
+    (k, sy, sx) order (`scatter_local_ordered_ref`): widths that are no
+    multiple of the 32 x 8 tile, C = 5 (no float4), K = 12 at r = 8
+    (masks in chunks of taps), and "sink" taps piling up to K x the disk's
+    offsets onto the corners and the top edge."""
+    d2 = 2 * r * r if disk_r2 is None else disk_r2
+    tys, txs = (_disk_taps if taps == "disk" else _sink_taps)(
+        cuda, k, h, w, r, d2, h * c)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(w + k)
+    gn = torch.randn((k, h, w, c), generator=g, device=cuda)
+    got = lg.scatter_local(gn, tys, txs, r, disk_r2)
+    assert torch.equal(got, lg.scatter_local_ordered_ref(gn, tys, txs, r,
+                                                         disk_r2))
+    gi = torch.randint(-50, 51, (k, h, w, c), generator=g,
+                       device=cuda).to(torch.float32)
+    assert torch.equal(lg.scatter_local(gi, tys, txs, r, disk_r2),
+                       lg.scatter_local_ref(gi, tys, txs))
+    if taps == "sink":
+        lands = torch.zeros((h, w), dtype=torch.int64, device=cuda)
+        lands.view(-1).index_add_(
+            0, (tys.long() * w + txs.long()).view(-1),
+            torch.ones(tys.numel(), dtype=torch.int64, device=cuda))
+        assert int(lands.max()) >= k * (r + 1)
+
+
 def test_gather_local_backward_launches_k4(cuda):
     tys, txs = _disk_taps(cuda, 5, 24, 40, 5, 30, 3)
     payload = torch.randn((24, 40, 24), device=cuda, requires_grad=True)
@@ -570,6 +627,122 @@ def test_trace_any_kernel_matches_plain(cuda, name):
     assert got.dtype == torch.bool and torch.equal(got, want)
     assert 0 < int(got.sum()) < got.numel()
     assert not got[:pk.n_rays][rays[3] < rays[2]].any()
+
+
+def _pattern_rays(scene, dev, pattern, n_packets=48, seed=5):
+    """Rays of 256-ray packets whose warps (32 consecutive rays) differ:
+    "one_warp": one warp a packet aimed into the scene, the other seven
+    pointing away from it (terrain: slab-dead for every listed cluster) or
+    too short to reach anything (the room); "mid_occlusion": every ray
+    aimed at a point of the scene, a quarter of them stopping halfway, so
+    lanes are occluded at different rows and slots; "dead_mixed": the same
+    with a random half of each warp's lanes dead (tfar < tnear, d = 0)."""
+    g = torch.Generator().manual_seed(seed)
+    lo = scene.cluster_min.amin(0).cpu()
+    hi = scene.cluster_max.amax(0).cpu()
+    mid, ext = (lo + hi) / 2, (hi - lo) / 2
+    n = n_packets * ct.P
+    room = scene.cluster_tris.shape[0] <= ct.SMALL_C
+    target = mid + ext * 0.9 * (torch.rand((n, 3), generator=g) * 2 - 1)
+    if room:
+        o = mid + ext * 0.5 * (torch.rand((n // 32, 1, 3), generator=g)
+                               * 2 - 1)
+    else:
+        # above the terrain, under the light: inside the scene's box
+        o = torch.cat([mid[:2] + ext[:2] * (torch.rand((n // 32, 1, 2),
+                                                       generator=g) * 2 - 1),
+                       (lo[2] + 0.45 * (hi[2] - lo[2])).expand(n // 32, 1,
+                                                               1)], -1)
+    o = (o + 0.01 * torch.randn((n // 32, 32, 3), generator=g)).reshape(n, 3)
+    d = target - o
+    dist = d.norm(dim=-1)
+    d = d / dist[:, None]
+    tf = dist + 1.0
+    warp = torch.arange(n) // 32 % 8
+    if pattern == "one_warp":
+        chosen = torch.randint(0, 8, (n_packets,), generator=g) \
+            .repeat_interleave(ct.P)
+        other = warp != chosen
+        if room:
+            tf = torch.where(other, 1e-2, tf)
+        else:
+            d = torch.where(other[:, None], -d, d)
+    elif pattern == "mid_occlusion":
+        tf = torch.where(torch.rand((n,), generator=g) < 0.25, dist * 0.5,
+                         tf)
+    elif pattern == "dead_mixed":
+        dead = torch.rand((n,), generator=g) < 0.5
+        d = torch.where(dead[:, None], 0.0, d)
+        tf = torch.where(dead, -1.0, tf)
+    return tuple(x.to(dev).contiguous() for x in
+                 (o, d, torch.full((n,), 1e-3), tf))
+
+
+@pytest.mark.parametrize("pattern", ["one_warp", "mid_occlusion",
+                                     "dead_mixed"])
+@pytest.mark.parametrize("name", ["terrain5k", "lights500"])
+def test_trace_any_kernel_warp_patterns(cuda, name, pattern):
+    """K6 against its plain version, 0 mismatches, where its warp-level
+    shortcuts fire: packets of which one warp reaches the clusters (the
+    per-warp slab skip, cull mode 5 on the terrain), lanes occluded in the
+    middle of a warp's row loop, and dead lanes among live ones; the
+    terrain (79 clusters: mode 5) and the many-lights room (9: no cull)."""
+    scene = terrain_scene(cuda, 5_000) if name == "terrain5k" \
+        else many_lights_scene(cuda, 500)
+    pk = _packets(scene, _pattern_rays(scene, cuda, pattern))
+    got = ct.any_packets(scene.cluster_tris, scene.cluster_min,
+                         scene.cluster_max, pk)
+    want = ct.trace_any_ref(scene.cluster_tris, pk)
+    assert int((got != want).sum()) == 0
+    live = pk.tfar >= pk.tnear
+    assert 0 < int(want.sum()) < int(live.sum())
+
+
+def _patches_scene(dev, n=80):
+    """n flat 1 x 2 patches of 64 triangles each (4 x 8 cells with edges
+    along x and y), 0.5 apart along x, and a 2-triangle light: 81 clusters
+    (cull mode 5), and no triangle beyond a patch's max-x face."""
+    tris = []
+    for i in range(n):
+        xs = np.linspace(1.5 * i, 1.5 * i + 1.0, 5)
+        ys = np.linspace(0.0, 2.0, 9)
+        for a in range(4):
+            for b in range(8):
+                p00, p10 = [xs[a], ys[b], 0.0], [xs[a + 1], ys[b], 0.0]
+                p11, p01 = [xs[a + 1], ys[b + 1], 0.0], [xs[a], ys[b + 1], 0.0]
+                tris += [[p00, p10, p11], [p00, p11, p01]]
+    panel = [[[0, 0, 5.0], [1, 1, 5.0], [1, 0, 5.0]],
+             [[0, 0, 5.0], [0, 1, 5.0], [1, 1, 5.0]]]
+    mats = np.concatenate([np.zeros(len(tris), np.int32),
+                           np.ones(2, np.int32)])
+    return build_scene(np.array(tris + panel, np.float32), mats,
+                       TERRAIN_SPECS, dev)
+
+
+def test_trace_any_kernel_max_face_plane(cuda):
+    """Rays lying in the plane of a patch's max-x face (d_x = 0), from
+    above onto its edge there: the plain test finds the hits, and K6 with
+    cull mode 5 must too. The JAX kernel's slab test sends such rays out
+    of the box at t = 0, so a cull on it misses them (most of them in a
+    block vote; tests/test_torch_any_skips.py)."""
+    scene = _patches_scene(cuda)
+    g = torch.Generator().manual_seed(3)
+    n = 16 * ct.P
+    x = 1.5 * (torch.arange(n) // ct.P % 79) + 1.0
+    o = torch.stack([x, 0.1 + 1.8 * torch.rand((n,), generator=g),
+                     torch.ones(n)], 1)
+    d = torch.stack([torch.zeros(n),
+                     (torch.rand((n,), generator=g) - 0.5) * 0.2,
+                     -torch.ones(n)], 1)
+    d = d / d.norm(dim=-1, keepdim=True)
+    pk = _packets(scene, tuple(v.to(cuda).contiguous() for v in
+                               (o, d, torch.full((n,), 1e-3),
+                                torch.full((n,), 1e4))))
+    got = ct.any_packets(scene.cluster_tris, scene.cluster_min,
+                         scene.cluster_max, pk)
+    want = ct.trace_any_ref(scene.cluster_tris, pk)
+    assert int(want.sum()) > n // 2
+    assert int((got != want).sum()) == 0
 
 
 def test_trace_factor4_matches_factor1(cuda):

@@ -10,10 +10,13 @@ runs enqueued back to back between CUDA events) and the bounds come from
 THIS checkout's chip_smoke.py, so two checkouts run in turn (parent,
 change, change, parent) compare like with like. A run builds ROOT's
 kernels and prints their registers, then runs phase 3's checks of K1-K4
-at 1080p (its Cornell part) and of K5-K8 on the terrain100k and
+at 1080p (its Cornell part; K4's lines print a sha256 of its output on
+the seeded normal cotangents, which two checkouts with the same summation
+order share) and of K5-K8 on the terrain100k, lights1k and
 terrain100k-128 queries (the G-buffer query through K5, the shadow and
-occlusion queries through K6, and their Woop twins through K7/K8 with
-K5/K6 on the same packets), the host time of one any_hit and one
+occlusion queries through K6, with the cull on terrain100k and without it
+on lights1k, and their Woop twins through K7/K8 with K5/K6 on the same
+packets), the host time of one any_hit and one
 gather_local call on inputs too small to keep the device busy, the
 Cornell bench frame's per-pass times, the ms/frame of the bench frame on
 Cornell, terrain100k and lights1k (`chip_smoke.timed_frames` of
@@ -21,13 +24,40 @@ chip_smoke.LARGE_FRAMES frames), the 1080p fwd+bwd step
 (`chip_smoke.phase_fwd_bwd`), and the device's busy share over two
 Cornell frames and over one fwd+bwd step (`chip_smoke._profile`; tables
 in out/ab_profile/ of this checkout).
+
+The checks call plain versions that an older ROOT may lack
+(`cluster_trace.slab_live_ref`, `local_gather.scatter_local_ordered_ref`);
+those are taken from this checkout's modules.
 """
 
+import importlib.util
 import os
 import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# plain versions the checks need: kernels module -> names
+PLAIN = {"cluster_trace": ("slab_live_ref",),
+         "local_gather": ("scatter_local_ordered_ref",)}
+
+
+def _borrow_plain_versions():
+    """Give ROOT's kernel modules this checkout's plain versions that they
+    lack (plain PyTorch code, not the kernels under comparison)."""
+    for name, fns in PLAIN.items():
+        mod = importlib.import_module(f"tpu_restir_torch.kernels.{name}")
+        missing = [f for f in fns if not hasattr(mod, f)]
+        if not missing:
+            continue
+        spec = importlib.util.spec_from_file_location(
+            f"_ab_here_{name}",
+            os.path.join(HERE, "tpu_restir_torch", "kernels", f"{name}.py"))
+        here = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = here   # its dataclasses look it up
+        spec.loader.exec_module(here)
+        for f in missing:
+            setattr(mod, f, getattr(here, f))
+        print(f"[ab] {name}: plain {missing} taken from {HERE}", flush=True)
 
 
 def main():
@@ -45,10 +75,10 @@ def main():
                == root, f"tpu_restir_torch was not imported from {root}")
     dev, _name, smi = cs.phase_device()
     print(f"[ab] kernels of {root}", flush=True)
+    _borrow_plain_versions()
     cs.phase_build()
     cs.phase_kernels(dev)
-    cs.phase_ptrace_kernels(dev, {}, scenes=("terrain100k",
-                                             "terrain100k-128"))
+    cs.phase_ptrace_kernels(dev, {})
     scene = cornell_box(dev)
     rays = [torch.rand((1, 3), device=dev), torch.rand((1, 3), device=dev),
             torch.zeros((1,), device=dev), torch.ones((1,), device=dev)]

@@ -39,28 +39,38 @@
 //      its all-occluded exit);
 //   2. in mode 5 (K6 above 64 clusters, K5 once superclusters expand;
 //      never K7/K8, as on the TPU) votes on the per-ray slab test of the
-//      slot's box with the TPU kernel's slack, and skips the slot only if
-//      no ray is live, so every ray of a tested slot is tested, as on the
-//      TPU;
+//      slot's box with the TPU kernel's slack (and an exit that a clamped
+//      direction component cannot shorten: slab_exit), and skips the
+//      slot only if no live ray passes it;
 //   3. stages the cluster's block in shared memory (a Moller-Trumbore row
 //      padded to 12 floats, read as three 16-byte broadcasts; a Woop block
-//      by float4 loads); each thread tests its ray against every row.
+//      by float4 loads); each thread tests its ray against the rows.
 // The vote barriers also fence the tile: no thread overwrites it before
 // every thread has finished the previous slot.
-// K5 (closest hit, Moller-Trumbore) also works at the warp's grain inside
-// the slot, where K6-K8 test every row:
-//   - a warp none of whose rays can improve in the slot skips its rows
-//     (the block vote's condition, per warp; K7 too);
-//   - per row, u comes first (p, det, its reciprocal, tv and u: 24 of the
-//     46 operations); a warp with no live ray whose u is in [0, 1] skips
-//     q, v, t and the compares (why that is exact: closest_rows_mt);
+// K5 and K6 (Moller-Trumbore) also work at the warp's grain inside the
+// slot, where K7/K8 test every row:
+//   - a warp none of whose rays can change its result in the slot skips
+//     its rows: K5 (and K7) where the entry distance passes every ray's
+//     min(best_t, tfar), the block vote's condition per warp; K6 where no
+//     ray is live, unoccluded and (mode 5) slab-live, and a slab-dead ray
+//     is no candidate in the rows either;
+//   - per row, u comes first (p, det, tv and u: 24 of the 46 operations);
+//     a warp with no candidate lane whose u can lie in [0, 1] skips q, v,
+//     t and the compares (why that is exact: closest_rows_mt); K6 decides
+//     that from u's numerator and det without the division (u_may_pass),
+//     which it then runs only for the rows some lane passes;
+//   - K6's occluded lanes leave the candidates, and a warp leaves the rows
+//     once none is left (the TPU kernel's all-occluded exit, per warp);
 //   - the reciprocal directions of the slab test only in mode 5.
-// Kept out, slower on the card: two adjacent rays a thread (128-thread
-// blocks; 72 registers against 48). Not tried: overlapping a slot's
-// staging with the previous slot's tests (cp.async), since staging every
-// block twice cost K5 no measurable time.
+// Kept out, slower or no faster on the card (PERF.md): two
+// adjacent rays a thread for K5 (72 registers against 48); for K6, two
+// rows a vote, and packing a slot's wanting rays into the fewest warps
+// (5% faster for three more barriers a slot and 10 KB of shared memory).
+// Not tried: overlapping a slot's staging with the previous slot's tests
+// (cp.async), since staging every block twice cost K5 no measurable time.
 // The early-outs, the skips and the cull only skip work that cannot change
-// a result, so the kernels must equal the plain versions
+// a result (tests/test_torch_closest_skips.py and test_torch_any_skips.py
+// hold the facts they rest on), so the kernels must equal the plain versions
 // `trace_closest_ref` / `trace_any_ref` (and `_mxu_ref`), which test every
 // listed slot.
 //
@@ -162,16 +172,6 @@ __device__ __forceinline__ void mt_vt(const Ray& r, const MtHalf& m,
   t = (y.z * qx + y.w * qy + z.x * qz) * m.inv;
 }
 
-// The whole fused Moller-Trumbore test of `_mt_cluster`.
-__device__ __forceinline__ bool mt(const Ray& r, float4 x, float4 y,
-                                   float4 z) {
-  const MtHalf m = mt_u(r, x, y, z);
-  float v, t;
-  mt_vt(r, m, x, y, z, v, t);
-  return m.ok_det && m.u >= 0.f && v >= 0.f && m.u + v <= 1.f &&
-         t >= r.tn && t <= r.tf;
-}
-
 // Coefficient row k (x, y, z, translation) of component c (u, v, w) of lane
 // j of a Woop block: w[k * kWoopRow + c * kWoopB + j].
 __device__ __forceinline__ float aff(const Ray& r, const float* w) {
@@ -230,8 +230,21 @@ __device__ __forceinline__ float safe_inv(float c) {
   return fabsf(c) > 1e-20f ? 1.0f / c : (c >= 0.f ? 1e20f : -1e20f);
 }
 
-// `_slab_entry_exit` + `_slab_live`: can this ray enter box k before
-// `upper`? Relative and absolute slack, so rounding cannot cull a graze.
+// The exit of one slab: +inf on an axis whose component safe_inv clamped,
+// unless the ray lies beyond the slab (hi < 0). The clamp shortens the
+// exit: a ray lying in the plane of a box's max face would leave at t = 0
+// and miss the triangle edges in that plane, which it can hit (the JAX
+// kernel's `_slab_entry_exit` has that fault).
+__device__ __forceinline__ float slab_exit(float c, float t1, float t2) {
+  const float hi = fmaxf(t1, t2);
+  return !(fabsf(c) > 1e-20f) && hi >= 0.f ? INFINITY : hi;
+}
+
+// `_slab_entry_exit` + `_slab_live`, with the exit above: can this ray
+// enter box k before `upper`? Relative and absolute slack, so rounding
+// cannot cull a graze. `slab_live_ref` in kernels/cluster_trace.py is the
+// plain version; tests/test_torch_any_skips.py holds that a ray it calls
+// dead has no hit in the box.
 __device__ __forceinline__ bool slab_live(const Ray& r, float ix, float iy,
                                           float iz, const float* bmin,
                                           const float* bmax, int k,
@@ -244,10 +257,85 @@ __device__ __forceinline__ bool slab_live(const Ray& r, float ix, float iy,
   const float t2z = (bmax[3 * k + 2] - r.oz) * iz;
   const float tent = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
                            fmaxf(fminf(t1z, t2z), r.tn));
-  const float texit = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
-                            fmaxf(t1z, t2z));
+  const float texit = fminf(fminf(slab_exit(r.dx, t1x, t2x),
+                                  slab_exit(r.dy, t1y, t2y)),
+                            slab_exit(r.dz, t1z, t2z));
   const float slack = 1e-4f * (fabsf(tent) + fabsf(texit)) + 1e-5f;
   return tent <= texit + slack && tent - slack <= upper;
+}
+
+// Whether u = fl(un * fl(1 / det)) can lie in [0, 1], from its numerator
+// un (mt_u's sum) and det alone, without the division: with a = |det| >
+// 1e-18 and s = un signed by det, 0 <= u <= 1 needs -1e-6 a <= s <= (1 +
+// 2^-20) a. Rounding moves u from un / det by two relative errors of
+// 2^-24 at most, so u <= 1 needs |un| <= (1 + 2^-22.9) a, below the
+// rounded (1 + 2^-20) a; u >= 0 needs s >= 0, or a product that rounds to
+// -0, where |un| < 2^-149 a. A NaN fails both. Held on the CPU against
+// the exact test (tests/test_torch_any_skips.py).
+__device__ __forceinline__ bool u_may_pass(float un, float det) {
+  const float a = fabsf(det);
+  const float s = det > 0.f ? un : -un;
+  return a > 1e-18f && s >= -1e-6f * a && s <= 1.000001f * a;
+}
+
+// p, det, tv and u's numerator of a row, as mt_u computes them.
+struct MtNum {
+  float tvx, tvy, tvz, det, un;
+};
+
+__device__ __forceinline__ MtNum mt_num(const Ray& r, float4 x, float4 y,
+                                        float4 z) {
+  const float px = r.dy * z.x - r.dz * y.w;
+  const float py = r.dz * y.z - r.dx * z.x;
+  const float pz = r.dx * y.w - r.dy * y.z;
+  MtNum a;
+  a.det = x.w * px + y.x * py + y.y * pz;
+  a.tvx = r.ox - x.x;
+  a.tvy = r.oy - x.y;
+  a.tvz = r.oz - x.z;
+  a.un = a.tvx * px + a.tvy * py + a.tvz * pz;
+  return a;
+}
+
+// The rest of the whole test from mt_num's parts: the reciprocal, u, v, t
+// and the compares, as `_mt_cluster`.
+__device__ __forceinline__ bool mt_rest(const Ray& r, const MtNum& a,
+                                        float4 x, float4 y, float4 z) {
+  MtHalf m;
+  m.ok_det = fabsf(a.det) > 1e-18f;
+  const float inv = 1.0f / (m.ok_det ? a.det : 1.0f);
+  m.inv = m.ok_det ? inv : 0.0f;
+  m.tvx = a.tvx;
+  m.tvy = a.tvy;
+  m.tvz = a.tvz;
+  m.u = a.un * m.inv;
+  float v, t;
+  mt_vt(r, m, x, y, z, v, t);
+  return m.ok_det && m.u >= 0.f && v >= 0.f && m.u + v <= 1.f &&
+         t >= r.tn && t <= r.tf;
+}
+
+// K6's rows: the thread's ray against the `rows` staged rows of a slot;
+// `want`: the ray is live, unoccluded and (mode 5) slab-live there. Per
+// row, p, det, tv and u's numerator come first; a warp none of whose
+// wanting lanes passes u_may_pass skips the division, q, v, t and the
+// compares (22 of the test's 46 operations and the margin's 2 run).
+// Occluded lanes leave the
+// candidate mask, and the warp leaves the loop once no lane wants a hit
+// (an OR: the first occluder decides).
+__device__ __forceinline__ void any_rows_mt(const Ray& r, bool want,
+                                            const float4* tile, int rows,
+                                            bool& occ) {
+  for (int j = 0; j < rows; ++j) {
+    const float4 x = tile[3 * j], y = tile[3 * j + 1], z = tile[3 * j + 2];
+    const MtNum a = mt_num(r, x, y, z);
+    if (!__any_sync(kFull, want && u_may_pass(a.un, a.det))) continue;
+    if (want && mt_rest(r, a, x, y, z)) {
+      occ = true;
+      want = false;
+    }
+    if (!__any_sync(kFull, want)) return;
+  }
 }
 
 // One block per packet, one ray a thread.
@@ -274,6 +362,7 @@ __global__ void __launch_bounds__(kP)
 
   Best b{INFINITY, 0.f, 0.f, -1};
   bool occ = false;
+  bool slab = true;   // mode 5: the ray is live and reaches the slot's box
   for (int s = 0; s < n_slots; ++s) {
     const int q = min(s / a.factor, a.n_super - 1);
     // closest hit: can the ray still improve in this slot?
@@ -292,9 +381,9 @@ __global__ void __launch_bounds__(kP)
                                       a.n_clusters - 1);
     if (!kWoop && a.skip == 5) {
       const float upper = kClosest ? fminf(b.t, r.tf) : r.tf;
-      const bool slab = (kClosest || !occ) &&
-                        slab_live(r, ix, iy, iz, a.bmin, a.bmax,
-                                  a.box_per_cluster ? c : sc, upper);
+      slab = live && (kClosest || !occ) &&
+             slab_live(r, ix, iy, iz, a.bmin, a.bmax,
+                       a.box_per_cluster ? c : sc, upper);
       if (!__syncthreads_or(slab)) continue;
     }
     if (kWoop) {   // 16-byte aligned (the wrapper checks)
@@ -323,16 +412,22 @@ __global__ void __launch_bounds__(kP)
       } else {
         closest_rows_mt(r, live, tile, rows, c, b);
       }
-    } else if (!occ) {
-      for (int j = 0; j < rows; ++j) {
-        float t, u, v;
-        if (kWoop ? woop_test(r, reinterpret_cast<const float*>(tile), j, t,
-                              u, v)
-                  : mt(r, tile[3 * j], tile[3 * j + 1], tile[3 * j + 2])) {
-          occ = true;   // an OR: the first occluder decides
-          break;
+    } else if (kWoop) {
+      if (!occ)
+        for (int j = 0; j < rows; ++j) {
+          float t, u, v;
+          if (woop_test(r, reinterpret_cast<const float*>(tile), j, t, u,
+                        v)) {
+            occ = true;   // an OR: the first occluder decides
+            break;
+          }
         }
-      }
+    } else {
+      // a warp none of whose rays is live, unoccluded and (mode 5)
+      // slab-live skips the slot's rows
+      const bool want = live && !occ && slab;
+      if (!__any_sync(kFull, want)) continue;
+      any_rows_mt(r, want, tile, rows, occ);
     }
   }
   if (kClosest) {

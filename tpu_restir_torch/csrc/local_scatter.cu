@@ -1,176 +1,291 @@
 // Transpose of the per-pixel tap gather (K4): the payload cotangent
-//   gp[p, :] = sum_k sum_(sy,sx) [key[k, p-(sy,sx)] == (sy+r)(2r+1)+(sx+r)]
+//   gp[p, :] = sum_k sum_(sy,sx) [tap k of source p-(sy,sx) lands on p]
 //                                 * g[k, p-(sy,sx), :]
-// over |sy|, |sx| <= r with sy^2 + sx^2 <= disk_r2, where
-// key[k, q] = (tys[k,q] - qy + r)(2r+1) + (txs[k,q] - qx + r) is the
-// fused offset of tap k at source pixel q.
+// over |sy|, |sx| <= r with sy^2 + sx^2 <= disk_r2, summed per destination
+// in the order k, then sy, then sx (ascending), from 0.
 //
 // Replaces the Pallas TPU kernel tpu_restir/kernels/local_gather.py
 // `_scatter_kernel` (the custom VJP of gather_local). On the TPU a
 // scatter-add moves about one element per cycle, so that kernel DMAs a
-// halo window of g and of the keys per output tile into VMEM and sums,
-// for every destination pixel, the taps that landed on it: a gather-form
-// transpose with no write collisions.
+// halo window of g and of the tap offsets per output tile into VMEM and
+// sums, for every destination pixel, the taps that landed on it: a
+// gather-form transpose with no write collisions.
 //
-// What bounds it on the H100: the key compares and the bytes. At 1080p
-// with K = 5, r = 5, disk_r2 = 30 (97 of the 121 offsets) every
-// destination pixel reads 485 keys (L1/L2 hits: neighbouring threads read
-// neighbouring keys) and, on average, K rows of g (each source row matches
-// exactly one destination). g is read once in all (1.0 GB at C = 24), the
-// output written once (0.2 GB): about 0.4 ms at the 3.35 TB/s peak.
+// What bounds it on the H100: the bytes. At 1080p with K = 5, r = 5,
+// disk_r2 = 30 each source row of g (C floats) lands on exactly one
+// destination, so g is read once (1.0 GB at C = 24), the taps once and the
+// output written once (0.2 GB): about 0.4 ms at the 3.35 TB/s peak. The
+// rows a destination sums lie at scattered sources of its window, so what
+// stands between the kernel and that bound is the latency of those loads.
 //
-// Design: a first small kernel builds the (K, H, W) int32 keys and traps
-// on a tap whose offset lies outside the window (|dy| or |dx| > r, or
-// dy^2 + dx^2 > disk_r2): the gather (K3) has no window, so nothing else
-// enforces the bound, and without the trap that tap's cotangent would be
-// dropped silently. Then one thread per destination pixel walks the
-// offsets in a fixed order (k, then sy, then sx), so the sum is
-// deterministic and needs no atomics, and keeps the C sums in registers
-// (float4 chunks, C / 4 <= 8 of them, when C % 4 == 0 and the buffers are
-// 16-byte aligned; one thread per (pixel, channel) otherwise). A warp is
-// 32 consecutive pixels of a row, so each key read is one coalesced
-// 128-byte load shared by the whole offset loop.
+// Design: one block of 256 threads per 32 x 8 tile of destinations, one
+// thread a destination.
+//   1. Masks. The block reads the tap coordinates of its halo (the tile
+//      widened by r on every side; coalesced rows) and, for each source
+//      whose tap lands in the tile, sets bit (dy + r)(2r + 1) + (dx + r) of
+//      that destination's mask for tap k in shared memory (words of
+//      consecutive destinations adjacent: no bank conflicts on reading).
+//      A tap whose offset lies outside the window (|dy| or |dx| > r, or
+//      dy^2 + dx^2 > disk_r2) traps: the gather (K3) has no window, so
+//      nothing else enforces the bound, and without the trap that tap's
+//      cotangent would be dropped silently. Up to 40 KB of masks at a
+//      time; more taps run in chunks of k, in order.
+//   2. Sums. Each thread walks its set bits in ascending order, k by k:
+//      exactly the (k, sy, sx) order of the offsets, so the sum is the
+//      same, bit for bit, as a scan of every offset (the kernel before this
+//      design), and needs no atomics. Matches go into batches of kNB rows
+//      in registers; each batch's row loads are issued back to back
+//      (float4, C / 4 <= 8 of them a row, when C % 4 == 0 and the buffers
+//      are 16-byte aligned) and added in list order, so their latencies
+//      overlap. A list may hold up to K (2r + 1)^2 rows (screen clamping
+//      piles the taps of edge pixels onto the edge): the batches cover any
+//      length. Without float4 (C % 4 != 0), the thread sums channel by
+//      channel, one bit walk each.
 //
-// C interface (ctypes): each entry returns cudaGetLastError().
+// C interface (ctypes): the entry returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kTW = 32;                 // tile width (a warp)
+constexpr int kTH = 8;                  // tile height
+constexpr int kThreads = kTW * kTH;
+constexpr int kMaskBytes = 40 * 1024;   // shared memory of masks at a time
 
-__global__ void scatter_keys_kernel(const int* __restrict__ tys,
-                                    const int* __restrict__ txs, int h, int w,
-                                    int r, int disk_r2, long long n,
-                                    int* __restrict__ keys) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long long pix = i % ((long long)h * w);
-  const int y = (int)(pix / w);
-  const int x = (int)(pix % w);
-  const int dy = tys[i] - y;
-  const int dx = txs[i] - x;
-  if (dy < -r || dy > r || dx < -r || dx > r || dy * dy + dx * dx > disk_r2)
-    __trap();
-  keys[i] = (dy + r) * (2 * r + 1) + (dx + r);
+struct Tile {
+  int y0, x0;        // tile origin
+  int h, w, r, disk_r2;
+  int words;         // 32-bit words of a destination's mask for one tap
+};
+
+// Step 1: the masks of taps [k0, k0 + nk) for the block's tile, laid out
+// mask[(kk * words + word) * kThreads + destination].
+__device__ void build_masks(const int* __restrict__ tys,
+                            const int* __restrict__ txs, int k0, int nk,
+                            const Tile& t, unsigned* mask) {
+  for (int i = threadIdx.x; i < nk * t.words * kThreads; i += kThreads)
+    mask[i] = 0u;
+  __syncthreads();
+  const int kw = 2 * t.r + 1;
+  const int hh = kTH + 2 * t.r;
+  const int ww = kTW + 2 * t.r;
+  const int n_halo = nk * hh * ww;
+  const long long hw = (long long)t.h * t.w;
+  constexpr int kU = 4;   // halo entries a thread loads before using them
+  for (int base = 0; base < n_halo; base += kU * kThreads) {
+    int ty[kU], tx[kU], qy[kU], qx[kU], kk[kU];
+    bool ok[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int i = base + u * kThreads + threadIdx.x;
+      kk[u] = i / (hh * ww);
+      const int rem = i - kk[u] * hh * ww;
+      qy[u] = t.y0 - t.r + rem / ww;
+      qx[u] = t.x0 - t.r + rem % ww;
+      ok[u] = i < n_halo && qy[u] >= 0 && qy[u] < t.h && qx[u] >= 0 &&
+              qx[u] < t.w;
+      if (ok[u]) {
+        const long long q = (long long)(k0 + kk[u]) * hw +
+                            (long long)qy[u] * t.w + qx[u];
+        ty[u] = __ldg(tys + q);
+        tx[u] = __ldg(txs + q);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (!ok[u]) continue;
+      const int dy = ty[u] - qy[u];
+      const int dx = tx[u] - qx[u];
+      if (dy < -t.r || dy > t.r || dx < -t.r || dx > t.r ||
+          dy * dy + dx * dx > t.disk_r2)
+        __trap();
+      const int ly = ty[u] - t.y0;
+      const int lx = tx[u] - t.x0;
+      if (ly < 0 || ly >= kTH || lx < 0 || lx >= kTW) continue;
+      const int code = (dy + t.r) * kw + (dx + t.r);
+      atomicOr(&mask[(kk[u] * t.words + (code >> 5)) * kThreads +
+                     ly * kTW + lx],
+               1u << (code & 31));
+    }
+  }
+  __syncthreads();
+}
+
+// Taps per chunk of masks.
+__host__ __device__ inline int chunk_taps(int words) {
+  const int per_tap = words * kThreads * 4;
+  return kMaskBytes / per_tap > 0 ? kMaskBytes / per_tap : 1;
+}
+
+// Step 2, float4 rows: load the n <= kNB rows of the batch back to back,
+// then add them in list order.
+template <int kNV, int kNB>
+__device__ __forceinline__ void add_rows(const float4* __restrict__ g4,
+                                         const long long (&src)[kNB], int n,
+                                         float4 (&acc)[kNV]) {
+  float4 v[kNB][kNV];
+#pragma unroll
+  for (int b = 0; b < kNB; ++b)
+    if (b < n) {
+#pragma unroll
+      for (int c = 0; c < kNV; ++c) v[b][c] = __ldg(g4 + src[b] + c);
+    }
+#pragma unroll
+  for (int b = 0; b < kNB; ++b)
+    if (b < n) {
+#pragma unroll
+      for (int c = 0; c < kNV; ++c) {
+        acc[c].x += v[b][c].x;
+        acc[c].y += v[b][c].y;
+        acc[c].z += v[b][c].z;
+        acc[c].w += v[b][c].w;
+      }
+    }
 }
 
 template <int kNV>
-__global__ void scatter_vec4_kernel(const float* __restrict__ g,
-                                    const int* __restrict__ keys, int k_taps,
-                                    int h, int w, int r, int disk_r2,
-                                    float* __restrict__ out) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long hw = (long long)h * w;
-  if (p >= hw) return;
-  const int py = (int)(p / w);
-  const int px = (int)(p % w);
-  const int kw = 2 * r + 1;
+__global__ void __launch_bounds__(kThreads, 2)
+    scatter_vec4_kernel(const float* __restrict__ g,
+                        const int* __restrict__ tys,
+                        const int* __restrict__ txs, int k_taps, Tile t,
+                        float* __restrict__ out) {
+  // batch rows: about 8 float4 loads in flight a thread, so that two
+  // blocks fit an SM (128 registers)
+  constexpr int kNB = 8 / kNV > 1 ? 8 / kNV : 1;
+  extern __shared__ unsigned mask[];
+  t.y0 = blockIdx.y * kTH;
+  t.x0 = blockIdx.x * kTW;
+  const int py = t.y0 + threadIdx.x / kTW;
+  const int px = t.x0 + threadIdx.x % kTW;
+  const bool inside = py < t.h && px < t.w;
+  const int kw = 2 * t.r + 1;
+  const long long hw = (long long)t.h * t.w;
+  const float4* g4 = reinterpret_cast<const float4*>(g);
   float4 acc[kNV];
 #pragma unroll
-  for (int q = 0; q < kNV; ++q) acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int k = 0; k < k_taps; ++k) {
-    const int* kk = keys + k * hw;
-    const float4* gk = reinterpret_cast<const float4*>(g + k * hw * 4 * kNV);
-    for (int sy = -r; sy <= r; ++sy) {
-      const int qy = py - sy;
-      if (qy < 0 || qy >= h) continue;
-      for (int sx = -r; sx <= r; ++sx) {
-        if (sy * sy + sx * sx > disk_r2) continue;
-        const int qx = px - sx;
-        if (qx < 0 || qx >= w) continue;
-        const long long q = (long long)qy * w + qx;
-        if (kk[q] != (sy + r) * kw + (sx + r)) continue;
-        const float4* src = gk + q * kNV;
+  for (int c = 0; c < kNV; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int chunk = chunk_taps(t.words);
+  for (int k0 = 0; k0 < k_taps; k0 += chunk) {
+    const int nk = min(chunk, k_taps - k0);
+    build_masks(tys, txs, k0, nk, t, mask);
+    if (inside) {
+      long long src[kNB];
+      int n = 0;
+      for (int kk = 0; kk < nk; ++kk)
+        for (int wd = 0; wd < t.words; ++wd) {
+          unsigned bits = mask[(kk * t.words + wd) * kThreads + threadIdx.x];
+          while (bits) {
+            const int code = wd * 32 + __ffs(bits) - 1;
+            bits &= bits - 1;
+            const int sy = code / kw - t.r;
+            const int sx = code % kw - t.r;
+            const long long row = (long long)(k0 + kk) * hw +
+                                  (long long)(py - sy) * t.w + (px - sx);
+            // src[n] = row * kNV, without a dynamic register index
 #pragma unroll
-        for (int c = 0; c < kNV; ++c) {
-          const float4 v = src[c];
-          acc[c].x += v.x;
-          acc[c].y += v.y;
-          acc[c].z += v.z;
-          acc[c].w += v.w;
+            for (int b = 0; b < kNB; ++b)
+              if (b == n) src[b] = row * kNV;
+            if (++n == kNB) {
+              add_rows<kNV, kNB>(g4, src, n, acc);
+              n = 0;
+            }
+          }
         }
-      }
+      add_rows<kNV, kNB>(g4, src, n, acc);
     }
+    __syncthreads();   // every thread has read the masks of this chunk
   }
-  float4* o = reinterpret_cast<float4*>(out) + p * kNV;
+  if (inside) {
+    float4* o = reinterpret_cast<float4*>(out) + ((long long)py * t.w + px) *
+                                                     kNV;
 #pragma unroll
-  for (int c = 0; c < kNV; ++c) o[c] = acc[c];
-}
-
-__global__ void scatter_scalar_kernel(const float* __restrict__ g,
-                                      const int* __restrict__ keys,
-                                      int k_taps, int h, int w, int c_ch,
-                                      int r, int disk_r2,
-                                      float* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long hw = (long long)h * w;
-  if (i >= hw * c_ch) return;
-  const long long p = i / c_ch;
-  const int ch = (int)(i % c_ch);
-  const int py = (int)(p / w);
-  const int px = (int)(p % w);
-  const int kw = 2 * r + 1;
-  float acc = 0.f;
-  for (int k = 0; k < k_taps; ++k) {
-    const int* kk = keys + k * hw;
-    for (int sy = -r; sy <= r; ++sy) {
-      const int qy = py - sy;
-      if (qy < 0 || qy >= h) continue;
-      for (int sx = -r; sx <= r; ++sx) {
-        if (sy * sy + sx * sx > disk_r2) continue;
-        const int qx = px - sx;
-        if (qx < 0 || qx >= w) continue;
-        const long long q = (long long)qy * w + qx;
-        if (kk[q] != (sy + r) * kw + (sx + r)) continue;
-        acc += g[(k * hw + q) * c_ch + ch];
-      }
-    }
+    for (int c = 0; c < kNV; ++c) o[c] = acc[c];
   }
-  out[i] = acc;
 }
 
-unsigned blocks_for(long long n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
+__global__ void __launch_bounds__(kThreads)
+    scatter_scalar_kernel(const float* __restrict__ g,
+                          const int* __restrict__ tys,
+                          const int* __restrict__ txs, int k_taps, int c_ch,
+                          Tile t, float* __restrict__ out) {
+  extern __shared__ unsigned mask[];
+  t.y0 = blockIdx.y * kTH;
+  t.x0 = blockIdx.x * kTW;
+  const int py = t.y0 + threadIdx.x / kTW;
+  const int px = t.x0 + threadIdx.x % kTW;
+  const bool inside = py < t.h && px < t.w;
+  const int kw = 2 * t.r + 1;
+  const long long hw = (long long)t.h * t.w;
+  float* o = out + ((long long)py * t.w + px) * c_ch;
+  if (inside)
+    for (int ch = 0; ch < c_ch; ++ch) o[ch] = 0.f;
+  const int chunk = chunk_taps(t.words);
+  for (int k0 = 0; k0 < k_taps; k0 += chunk) {
+    const int nk = min(chunk, k_taps - k0);
+    build_masks(tys, txs, k0, nk, t, mask);
+    if (inside)
+      for (int ch = 0; ch < c_ch; ++ch) {
+        float acc = o[ch];
+        for (int kk = 0; kk < nk; ++kk)
+          for (int wd = 0; wd < t.words; ++wd) {
+            unsigned bits =
+                mask[(kk * t.words + wd) * kThreads + threadIdx.x];
+            while (bits) {
+              const int code = wd * 32 + __ffs(bits) - 1;
+              bits &= bits - 1;
+              const int sy = code / kw - t.r;
+              const int sx = code % kw - t.r;
+              const long long row = (long long)(k0 + kk) * hw +
+                                    (long long)(py - sy) * t.w + (px - sx);
+              acc += __ldg(g + row * c_ch + ch);
+            }
+          }
+        o[ch] = acc;
+      }
+    __syncthreads();
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// keys (K, H, W) int32 from tap coordinates tys/txs (K, H, W) int32.
-int local_scatter_keys(const void* tys, const void* txs, int k_taps, int h,
-                       int w, int r, int disk_r2, void* keys, void* stream) {
-  const long long n = (long long)k_taps * h * w;
-  scatter_keys_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)tys, (const int*)txs, h, w, r, disk_r2, n, (int*)keys);
-  return (int)cudaGetLastError();
-}
-
-// out (H, W, C) float32 from g (K, H, W, C) float32 and the keys.
-int local_scatter(const void* g, const void* keys, int k_taps, int h, int w,
-                  int c_ch, int r, int disk_r2, int vec4, void* out,
-                  void* stream) {
+// out (H, W, C) float32 from g (K, H, W, C) float32 and the tap coordinates
+// tys/txs (K, H, W) int32; r <= 8 (the gather's window bound).
+int local_scatter(const void* g, const void* tys, const void* txs, int k_taps,
+                  int h, int w, int c_ch, int r, int disk_r2, int vec4,
+                  void* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const long long hw = (long long)h * w;
+  Tile t;
+  t.y0 = t.x0 = 0;
+  t.h = h;
+  t.w = w;
+  t.r = r;
+  t.disk_r2 = disk_r2;
+  t.words = ((2 * r + 1) * (2 * r + 1) + 31) / 32;
+  const int chunk = chunk_taps(t.words);
+  const size_t smem = (size_t)(k_taps < chunk ? k_taps : chunk) * t.words *
+                      kThreads * sizeof(unsigned);
+  const dim3 grid((w + kTW - 1) / kTW, (h + kTH - 1) / kTH);
   const float* gf = (const float*)g;
-  const int* kk = (const int*)keys;
+  const int* ty = (const int*)tys;
+  const int* tx = (const int*)txs;
   float* o = (float*)out;
   if (vec4 && c_ch % 4 == 0 && c_ch / 4 >= 1 && c_ch / 4 <= 8) {
-    const unsigned b = blocks_for(hw);
     switch (c_ch / 4) {
-#define K4_CASE(NV)                                                       \
-  case NV:                                                                \
-    scatter_vec4_kernel<NV><<<b, kThreads, 0, s>>>(gf, kk, k_taps, h, w,  \
-                                                   r, disk_r2, o);        \
+#define K4_CASE(NV)                                                    \
+  case NV:                                                             \
+    scatter_vec4_kernel<NV><<<grid, kThreads, smem, s>>>(gf, ty, tx,   \
+                                                         k_taps, t, o); \
     break;
       K4_CASE(1) K4_CASE(2) K4_CASE(3) K4_CASE(4)
       K4_CASE(5) K4_CASE(6) K4_CASE(7) K4_CASE(8)
 #undef K4_CASE
     }
   } else {
-    scatter_scalar_kernel<<<blocks_for(hw * c_ch), kThreads, 0, s>>>(
-        gf, kk, k_taps, h, w, c_ch, r, disk_r2, o);
+    scatter_scalar_kernel<<<grid, kThreads, smem, s>>>(gf, ty, tx, k_taps,
+                                                       c_ch, t, o);
   }
   return (int)cudaGetLastError();
 }

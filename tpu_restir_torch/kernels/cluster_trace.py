@@ -237,6 +237,35 @@ def cull_boxes(cmin, cmax, factor: int):
     return scmin, scmax, False
 
 
+def slab_live_ref(o, d, tnear, upper, bmin, bmax):
+    """Plain version of the kernels' per-ray slab test (`slab_live` of
+    csrc/cluster_trace.cu, the mode-5 cull): can the ray o + t d enter the
+    box [bmin, bmax] at a t in [tnear, upper]? o, d, bmin, bmax (..., 3),
+    tnear, upper (...) -> (...) bool, all broadcast.
+
+    The plane distances use `safe_inv`'s reciprocal (`_ray_inv` of the
+    JAX kernel): a component of magnitude at most 1e-20 becomes +-1e20
+    with its sign. On such an axis the ray does not leave the slab unless
+    it lies beyond it (both distances negative): the clamp shortens the
+    exit, which would put a ray lying in a box's max-face plane out of
+    the box at t = 0 although it can hit a triangle edge in that plane
+    (the JAX kernel's `_slab_entry_exit` has that fault). Relative and
+    absolute slack, so that rounding cannot cull a graze. Conservative: a
+    ray it calls dead has no hit in the box (tests/test_torch_any_skips.py)."""
+    small = ~(d.abs() > 1e-20)   # NaN too, as the kernel's compare
+    inv = torch.where(small, torch.where(d >= 0, 1e20, -1e20), 1.0 / d)
+    t1 = (bmin - o) * inv
+    t2 = (bmax - o) * inv
+    lo = torch.fmin(t1, t2)
+    hi = torch.fmax(t1, t2)
+    hi = torch.where(small & (hi >= 0.0), _INF, hi)
+    tent = torch.fmax(torch.fmax(lo[..., 0], lo[..., 1]),
+                      torch.fmax(lo[..., 2], tnear))
+    texit = torch.fmin(torch.fmin(hi[..., 0], hi[..., 1]), hi[..., 2])
+    slack = 1e-4 * (tent.abs() + texit.abs()) + 1e-5
+    return (tent <= texit + slack) & (tent - slack <= upper)
+
+
 # ---------------------------------------------------------------------------
 # Phase 2, plain versions: every listed slot, no early-out, no cull
 # ---------------------------------------------------------------------------

@@ -34,9 +34,7 @@ _SIGNATURES = {
     "local_gather_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 _SCATTER_SIGNATURES = {
-    "local_scatter_keys": ([_P] * 2 + [ctypes.c_int] * 5 + [_P] * 2,
-                           ctypes.c_int),
-    "local_scatter": ([_P] * 2 + [ctypes.c_int] * 7 + [_P] * 2,
+    "local_scatter": ([_P] * 3 + [ctypes.c_int] * 7 + [_P] * 2,
                       ctypes.c_int),
     "local_scatter_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
@@ -93,6 +91,33 @@ def scatter_local_ref(g, tys, txs):
     return _index_add(g, tys, txs, tys.shape[1], tys.shape[2])
 
 
+def scatter_local_ordered_ref(g, tys, txs, r: int, disk_r2=None):
+    """K4's sum in K4's own order, for tests: g (K, H, W, C), taps
+    (K, H, W) of a same-shape gather -> (H, W, C), each destination's
+    cotangents added to 0 in the order k, then the offset (sy, sx) of the
+    source p - (sy, sx), sy and then sx ascending over the window of r and
+    disk_r2 (default 2 r^2). Vectorised over pixels, one offset at a time;
+    adding 0 where no tap lands leaves a sum unchanged, so the result is
+    the kernel's bit for bit on any cotangent."""
+    k, h, w, c = g.shape
+    disk_r2 = 2 * r * r if disk_r2 is None else int(disk_r2)
+    dy = tys.long() - torch.arange(h, device=g.device)[None, :, None]
+    dx = txs.long() - torch.arange(w, device=g.device)[None, None, :]
+    dest = (tys.long() * w + txs.long()).reshape(k, -1)
+    src = g.reshape(k, -1, c)
+    out = g.new_zeros((h * w, c))
+    for kk in range(k):
+        for sy in range(-r, r + 1):
+            for sx in range(-r, r + 1):
+                if sy * sy + sx * sx > disk_r2:
+                    continue
+                m = ((dy[kk] == sy) & (dx[kk] == sx)).reshape(-1)
+                add = g.new_zeros((h * w, c))
+                add[dest[kk][m]] = src[kk][m]
+                out += add
+    return out.reshape(h, w, c)
+
+
 def _scatter_cuda(g, tys, txs, r, disk_r2):
     k, h, w, c = g.shape
     for name, x, dtype in (("g", g, torch.float32),
@@ -107,18 +132,14 @@ def _scatter_cuda(g, tys, txs, r, disk_r2):
         return out
     if k == 0:
         return out.zero_()
-    keys = torch.empty((k, h, w), dtype=torch.int32, device=g.device)
     vec4 = c % 4 == 0 and c <= 32 and g.data_ptr() % 16 == 0 \
         and out.data_ptr() % 16 == 0
     lib = build.load("local_scatter", _SCATTER_SIGNATURES)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = lib.local_scatter_keys(tys.data_ptr(), txs.data_ptr(), k, h, w,
-                                     r, disk_r2, keys.data_ptr(), stream)
-        if not err:
-            err = lib.local_scatter(g.data_ptr(), keys.data_ptr(), k, h, w, c,
-                                    r, disk_r2, int(vec4), out.data_ptr(),
-                                    stream)
+        err = lib.local_scatter(g.data_ptr(), tys.data_ptr(), txs.data_ptr(),
+                                k, h, w, c, r, disk_r2, int(vec4),
+                                out.data_ptr(), stream)
     if err:
         raise RuntimeError("scatter_local: launch failed: "
                            f"{lib.local_scatter_error_string(err).decode()}")
