@@ -30,15 +30,16 @@ line is not printed:
      of its test that rules it out (the t half, or the test through u),
      else the whole test; a closest-hit query of K5/K7 tests each live ray
      against the clusters its own min(t, tfar) reaches; an any-hit query
-     of K6 in cull mode 5 pays a box test per listed (visible ray,
+     of K6 or K8 in cull mode 5 pays a box test per listed (visible ray,
      cluster) pair and rows only where the ray's slab test leaves it
-     live. Each line prints beside it the bound with the whole test on
-     every pair (and for K5/K7 the pairs counted per packet, for K6 in
-     mode 5 the rows of every listed pair), and K6's lines in mode 5 the
-     shares of listed pairs that are slab-live and that the kernel's warps
-     and blocks test. K4 must equal its plain version bit for bit on
-     integer cotangents and, on normal ones, the sum in its own order
-     (its sha256 printed).
+     live (K8: on the boxes grown by the Woop test's reach). Each line
+     prints beside it the bound with the whole test on every pair (and
+     for K5/K7 the pairs counted per packet, for K6/K8 in mode 5 the rows
+     of every listed pair), and K6's and K8's lines in mode 5 the shares
+     of listed pairs that are slab-live and that the kernel's warps and
+     blocks test (the first such share also in the kernel's JSON entry).
+     K4 must equal its plain version bit for bit on integer cotangents
+     and, on normal ones, the sum in its own order (its sha256 printed).
   4. the main path: Renderer on the Cornell box at 1920x1080, the bench
      config (m_area=1, m_brdf=1, temporal, 5-neighbour pairwise spatial),
      8 frames; the traced rays per pixel must equal the analytic 28, every
@@ -675,7 +676,8 @@ def trace_ops(kind, scene, pk, out, slab=False):
     slab (any hit, cull mode 5): a visible live ray pays its reciprocal
     direction once and one box test (SLAB_OPS) per listed slot, and the
     rows of only the slots whose box `slab_live_ref` leaves it (upper =
-    tfar), since the slab test rules the others out."""
+    tfar), since the slab test rules the others out; K8's boxes are
+    `woop_cull_boxes` of the cluster AABBs, as it culls."""
     import torch
 
     from tpu_restir_torch.kernels import cluster_trace as ct
@@ -693,9 +695,10 @@ def trace_ops(kind, scene, pk, out, slab=False):
         need = need & ~out.view(rp, 1, ct.P)
     ops = torch.zeros((rp, ct.P), dtype=torch.int64, device=pk.o.device)
     if slab:
-        require(not closest and not woop, "the slab count is K6's")
+        require(not closest, "the slab count is K6's and K8's")
         o = pk.o.view(rp, 1, ct.P, 3)
         d = pk.d.view(rp, 1, ct.P, 3)
+        bmin, bmax = cull_boxes(scene, woop)
         ops += SAFE_INV_OPS * need.view(rp, ct.P).long()
     for j in range(int(pk.count.max()) if rp else 0):
         act = torch.nonzero(pk.count > j)[:, 0]
@@ -710,8 +713,8 @@ def trace_ops(kind, scene, pk, out, slab=False):
             if slab:
                 ops[a] += SLAB_OPS * slot[:, 0].long()
                 slot = slot & ct.slab_live_ref(
-                    o[a], d[a], tn[a], tf[a], scene.cluster_min[cl, None, None],
-                    scene.cluster_max[cl, None, None])
+                    o[a], d[a], tn[a], tf[a], bmin[cl, None, None],
+                    bmax[cl, None, None])
             if woop:
                 t, u, _v, ok = ct._woop(tr, *r, tn[a], tf[a])
                 rows = woop_row_ops(t, u, ok, tn[a], tf[a],
@@ -729,10 +732,20 @@ def trace_ops(kind, scene, pk, out, slab=False):
     return ops.reshape(-1)
 
 
+def cull_boxes(scene, woop):
+    """The boxes of the any-hit kernels' mode-5 cull at factor 1: the
+    cluster AABBs (K6), or K8's grown by the Woop test's reach
+    (`cluster_trace.woop_cull_boxes`)."""
+    from tpu_restir_torch.kernels import cluster_trace as ct
+    if woop:
+        return ct.woop_cull_boxes(scene.cluster_min, scene.cluster_max)
+    return scene.cluster_min, scene.cluster_max
+
+
 def trace_bound(kind, scene, pk, out, slab=False):
     """The bound of a clustered query at factor 1, from what its data
-    needs: the operations of `trace_ops` (slab: K6's count in cull mode 5,
-    box tests and the rows of slab-live pairs). Bytes: the rays, the
+    needs: the operations of `trace_ops` (slab: K6's or K8's count in cull
+    mode 5, box tests and the rows of slab-live pairs). Bytes: the rays, the
     outputs, the listed shortlist entries (id and entry distance) and
     every cluster block once. -> ((bound_ms, bound_by), {what: (count,
     bound)}) where the second part holds for comparison the bound of the
@@ -774,13 +787,14 @@ def trace_bound(kind, scene, pk, out, slab=False):
              **extra})
 
 
-def slab_live_share(scene, pk, occ, chunk=16):
+def slab_live_share(scene, pk, occ, chunk=16, woop=False):
     """An any-hit query in cull mode 5 at factor 1: (listed (visible live
     ray, cluster) pairs, the share of them that the per-ray slab test
-    (`slab_live_ref`, upper = tfar) leaves live, the share of them in warps
-    (32 consecutive rays) of which some visible ray's test keeps the slot,
-    whose rows K6 runs, and the share in slots that some visible ray of the
-    packet keeps, which a block vote alone would test whole)."""
+    (`slab_live_ref`, upper = tfar; on K8's grown boxes with woop) leaves
+    live, the share of them in warps (32 consecutive rays) of which some
+    visible ray's test keeps the slot, whose rows K6 and K8 run, and the
+    share in slots that some visible ray of the packet keeps, which a
+    block vote alone would test whole)."""
     import torch
 
     from tpu_restir_torch.kernels import cluster_trace as ct
@@ -791,15 +805,15 @@ def slab_live_share(scene, pk, occ, chunk=16):
     tn = pk.tnear.view(rp, 1, ct.P)
     tf = pk.tfar.view(rp, 1, ct.P)
     vis = ((pk.tfar >= pk.tnear) & ~occ).view(rp, 1, ct.P)
+    bmin, bmax = cull_boxes(scene, woop)
     listed_n = live_n = warp_n = kept_n = 0
     for j0 in range(0, int(pk.count.max()), chunk):
         sl = pk.shortlist[:, j0:j0 + chunk].long()
         listed = (torch.arange(j0, j0 + sl.shape[1], device=sl.device)[None]
                   < pk.count[:, None])[..., None]               # (rp, J, 1)
         pairs = vis & listed
-        live = pairs & ct.slab_live_ref(o, d, tn, tf,
-                                        scene.cluster_min[sl][:, :, None],
-                                        scene.cluster_max[sl][:, :, None])
+        live = pairs & ct.slab_live_ref(o, d, tn, tf, bmin[sl][:, :, None],
+                                        bmax[sl][:, :, None])
         rp_, j_ = live.shape[:2]
         warp = live.view(rp_, j_, ct.P // 32, 32).any(3, keepdim=True)
         listed_n += int(pairs.sum())
@@ -823,7 +837,7 @@ def _trace_fns(kind, scene):
                       lambda pk: ct.trace_any_ref(ctris, pk)),
         "trace_closest_mxu": (lambda pk: ct.closest_packets_mxu(cw, pk),
                               lambda pk: ct.trace_closest_mxu_ref(cw, pk)),
-        "trace_any_mxu": (lambda pk: ct.any_packets_mxu(cw, pk),
+        "trace_any_mxu": (lambda pk: ct.any_packets_mxu(cw, cmin, cmax, pk),
                           lambda pk: ct.trace_any_mxu_ref(cw, pk)),
     }[kind]
 
@@ -895,9 +909,8 @@ def phase_ptrace_kernels(dev, results,
                 both_sides.add((name, kind))
         ms = cuda_ms(lambda: kernel(pk), 5)
         dead = int((~live[:pk.n_rays]).sum())
-        mode = 0 if kind.endswith("_mxu") else ct._skip_for(
-            "closest" if closest else "any", scene.cluster_tris.shape[0],
-            pk.factor)
+        mode = ct._skip_for("closest" if closest else "any",
+                            scene.cluster_tris.shape[0], pk.factor)
         slab = not closest and mode == 5
         bnd, whole = trace_bound(kind, scene, pk, got, slab=slab)
         extra = ""
@@ -913,7 +926,7 @@ def phase_ptrace_kernels(dev, results,
             for what, (n, b) in whole.items())
         if mode == 5:
             listed_n, live_share, warp_share, kept_share = slab_live_share(
-                scene, pk, want)
+                scene, pk, want, woop=kind.endswith("_mxu"))
             extra += f"; listed (visible ray, cluster) pairs {listed_n}: " \
                 f"slab-live {live_share:.4f}, in warps that test the slot " \
                 f"{warp_share:.4f}, in slots the block stages " \
@@ -944,6 +957,8 @@ def phase_ptrace_kernels(dev, results,
                                       "bound_ms": bnd[0], "bound_by": bnd[1],
                                       "library_ms": None})
         e["max_abs_err"] = max(e["max_abs_err"], err)
+        if mode == 5:
+            e.setdefault("slab_live_share", live_share)
     lacking = {(name, kind) for name, _s, kind, _l, _p in checks
                if kind.startswith("trace_any")} - both_sides
     require(not lacking, f"any-hit kernels not held to a query with both "
@@ -1586,7 +1601,9 @@ def main():
             "library_ms")
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[k],
-                **{key: results[k][key] for key in keys}}
+                **{key: results[k][key] for key in keys},
+                **{key: results[k][key] for key in ("slab_live_share",)
+                   if key in results[k]}}
                for k, (src, rep) in meta.items()]
     print(smi)
     print(json.dumps({"kernels": kernels}))

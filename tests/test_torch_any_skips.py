@@ -1,5 +1,5 @@
-"""The facts that the any-hit kernel K6's shortcuts rest on, checked on the
-plain versions on the CPU.
+"""The facts that the any-hit kernels K6's and K8's shortcuts rest on,
+checked on the plain versions on the CPU.
 
 K6 (`csrc/cluster_trace.cu`, cull mode 5) skips the rows of a slot for a
 warp none of whose live, unoccluded rays passes the per-ray slab test of
@@ -11,7 +11,11 @@ tightest case, on the ray families of tests/torch_ray_families.py and on
 rays that graze the boxes (segments that end next to them, rays in the
 plane of a face, origins inside, direction components near the 1e-20
 clamp). The JAX kernel's slab test fails it on rays lying in a box's
-max-face plane; the port's exit rule repairs that.
+max-face plane; the port's exit rule repairs that. K8 (the Woop test)
+culls the same way, on boxes grown by the Woop test's reach
+(`cluster_trace.woop_cull_boxes`): its watertight slack hits points just
+outside a triangle, which the slab test of the triangle's own box calls
+dead; held on the same families with the grown boxes.
 
 K6 then skips the division, q, v and t of a row for a warp none of
 whose wanting lanes passes a division-free test of u's numerator against
@@ -23,7 +27,12 @@ block's all-occluded exit and mode-5 slot vote, the per-warp slab skip,
 the u-first row skip (no lane both wants a hit and passes the
 division-free test) and the warp's exit once no lane wants a hit; its
 mask must equal `trace_any_ref` on a terrain (cull mode 5) and on the
-many-lights room (no cull). Tolerance: none (exact booleans).
+many-lights room (no cull). Likewise K8's skips (the mode-5 slot vote
+and per-warp slab skip on the grown boxes, the t-first and u-first row
+skips in row groups and the warp's exit) against `trace_any_mxu_ref`, on
+the ray families and on a terrain's own rays, over terrain_scene(10_000)
+rebuilt at cluster size 128 (79 clusters: cull mode 5; at 5_000
+triangles it has 40, and no cull). Tolerance: none (exact booleans).
 """
 
 import jax.numpy as jnp
@@ -34,9 +43,11 @@ import torch
 import chip_smoke
 from tpu_restir.kernels import cluster_trace as jct
 from tpu_restir_torch.kernels import cluster_trace as ct
+from tpu_restir_torch.kernels import ray_tri
+from tpu_restir_torch.kernels.woop import build_woop_matrices
 from tpu_restir_torch.scene.cornell import many_lights_scene
 from tpu_restir_torch.scene.procedural import terrain_scene
-from torch_ray_families import ANY_FAMILIES, family
+from torch_ray_families import ANY_FAMILIES, FAMILIES, family
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -49,15 +60,20 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _pairs(name):
+def _pairs(name, woop=False):
     """Every (triangle, ray) pair of a family: the hit mask (T, N) of the
-    plain test, the rays and each triangle's own box (T, 1, 3)."""
+    plain test (Moller-Trumbore, or with woop the Woop test of
+    `ray_tri`), the rays and each triangle's own box (T, 1, 3)."""
     tris, o, d, tn, tf = (torch.from_numpy(x) for x in family(name))
-    tr = torch.cat([tris[:, 0], tris[:, 1] - tris[:, 0],
-                    tris[:, 2] - tris[:, 0]], 1)[None]
-    comps = [x[None, None] for x in (o[:, 0], o[:, 1], o[:, 2], d[:, 0],
-                                     d[:, 1], d[:, 2], tn, tf)]
-    ok = ct._mt(tr, *comps)[3][0]
+    if woop:
+        w = torch.from_numpy(build_woop_matrices(tris.numpy()))
+        ok = ray_tri._woop_tuvok(o, d, tn, tf, w.reshape(-1, 12))[3].T
+    else:
+        tr = torch.cat([tris[:, 0], tris[:, 1] - tris[:, 0],
+                        tris[:, 2] - tris[:, 0]], 1)[None]
+        comps = [x[None, None] for x in (o[:, 0], o[:, 1], o[:, 2], d[:, 0],
+                                         d[:, 1], d[:, 2], tn, tf)]
+        ok = ct._mt(tr, *comps)[3][0]
     return ok, (o, d, tn, tf), tris.amin(1)[:, None], tris.amax(1)[:, None]
 
 
@@ -67,18 +83,28 @@ def _in_max_face_plane(o, d, bmax):
     return ((d[None] == 0.0) & (o[None] == bmax)).any(-1)
 
 
+@pytest.mark.parametrize("block", [64, 128])
 @pytest.mark.parametrize("name", ANY_FAMILIES)
-def test_slab_dead_rays_have_no_hit(name):
+def test_slab_dead_rays_have_no_hit(name, block):
     """No ray that `slab_live_ref` calls dead for a triangle's box hits the
-    triangle: K6's per-warp slab skip and per-ray slab flag are exact."""
-    ok, (o, d, tn, tf), bmin, bmax = _pairs(name)
-    live = ct.slab_live_ref(o[None], d[None], tn[None], tf[None], bmin, bmax)
+    triangle: K6's (block 64: Moller-Trumbore on the box itself) and K8's
+    (block 128: the Woop test on the box grown by `woop_cull_boxes`)
+    per-warp slab skip and per-ray slab flag are exact."""
+    woop = block == 128
+    ok, (o, d, tn, tf), bmin, bmax = _pairs(name, woop)
+    gmin, gmax = ct.woop_cull_boxes(bmin, bmax) if woop else (bmin, bmax)
+    live = ct.slab_live_ref(o[None], d[None], tn[None], tf[None], gmin, gmax)
     assert int(ok.sum()) > 0
     assert int((ok & ~live).sum()) == 0
     assert 0 < int(live.sum()) < live.numel()
     if name in ("v_neg_zero", "box_grazing"):
         # the family reaches the case that the clamp alone gets wrong
         assert int((ok & _in_max_face_plane(o, d, bmax)).sum()) > 0
+    if woop and name == "u_above_1":
+        # Woop hits past u = 1 that the triangle's own box would cull
+        own = ct.slab_live_ref(o[None], d[None], tn[None], tf[None], bmin,
+                               bmax)
+        assert int((ok & ~own).sum()) > 0
 
 
 def test_jax_slab_test_culls_hits_in_a_max_face_plane():
@@ -149,6 +175,13 @@ def test_u_test_without_division_is_conservative(name):
         assert int((pre & ~cand).sum()) > 0
 
 
+def _per_group(x):
+    """(A, P) -> (A, P): any lane of the ray's group of 32 (a warp)."""
+    a = x.shape[0]
+    return x.view(a, ct.P // 32, 32).any(-1, keepdim=True) \
+        .expand(a, ct.P // 32, 32).reshape(a, ct.P)
+
+
 def _emulate_k6(ctris, cmin, cmax, pk, stats):
     """K6's traversal at factor 1 in groups of 32 rays, as
     csrc/cluster_trace.cu runs it: per slot the block's all-occluded exit
@@ -165,13 +198,6 @@ def _emulate_k6(ctris, cmin, cmax, pk, stats):
     live = tf >= tn
     occ = torch.zeros((rp, ct.P), dtype=torch.bool)
     rays = ct._packet_rays(pk)
-    groups = ct.P // 32
-
-    def per_group(x):   # (A, P) -> (A, P): any lane of the ray's group
-        a = x.shape[0]
-        return x.view(a, groups, 32).any(-1, keepdim=True) \
-            .expand(a, groups, 32).reshape(a, ct.P)
-
     for j in range(int(pk.count.max())):
         a = torch.nonzero((pk.count > j) & ~(occ | ~live).all(1))[:, 0]
         cl = pk.shortlist[a, j].long()
@@ -183,9 +209,9 @@ def _emulate_k6(ctris, cmin, cmax, pk, stats):
             staged = slab.any(1)
             a, cl, open_, slab = a[staged], cl[staged], open_[staged], \
                 slab[staged]
-        want = open_ & slab & per_group(open_ & slab)
+        want = open_ & slab & _per_group(open_ & slab)
         stats["groups skipped by the slab"] += int(
-            (per_group(open_) & ~per_group(open_ & slab)).sum()) // 32
+            (_per_group(open_) & ~_per_group(open_ & slab)).sum()) // 32
         tr = ctris[cl]
         r = [x[a] for x in rays]
         ok = ct._mt(tr, *r)[3]
@@ -194,15 +220,15 @@ def _emulate_k6(ctris, cmin, cmax, pk, stats):
         hit_a = torch.zeros_like(want)
         for row in range(tr.shape[1]):
             cand = want & pre[:, row]
-            tested = per_group(cand)
+            tested = _per_group(cand)
             stats["rows skipped by u"] += int(
-                (per_group(want) & ~tested).sum()) // 32
+                (_per_group(want) & ~tested).sum()) // 32
             hit = tested & cand & ok[:, row]
             hit_a |= hit
-            left = per_group(want)
+            left = _per_group(want)
             want &= ~hit
             stats["groups left early"] += int(
-                (left & ~per_group(want)).sum()) // 32 \
+                (left & ~_per_group(want)).sum()) // 32 \
                 if row < tr.shape[1] - 1 else 0
         occ[a] |= hit_a
     return occ.reshape(-1)
@@ -269,3 +295,103 @@ def test_k6_skips_emulated_match_plain(name):
         assert stats["groups skipped by the slab"] > 0
     else:
         assert stats["groups skipped by the slab"] == 0
+
+
+K8_GROUP = 4   # kWoopGroup of csrc/cluster_trace.cu: rows per unrolled group
+
+
+def _emulate_k8(cwoop, cmin, cmax, pk, stats):
+    """K8's traversal at factor 1 in groups of 32 rays, as
+    csrc/cluster_trace.cu runs it: per slot the block's all-occluded exit
+    and (cull mode 5) slab vote on the grown boxes, per group the slab
+    skip, per row the t-first skip (no wanting lane with t in its folded
+    range: finite, within [tnear, tfar]) and the u-first skip of v (no
+    such lane with u in [-1e-5, 1.001]) and, once a row group, the group's
+    exit when no lane wants a hit. -> (Rp*P,) bool; stats counts
+    what each skip dropped."""
+    rp = pk.count.shape[0]
+    mode = ct._skip_for("any", cwoop.shape[0], pk.factor)
+    bmin, bmax = ct.woop_cull_boxes(cmin, cmax)
+    o = pk.o.view(rp, ct.P, 3)
+    d = pk.d.view(rp, ct.P, 3)
+    tn = pk.tnear.view(rp, ct.P)
+    tf = pk.tfar.view(rp, ct.P)
+    live = tn <= tf
+    occ = torch.zeros((rp, ct.P), dtype=torch.bool)
+    rays = ct._packet_rays(pk)
+    for j in range(int(pk.count.max())):
+        a = torch.nonzero((pk.count > j) & ~(occ | ~live).all(1))[:, 0]
+        cl = pk.shortlist[a, j].long()
+        open_ = live[a] & ~occ[a]
+        slab = torch.ones_like(open_)
+        if mode == 5:
+            slab = open_ & ct.slab_live_ref(o[a], d[a], tn[a], tf[a],
+                                            bmin[cl, None], bmax[cl, None])
+            staged = slab.any(1)
+            stats["slots skipped by the vote"] += int((~staged).sum())
+            a, cl, open_, slab = a[staged], cl[staged], open_[staged], \
+                slab[staged]
+        want = open_ & slab & _per_group(open_ & slab)
+        stats["groups skipped by the slab"] += int(
+            (_per_group(open_) & ~_per_group(want)).sum()) // 32
+        t, u, _v, ok = ct._woop(cwoop[cl], *(x[a] for x in rays))
+        in_range = torch.isfinite(t) & (t >= tn[a, None]) \
+            & (t <= tf[a, None])
+        hit_a = torch.zeros_like(want)
+        for g0 in range(0, ct.WOOP_BLOCK, K8_GROUP):
+            going = _per_group(want)
+            if g0:
+                stats["groups left early"] += int(
+                    (left & ~going).sum()) // 32
+            left = going
+            for row in range(g0, g0 + K8_GROUP):
+                test = want & in_range[:, row]
+                tested = _per_group(test)
+                stats["rows skipped by t"] += int(
+                    (going & ~tested).sum()) // 32
+                cand = tested & test & (u[:, row] >= -1e-5) \
+                    & (u[:, row] <= 1.001)
+                u_ok = _per_group(cand)
+                stats["rows skipped by u"] += int(
+                    (tested & ~u_ok).sum()) // 32
+                hit = u_ok & cand & ok[:, row]
+                hit_a |= hit
+                want &= ~hit
+        occ[a] |= hit_a
+    return occ.reshape(-1)
+
+
+@pytest.fixture(scope="module")
+def woop_terrain():
+    """terrain_scene(10_000) rebuilt at cluster size 128: 79 clusters."""
+    return chip_smoke._woop_rebuild(terrain_scene("cpu", 10_000), "cpu")
+
+
+@pytest.mark.parametrize("name", ANY_FAMILIES + ["terrain"])
+def test_k8_skips_emulated_match_plain(woop_terrain, name):
+    """K8's skips, emulated in groups of 32 rays, give
+    `trace_any_mxu_ref`'s mask on the Woop terrain (cull mode 5), for the
+    rays of each family (their own triangles left out) and for the
+    terrain camera's rays as occlusion rays with random segments; the
+    slab, t-first and u-first skips fire, and (but for tiny_det's rays,
+    which list one cluster and hit nothing) the slot vote and the exit."""
+    scene = woop_terrain
+    assert ct._skip_for("any", scene.cluster_woop.shape[0]) == 5
+    if name == "terrain":
+        rays = _terrain_rays(scene, 1024, 11)
+    else:
+        rays = tuple(torch.from_numpy(x) for x in family(name, n=2048)[1:])
+    pk = ct.pack(scene.cluster_min, scene.cluster_max, *rays, 1)
+    stats = {"slots skipped by the vote": 0, "groups skipped by the slab": 0,
+             "rows skipped by t": 0, "rows skipped by u": 0,
+             "groups left early": 0}
+    got = _emulate_k8(scene.cluster_woop, scene.cluster_min,
+                      scene.cluster_max, pk, stats)
+    want = ct.trace_any_mxu_ref(scene.cluster_woop, pk)
+    assert torch.equal(got, want)
+    assert stats["groups skipped by the slab"] > 0
+    assert stats["rows skipped by t"] > 0 and stats["rows skipped by u"] > 0
+    if name != "tiny_det":   # rays along z = 0: under the terrain, unlisted
+        assert 0 < int(want.sum()) < int((pk.tfar >= pk.tnear).sum())
+        assert stats["slots skipped by the vote"] > 0
+        assert stats["groups left early"] > 0

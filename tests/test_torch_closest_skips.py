@@ -11,14 +11,21 @@ K1 then skips v where no such lane has u in [-1e-5, 1.001]: that is exact
 if every hit of the plain Woop test has u in that range. All are
 held on seeded numpy rays of five families: random rays, rays that graze
 shared edges, determinants near 1e-18, u just above 1, and v = -0.0.
+K7 (the clustered Woop closest hit) takes K1's row code into the
+traversal: an emulation of its skips in groups of 32 rays (the block's
+entry vote, the per-warp slot skip, the t-first and u-first row skips,
+each ray's range folded) must give `trace_closest_mxu_ref`'s (t, u, v,
+tri) bit for bit, on the families' rays and the terrain camera's over
+terrain_scene(10_000) rebuilt at cluster size 128.
 Tolerance: none (exact booleans and bitwise equal tensors).
 
 `chip_smoke.closest_pairs` counts the (live ray, listed cluster) pairs a
 closest-hit query needs per ray; it must equal a loop over rays and
 slots and stay at most the count per packet. `chip_smoke.ray_tri_ops` and
 `chip_smoke.trace_ops` count the operations per ray that K1/K2 and K5-K8
-need, a row charged as far as its test must run; each must equal a loop
-over the rows of sampled rays. `chip_smoke.slab_live_share` must count
+need, a row charged as far as its test must run, and in cull mode 5 (K6,
+K8) only on slab-live pairs; each must equal a loop over the rows of
+sampled rays. `chip_smoke.slab_live_share` must count
 the listed pairs of an any-hit query whatever its chunking.
 """
 
@@ -36,6 +43,17 @@ from tpu_restir_torch.render import camera as cam_mod
 from tpu_restir_torch.render import intersect
 from tpu_restir_torch.scene.procedural import terrain_scene
 from torch_ray_families import FAMILIES, family
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the counts and the emulation run many small
+    tensor ops, where PyTorch's threads only contend with the other test
+    workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _mt_inputs(tris, o, d, tn, tf):
@@ -307,15 +325,16 @@ def test_slab_live_share_counts_listed_pairs():
         == (listed, live, warp, kept)
 
 
-def test_slab_aware_ops_match_a_loop():
-    """chip_smoke.trace_ops with slab=True, the operations K6 needs per ray
-    in cull mode 5, against a loop over the listed slots of sampled rays: a
-    visible live ray its reciprocal direction, one box test per listed
-    slot and the rows (through u, or whole) of the slots whose box
-    `slab_live_ref` leaves it; an occluded ray one whole test; a dead ray
-    none. The bound it gives lies under the listed-pair bound."""
+def _check_slab_ops(kind, scene):
+    """chip_smoke.trace_ops with slab=True against a loop over the listed
+    slots of sampled rays: a visible live ray its reciprocal direction,
+    one box test per listed slot and the rows (Moller-Trumbore: through u,
+    or whole; Woop: the t half, then u, then the rest) of the slots whose
+    cull box `slab_live_ref` leaves it (K8: grown by `woop_cull_boxes`); an
+    occluded ray one whole test; a dead ray none. The bound it gives lies
+    under the listed-pair bound."""
     cs = chip_smoke
-    scene = terrain_scene("cpu", 5_000)
+    woop = kind.endswith("_mxu")
     g = torch.Generator().manual_seed(9)
     n = 2048
     o = (torch.rand((n, 3), generator=g) - 0.5) * 8.0
@@ -324,8 +343,15 @@ def test_slab_aware_ops_match_a_loop():
     tf = torch.where(torch.arange(n) % 19 == 0, -1.0, 2.0)
     pk = ct.pack(scene.cluster_min, scene.cluster_max, o, d,
                  torch.full((n,), 1e-3), tf, 1)
-    occ = ct.trace_any_ref(scene.cluster_tris, pk)
-    got = cs.trace_ops("trace_any", scene, pk, occ, slab=True)
+    if woop:
+        blocks, test, whole = scene.cluster_woop, ct._woop, cs.WOOP_OPS
+        occ = ct.trace_any_mxu_ref(blocks, pk)
+        bmin, bmax = ct.woop_cull_boxes(scene.cluster_min, scene.cluster_max)
+    else:
+        blocks, test, whole = scene.cluster_tris, ct._mt, cs.MT_OPS
+        occ = ct.trace_any_ref(blocks, pk)
+        bmin, bmax = scene.cluster_min, scene.cluster_max
+    got = cs.trace_ops(kind, scene, pk, occ, slab=True)
     seen = set()
     for i in _sample(pk.o.shape[0], 48, seed=5):
         p = i // ct.P
@@ -334,7 +360,7 @@ def test_slab_aware_ops_match_a_loop():
             want = 0
             seen.add("dead")
         elif bool(occ[i]):
-            want = cs.MT_OPS
+            want = whole
             seen.add("occluded")
         else:
             want = cs.SAFE_INV_OPS
@@ -343,11 +369,15 @@ def test_slab_aware_ops_match_a_loop():
                 c = int(pk.shortlist[p, s])
                 want += cs.SLAB_OPS
                 if not bool(ct.slab_live_ref(pk.o[i], pk.d[i], tn, tf_i,
-                                             scene.cluster_min[c],
-                                             scene.cluster_max[c])):
+                                             bmin[c], bmax[c])):
                     seen.add("slab-dead")
                     continue
-                tr = scene.cluster_tris[c][None]
+                tr = blocks[c][None]
+                if woop:
+                    t, u, _v, ok = (x[0, :, 0].numpy() for x in test(tr, *ray))
+                    want += _woop_rows_loop(t, u, ok, float(tn), float(tf_i),
+                                            None)[0]
+                    continue
                 u = ct._mt(tr, *ray)[1][0, :, 0].numpy()
                 det = cs.mt_det(tr, *ray[3:6])[0, :, 0].numpy()
                 full = (np.abs(det) > 1e-18) & (u >= 0) & (u <= 1)
@@ -355,7 +385,112 @@ def test_slab_aware_ops_match_a_loop():
             seen.add("visible")
         assert int(got[i]) == want, i
     assert {"dead", "visible", "slab-dead"} <= seen
-    bnd, extra = cs.trace_bound("trace_any", scene, pk, occ, slab=True)
+    bnd, extra = cs.trace_bound(kind, scene, pk, occ, slab=True)
     assert extra["listed pairs"][0] \
-        == int(cs.trace_ops("trace_any", scene, pk, occ).sum())
+        == int(cs.trace_ops(kind, scene, pk, occ).sum())
     assert bnd[0] < extra["listed pairs"][1][0] < extra["pairs"][1][0]
+
+
+def test_slab_aware_ops_match_a_loop():
+    """K6's slab-aware count (`_check_slab_ops`) on terrain_scene(5_000)."""
+    _check_slab_ops("trace_any", terrain_scene("cpu", 5_000))
+
+
+def test_slab_aware_woop_ops_match_a_loop():
+    """K8's slab-aware count (`_check_slab_ops`, Woop rows, grown boxes) on
+    terrain_scene(5_000) rebuilt at cluster size 128."""
+    _check_slab_ops("trace_any_mxu", _ptrace_scene("trace_any_mxu"))
+
+
+def _per_group(x):
+    """(A, P) -> (A, P): any lane of the ray's group of 32 (a warp)."""
+    a = x.shape[0]
+    return x.view(a, ct.P // 32, 32).any(-1, keepdim=True) \
+        .expand(a, ct.P // 32, 32).reshape(a, ct.P)
+
+
+def _emulate_k7(cwoop, pk, stats):
+    """K7's traversal at factor 1 in groups of 32 rays, as
+    csrc/cluster_trace.cu runs it: each ray's [tnear, tfar] folded (a dead
+    ray, or a NaN bound, gets an empty range); per slot the block's vote
+    (some ray's min(best t, tfar) reaches the entry distance) and the same
+    condition per group; per row the t-first skip (no lane with t in range
+    and below its best t) and the u-first skip (no such lane with u in
+    [-1e-5, 1.001]); a strictly smaller t replaces. -> (t, u, v, tri),
+    each (Rp*P,); stats counts what each skip dropped."""
+    rp = pk.count.shape[0]
+    tn = pk.tnear.view(rp, ct.P)
+    tf = pk.tfar.view(rp, ct.P)
+    live = tn <= tf
+    tf_f = torch.where(live, tf.clamp(max=torch.finfo(torch.float32).max),
+                       -torch.inf)
+    bt = torch.full((rp, ct.P), torch.inf)
+    bu = torch.zeros((rp, ct.P))
+    bv = torch.zeros((rp, ct.P))
+    btri = torch.full((rp, ct.P), -1, dtype=torch.int32)
+    going = torch.ones(rp, dtype=torch.bool)
+    rays = ct._packet_rays(pk)
+    for j in range(int(pk.count.max())):
+        a = torch.nonzero(going & (pk.count > j))[:, 0]
+        act = pk.entry[a, j, None] <= torch.minimum(bt[a], tf_f[a])
+        stop = ~act.any(1)
+        stats["packets stopped by the vote"] += int(stop.sum())
+        going[a[stop]] = False
+        a, act = a[~stop], act[~stop]
+        warp = _per_group(act)
+        stats["groups skipped by the slot"] += int((~warp).sum()) // 32
+        cl = pk.shortlist[a, j].long()
+        t, u, v, ok = ct._woop(cwoop[cl], *(x[a] for x in rays))
+        in_range = torch.isfinite(t) & (t >= tn[a, None]) \
+            & (t <= tf[a, None]) & live[a, None]
+        b_t, b_u, b_v, b_tri = bt[a], bu[a], bv[a], btri[a]
+        for row in range(ct.WOOP_BLOCK):
+            test = warp & in_range[:, row] & (t[:, row] < b_t)
+            t_ok = _per_group(test)
+            stats["rows skipped by t"] += int((warp & ~t_ok).sum()) // 32
+            cand = t_ok & test & (u[:, row] >= -1e-5) & (u[:, row] <= 1.001)
+            u_ok = _per_group(cand)
+            stats["rows skipped by u"] += int((t_ok & ~u_ok).sum()) // 32
+            better = u_ok & cand & ok[:, row]
+            b_t = torch.where(better, t[:, row], b_t)
+            b_u = torch.where(better, u[:, row], b_u)
+            b_v = torch.where(better, v[:, row], b_v)
+            b_tri = torch.where(better, (cl[:, None] * ct.WOOP_BLOCK + row)
+                                .to(torch.int32), b_tri)
+        bt[a], bu[a], bv[a], btri[a] = b_t, b_u, b_v, b_tri
+    return bt.reshape(-1), bu.reshape(-1), bv.reshape(-1), btri.reshape(-1)
+
+
+@pytest.fixture(scope="module")
+def woop_terrain():
+    """terrain_scene(10_000) rebuilt at cluster size 128: 79 clusters."""
+    return chip_smoke._woop_rebuild(terrain_scene("cpu", 10_000), "cpu")
+
+
+@pytest.mark.parametrize("name", FAMILIES + ["terrain"])
+def test_k7_skips_emulated_match_plain(woop_terrain, name):
+    """K7's skips, emulated in groups of 32 rays, give
+    `trace_closest_mxu_ref`'s (t, u, v, tri) bit for bit on the Woop
+    terrain, for the rays of each family (their own triangles left out)
+    and for the terrain camera's rays; the t-first and u-first row skips
+    fire, and on the camera's coherent packets the block vote and the
+    per-warp slot skip."""
+    scene = woop_terrain
+    if name == "terrain":
+        pk = _terrain_packets(scene)
+        pk.tfar[::17] = -1.0                 # dead rays inside live packets
+    else:
+        rays = tuple(torch.from_numpy(x) for x in family(name, n=2048)[1:])
+        pk = ct.pack(scene.cluster_min, scene.cluster_max, *rays, 1)
+    stats = {"packets stopped by the vote": 0, "groups skipped by the slot": 0,
+             "rows skipped by t": 0, "rows skipped by u": 0}
+    got = _emulate_k7(scene.cluster_woop, pk, stats)
+    want = ct.trace_closest_mxu_ref(scene.cluster_woop, pk)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert stats["rows skipped by t"] > 0 and stats["rows skipped by u"] > 0
+    if name != "tiny_det":   # rays along z = 0: under the terrain
+        assert 0 < int((want[3] >= 0).sum()) < want[3].numel()
+    if name == "terrain":    # coherent packets, each ray's hit found early
+        assert stats["packets stopped by the vote"] > 0
+        assert stats["groups skipped by the slot"] > 0

@@ -41,7 +41,7 @@ from tpu_restir_torch.render.integrators.restir.pipeline import (
 from tpu_restir_torch.scene.cornell import cornell_box, many_lights_scene
 from tpu_restir_torch.scene.procedural import TERRAIN_SPECS, terrain_scene
 from tpu_restir_torch.scene.scene import build_scene
-from torch_ray_families import family
+from torch_ray_families import ANY_FAMILIES, family
 
 pytestmark = pytest.mark.gpu
 
@@ -698,16 +698,18 @@ def test_trace_any_kernel_warp_patterns(cuda, name, pattern):
     assert 0 < int(want.sum()) < int(live.sum())
 
 
-def _patches_scene(dev, n=80):
-    """n flat 1 x 2 patches of 64 triangles each (4 x 8 cells with edges
-    along x and y), 0.5 apart along x, and a 2-triangle light: 81 clusters
-    (cull mode 5), and no triangle beyond a patch's max-x face."""
+def _patches_scene(dev, n=80, block=64):
+    """n flat 1 x 2 patches of `block` triangles each (4 x block / 8 cells
+    with edges along x and y), 0.5 apart along x, and a 2-triangle light,
+    built at cluster size `block`: 81 clusters (cull mode 5), and no
+    triangle beyond a patch's max-x face."""
     tris = []
+    ny = block // 8
     for i in range(n):
         xs = np.linspace(1.5 * i, 1.5 * i + 1.0, 5)
-        ys = np.linspace(0.0, 2.0, 9)
+        ys = np.linspace(0.0, 2.0, ny + 1)
         for a in range(4):
-            for b in range(8):
+            for b in range(ny):
                 p00, p10 = [xs[a], ys[b], 0.0], [xs[a + 1], ys[b], 0.0]
                 p11, p01 = [xs[a + 1], ys[b + 1], 0.0], [xs[a], ys[b + 1], 0.0]
                 tris += [[p00, p10, p11], [p00, p11, p01]]
@@ -716,7 +718,22 @@ def _patches_scene(dev, n=80):
     mats = np.concatenate([np.zeros(len(tris), np.int32),
                            np.ones(2, np.int32)])
     return build_scene(np.array(tris + panel, np.float32), mats,
-                       TERRAIN_SPECS, dev)
+                       TERRAIN_SPECS, dev, cluster_size=block)
+
+
+def _max_face_rays(dev, n=16 * ct.P):
+    """Rays lying in the plane x = 1.5 i + 1 of patch i's max-x face (d_x
+    = 0), from above onto its edge there."""
+    g = torch.Generator().manual_seed(3)
+    x = 1.5 * (torch.arange(n) // ct.P % 79) + 1.0
+    o = torch.stack([x, 0.1 + 1.8 * torch.rand((n,), generator=g),
+                     torch.ones(n)], 1)
+    d = torch.stack([torch.zeros(n),
+                     (torch.rand((n,), generator=g) - 0.5) * 0.2,
+                     -torch.ones(n)], 1)
+    d = d / d.norm(dim=-1, keepdim=True)
+    return tuple(v.to(dev).contiguous() for v in
+                 (o, d, torch.full((n,), 1e-3), torch.full((n,), 1e4)))
 
 
 def test_trace_any_kernel_max_face_plane(cuda):
@@ -726,22 +743,11 @@ def test_trace_any_kernel_max_face_plane(cuda):
     of the box at t = 0, so a cull on it misses them (most of them in a
     block vote; tests/test_torch_any_skips.py)."""
     scene = _patches_scene(cuda)
-    g = torch.Generator().manual_seed(3)
-    n = 16 * ct.P
-    x = 1.5 * (torch.arange(n) // ct.P % 79) + 1.0
-    o = torch.stack([x, 0.1 + 1.8 * torch.rand((n,), generator=g),
-                     torch.ones(n)], 1)
-    d = torch.stack([torch.zeros(n),
-                     (torch.rand((n,), generator=g) - 0.5) * 0.2,
-                     -torch.ones(n)], 1)
-    d = d / d.norm(dim=-1, keepdim=True)
-    pk = _packets(scene, tuple(v.to(cuda).contiguous() for v in
-                               (o, d, torch.full((n,), 1e-3),
-                                torch.full((n,), 1e4))))
+    pk = _packets(scene, _max_face_rays(cuda))
     got = ct.any_packets(scene.cluster_tris, scene.cluster_min,
                          scene.cluster_max, pk)
     want = ct.trace_any_ref(scene.cluster_tris, pk)
-    assert int(want.sum()) > n // 2
+    assert int(want.sum()) > pk.n_rays // 2
     assert int((got != want).sum()) == 0
 
 
@@ -828,12 +834,83 @@ def test_trace_any_mxu_kernel_matches_plain(cuda):
     rays = _cluster_rays(cuda, 100_003, 3, 4.0, 2.0, 0.1)
     pk = _packets(scene, rays)
     before = ct.LAUNCHES["trace_any_mxu"]
-    got = ct.any_packets_mxu(scene.cluster_woop, pk)
+    got = ct.any_packets_mxu(scene.cluster_woop, scene.cluster_min,
+                             scene.cluster_max, pk)
     assert ct.LAUNCHES["trace_any_mxu"] == before + 1
     want = ct.trace_any_mxu_ref(scene.cluster_woop, pk)
     assert got.dtype == torch.bool and torch.equal(got, want)
     assert 0 < int(got.sum()) < got.numel()
     assert not got[:pk.n_rays][rays[3] < rays[2]].any()
+
+
+@pytest.fixture(scope="module")
+def woop_terrain10k():
+    """terrain_scene(10_000) at cluster size 128: 79 clusters, so that K8
+    culls (mode 5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return _woop_terrain(torch.device("cuda"), 10_000)
+
+
+@pytest.mark.parametrize("name", ANY_FAMILIES)
+def test_trace_mxu_kernels_ray_families(cuda, woop_terrain10k, name):
+    """K7 bit for bit and K8 with 0 mismatches against their plain
+    versions, on the rays of each family (random, shared-edge, tiny-det,
+    u-above-1, v = -0.0 and box-grazing rays; their own triangles left
+    out) over the Woop terrain, where K8 culls (mode 5) on its grown
+    boxes; and on the same rays as segments ending halfway, so that K8
+    meets occluded and visible rays."""
+    scene = woop_terrain10k
+    assert ct._skip_for("any", scene.cluster_woop.shape[0]) == 5
+    o, d, tn, tf = (torch.from_numpy(x).to(cuda)
+                    for x in family(name, n=20_000)[1:])
+    pk = _packets(scene, (o, d, tn, tf))
+    got = ct.closest_packets_mxu(scene.cluster_woop, pk)
+    want = ct.trace_closest_mxu_ref(scene.cluster_woop, pk)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    t = want[0][:pk.n_rays]
+    for tfar in (tf, torch.where(torch.isfinite(t), t * 0.5, tf)):
+        pk = _packets(scene, (o, d, tn, tfar.contiguous()))
+        got = ct.any_packets_mxu(scene.cluster_woop, scene.cluster_min,
+                                 scene.cluster_max, pk)
+        want = ct.trace_any_mxu_ref(scene.cluster_woop, pk)
+        assert int((got != want).sum()) == 0
+
+
+@pytest.mark.parametrize("pattern", ["one_warp", "mid_occlusion",
+                                     "dead_mixed"])
+def test_trace_any_mxu_kernel_warp_patterns(cuda, woop_terrain10k, pattern):
+    """K8 against its plain version, 0 mismatches, where its warp-level
+    shortcuts fire (the patterns of test_trace_any_kernel_warp_patterns)
+    on the Woop terrain, cull mode 5."""
+    scene = woop_terrain10k
+    pk = _packets(scene, _pattern_rays(scene, cuda, pattern))
+    got = ct.any_packets_mxu(scene.cluster_woop, scene.cluster_min,
+                             scene.cluster_max, pk)
+    want = ct.trace_any_mxu_ref(scene.cluster_woop, pk)
+    assert int((got != want).sum()) == 0
+    live = pk.tfar >= pk.tnear
+    assert 0 < int(want.sum()) < int(live.sum())
+
+
+def test_trace_any_mxu_kernel_max_face_plane(cuda):
+    """The rays of test_trace_any_kernel_max_face_plane on the patches at
+    cluster size 128 (81 clusters: K8 culls, mode 5): the plain Woop test
+    finds the hits, and K8 must too."""
+    scene = _patches_scene(cuda, block=128)
+    c = scene.cluster_woop.shape[0]
+    assert ct._skip_for("any", c) == 5
+    # most of the rays' planes are a cluster box's max-x face
+    faces = set(scene.cluster_max[:, 0].tolist())
+    assert sum(1.5 * i + 1.0 in faces for i in range(79)) > 60
+    pk = _packets(scene, _max_face_rays(cuda))
+    got = ct.any_packets_mxu(scene.cluster_woop, scene.cluster_min,
+                             scene.cluster_max, pk)
+    want = ct.trace_any_mxu_ref(scene.cluster_woop, pk)
+    assert int(want.sum()) > pk.n_rays // 2
+    assert int((got != want).sum()) == 0
 
 
 def test_ptrace_mxu_selects_k7_k8(cuda):

@@ -2,7 +2,7 @@
 per-pass, whole-frame and fwd+bwd times, run on the kernels of one
 checkout, for comparing two checkouts on one card:
 
-    python3 tools/torch_kernel_ab.py [ROOT]
+    python3 tools/torch_kernel_ab.py [ROOT] [--woop-only]
 
 ROOT (default: this checkout) is the checkout whose `tpu_restir_torch`
 is imported. The inputs, the checks, the timer (`chip_smoke.cuda_ms`:
@@ -25,19 +25,26 @@ chip_smoke.LARGE_FRAMES frames), the 1080p fwd+bwd step
 Cornell frames and over one fwd+bwd step (`chip_smoke._profile`; tables
 in out/ab_profile/ of this checkout).
 
+--woop-only runs only the build and the checks of K7/K8 (and K5/K6 on
+the same packets) on the terrain100k-128 queries, for comparing variants
+of the Woop kernels.
+
 The checks call plain versions that an older ROOT may lack
-(`cluster_trace.slab_live_ref`, `local_gather.scatter_local_ordered_ref`);
-those are taken from this checkout's modules.
+(`cluster_trace.slab_live_ref`, `woop_cull_boxes`,
+`local_gather.scatter_local_ordered_ref`); those are taken from this
+checkout's modules. A ROOT whose `any_packets_mxu` takes no cluster boxes
+(K8 without a cull) is called without them.
 """
 
 import importlib.util
+import inspect
 import os
 import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # plain versions the checks need: kernels module -> names
-PLAIN = {"cluster_trace": ("slab_live_ref",),
+PLAIN = {"cluster_trace": ("slab_live_ref", "woop_cull_boxes"),
          "local_gather": ("scatter_local_ordered_ref",)}
 
 
@@ -60,8 +67,26 @@ def _borrow_plain_versions():
         print(f"[ab] {name}: plain {missing} taken from {HERE}", flush=True)
 
 
+def _adapt_any_packets_mxu():
+    """Let ROOT's K8 wrapper be called as any_packets_mxu(cwoop, cmin, cmax,
+    pk) where it takes (cwoop, pk), by its callers here and in ROOT."""
+    from tpu_restir_torch.kernels import cluster_trace as ct
+    old = ct.any_packets_mxu
+    if len(inspect.signature(old).parameters) != 2:
+        return
+
+    def any_packets_mxu(cwoop, *rest):
+        return old(cwoop, rest[-1])
+
+    ct.any_packets_mxu = any_packets_mxu
+    print("[ab] cluster_trace.any_packets_mxu of ROOT takes no boxes",
+          flush=True)
+
+
 def main():
-    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else HERE)
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    woop_only = "--woop-only" in sys.argv[1:]
+    root = os.path.abspath(args[0] if args else HERE)
     sys.path.insert(0, HERE)
     import chip_smoke as cs   # the inputs, checks, timer and bounds
     sys.path.insert(0, root)  # the kernels of ROOT
@@ -76,7 +101,11 @@ def main():
     dev, _name, smi = cs.phase_device()
     print(f"[ab] kernels of {root}", flush=True)
     _borrow_plain_versions()
+    _adapt_any_packets_mxu()
     cs.phase_build()
+    if woop_only:
+        cs.phase_ptrace_kernels(dev, {}, scenes=("terrain100k-128",))
+        return
     cs.phase_kernels(dev)
     cs.phase_ptrace_kernels(dev, {})
     scene = cornell_box(dev)

@@ -1,8 +1,9 @@
 """Packet summaries for phase 1 of the clustered traversal: the two helpers
 of `tpu_restir.accel.fcluster` that `kernels/cluster_trace.py` calls
 (`_packet_bounds`, fcluster.py:48-88, and `_clamp_tfar_bbox`, :223-238),
-in the same operation order. The rest of that module (the XLA 'fcluster'
-backend) is not ported (ROADMAP item 13)."""
+in the same operation order (the clamp with a repaired exit on clamped
+axes). The rest of that module (the XLA 'fcluster' backend) is not
+ported (ROADMAP item 13)."""
 
 from __future__ import annotations
 
@@ -53,14 +54,26 @@ def _packet_bounds(o, d, tnear, tfar, p: int):
 def _clamp_tfar_bbox(o, d, tnear, tfar, lo, hi):
     """Clamp tfar to the exit of the scene's bounding box (nothing lies
     beyond it), so every ray becomes a bounded segment; rays that miss the
-    box (sky) die up front (tfar = tnear - 1)."""
+    box (sky) die up front (tfar = tnear - 1).
+
+    A direction component of magnitude at most 1e-20 is clamped to +-1e20
+    in the reciprocal. On such an axis the ray does not leave the slab
+    unless it lies beyond it (both plane distances negative): the clamp
+    alone would put a ray lying in the plane of the box's max face out of
+    the box at t = 0 and kill it, although it hits the triangle edges in
+    that plane. This departs from the JAX package's `_clamp_tfar_bbox`,
+    which has that fault (tests/test_torch_clamp.py), with the exit rule
+    of `slab_exit` in csrc/cluster_trace.cu; every other ray (a NaN
+    component included) keeps the JAX package's tfar bit for bit."""
+    small = torch.abs(d) <= 1e-20
     d_safe = torch.where(torch.abs(d) > 1e-20, d,
                          torch.where(d >= 0.0, 1e-20, -1e-20))
     inv = 1.0 / d_safe
     t1 = (lo[None, :] - o) * inv
     t2 = (hi[None, :] - o) * inv
     ten = torch.minimum(t1, t2).amax(-1)
-    tex = torch.maximum(t1, t2).amin(-1)
+    t_hi = torch.maximum(t1, t2)
+    tex = torch.where(small & (t_hi >= 0.0), _INF, t_hi).amin(-1)
     # f32 slack so that the clamp cannot shave a true boundary hit
     tex = tex * (1.0 + 1e-5) + 1e-5
     alive = (ten <= tex) & (tex >= tnear)

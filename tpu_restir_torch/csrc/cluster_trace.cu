@@ -18,16 +18,16 @@
 // is a fused Moller-Trumbore test of ~46 float32 operations (K5/K6) or six
 // 3- or 4-term dot products and the hit test, ~40 (K7/K8), and this file
 // is compiled with --fmad=false, so they issue as separate multiplies and
-// adds, beside the IEEE reciprocal, the compares, the fold and the loads
+// adds, beside the IEEE division, the compares, the fold and the loads
 // of the triangle. The Woop products stay on the CUDA cores in float32:
 // the TPU kernel asks for Precision.HIGHEST because bf16 products gave
-// false hits, and TF32 keeps about as few mantissa bits, so the tensor
-// cores would need a 3xTF32 split to be exact enough (a later redesign). A
-// cluster block is 64 x 9 floats (2.3 KB), a Woop block 4 x 384 (6 KB); a
-// 100k-triangle scene's blocks (3.6 or 4.8 MB) stay in the 50 MB L2, so
-// device memory is not the limit. The other cost is divergence between
-// packets: the work of a packet is its shortlist, from a few clusters to
-// over a thousand.
+// false hits, TF32 keeps about as few mantissa bits, and a 3xTF32 split
+// does not round like the plain version's separate products and sums,
+// which the kernels must equal bit for bit. A cluster block is 64 x 9
+// floats (2.3 KB), a Woop block 4 x 384 (6 KB); a 100k-triangle scene's
+// blocks (3.6 or 4.8 MB) stay in the 50 MB L2, so device memory is not
+// the limit. The other cost is divergence between packets: the work of a
+// packet is its shortlist, from a few clusters to over a thousand.
 //
 // Design: one thread block per packet, one thread per ray; the block reads
 // its own count, shortlist and entries. Per shortlist slot (an entry of a
@@ -37,37 +37,56 @@
 //      (__syncthreads_or, the TPU kernel's packet watermark); any hit stops
 //      once every ray is occluded or dead, tfar < tnear (__syncthreads_and,
 //      its all-occluded exit);
-//   2. in mode 5 (K6 above 64 clusters, K5 once superclusters expand;
-//      never K7/K8, as on the TPU) votes on the per-ray slab test of the
-//      slot's box with the TPU kernel's slack (and an exit that a clamped
-//      direction component cannot shorten: slab_exit), and skips the
-//      slot only if no live ray passes it;
-//   3. stages the cluster's block in shared memory (a Moller-Trumbore row
-//      padded to 12 floats, read as three 16-byte broadcasts; a Woop block
-//      by float4 loads); each thread tests its ray against the rows.
+//   2. in mode 5 (K6 and K8 above 64 clusters, K5 once superclusters
+//      expand; never K7, as on the TPU, where K8 has no cull either) votes
+//      on the per-ray slab test of the slot's box with the TPU kernel's
+//      slack (and an exit that a clamped direction component cannot
+//      shorten: slab_exit), and skips the slot only if no live ray passes
+//      it. K8 grows each cluster box by the Woop test's reach as it reads
+//      it (cull_box, `woop_cull_boxes` in kernels/cluster_trace.py): the
+//      test's slack of 1e-5 in u, v and 1 - u - v lets a hit lie just
+//      outside its triangle;
+//   3. stages the cluster's block in shared memory, a row as three 16-byte
+//      broadcasts: a Moller-Trumbore row padded to 12 floats; a Woop row
+//      as its w, u and v coefficient rows (x, y, z, translation), each
+//      gathered from the (4, 384) block by coalesced scalar reads (a warp
+//      reads 32 consecutive floats of one coefficient row) and stored as
+//      one float4 (eight consecutive rows cover the 32 banks); each thread
+//      tests its ray against the rows.
 // The vote barriers also fence the tile: no thread overwrites it before
 // every thread has finished the previous slot.
-// K5 and K6 (Moller-Trumbore) also work at the warp's grain inside the
-// slot, where K7/K8 test every row:
+// Inside the slot all four work at the warp's grain:
 //   - a warp none of whose rays can change its result in the slot skips
-//     its rows: K5 (and K7) where the entry distance passes every ray's
-//     min(best_t, tfar), the block vote's condition per warp; K6 where no
-//     ray is live, unoccluded and (mode 5) slab-live, and a slab-dead ray
-//     is no candidate in the rows either;
-//   - per row, u comes first (p, det, tv and u: 24 of the 46 operations);
-//     a warp with no candidate lane whose u can lie in [0, 1] skips q, v,
-//     t and the compares (why that is exact: closest_rows_mt); K6 decides
-//     that from u's numerator and det without the division (u_may_pass),
-//     which it then runs only for the rows some lane passes;
-//   - K6's occluded lanes leave the candidates, and a warp leaves the rows
-//     once none is left (the TPU kernel's all-occluded exit, per warp);
+//     its rows: K5 and K7 where the entry distance passes every ray's
+//     min(best_t, tfar), the block vote's condition per warp; K6 and K8
+//     where no ray is live, unoccluded and (mode 5) slab-live, and a
+//     slab-dead ray is no candidate in the rows either;
+//   - Moller-Trumbore rows (K5/K6): u comes first (p, det, tv and u: 24
+//     of the 46 operations); a warp with no candidate lane whose u can lie
+//     in [0, 1] skips q, v, t and the compares (why that is exact:
+//     closest_rows_mt); K6 decides that from u's numerator and det
+//     without the division (u_may_pass), which it then runs only for the
+//     rows some lane passes;
+//   - Woop rows (K7/K8), K1's design: each ray's [tnear, tfar] is folded
+//     once (fold_range), so that two compares also reject an infinite or
+//     NaN t; t = -ow/dw comes first (13 of the 40 operations), and a warp
+//     with no candidate lane whose t is in range (K7: and below its best
+//     t) skips u and v, and then v where no such lane has u in [-1e-5,
+//     1.001], which every hit needs; rows go in unrolled groups of 4,
+//     their t halves first, so that the divisions of a group overlap;
+//   - occluded lanes (K6/K8) leave the candidates, and a warp leaves the
+//     rows once none is left (the TPU kernel's all-occluded exit, per
+//     warp);
 //   - the reciprocal directions of the slab test only in mode 5.
-// Kept out, slower or no faster on the card (PERF.md): two
-// adjacent rays a thread for K5 (72 registers against 48); for K6, two
-// rows a vote, and packing a slot's wanting rays into the fewest warps
-// (5% faster for three more barriers a slot and 10 KB of shared memory).
-// Not tried: overlapping a slot's staging with the previous slot's tests
-// (cp.async), since staging every block twice cost K5 no measurable time.
+// Kept out, slower or no faster on the card (PERF.md): two adjacent rays
+// a thread for K5 (72 registers against 48); for K6, two rows a vote, and
+// packing a slot's wanting rays into the fewest warps (5% faster for three
+// more barriers a slot and 10 KB of shared memory); for K7/K8, row groups
+// of 1 or 2 (K7 the same within 2%, K8 3-11% slower), K8 without the
+// u-first skip (14% slower), and a ring of two tiles filled by cp.async
+// for the next slot while this one runs (the TPU kernel's DMA ring: 5-6%
+// slower; it adds a wait and a barrier a slot, transposes by 4-byte
+// copies, and fetches blocks that an early exit never reads).
 // The early-outs, the skips and the cull only skip work that cannot change
 // a result (tests/test_torch_closest_skips.py and test_torch_any_skips.py
 // hold the facts they rest on), so the kernels must equal the plain versions
@@ -85,6 +104,7 @@
 // C interface (ctypes): every entry returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 
 namespace {
@@ -93,9 +113,17 @@ constexpr int kP = 256;     // rays per packet == threads per block
 constexpr int kMtRow = 12;  // floats per staged Moller-Trumbore row (9 + 3)
 constexpr int kWoopB = 128;            // triangles per Woop block
 constexpr int kWoopRow = 3 * kWoopB;   // floats per coefficient row (u|v|w)
-constexpr int kWoopFloats = 4 * kWoopRow;
+constexpr int kWoopGroup = 4;          // K7/K8: Woop rows per unrolled group
 constexpr float kBaryEps = 1e-5f;
 constexpr float kBaryMax = (float)(1.0 + 1e-5);
+constexpr float kMinDw = 1e-18f;
+// K8's cull boxes: WOOP_BOX_REL and WOOP_BOX_ABS of kernels/cluster_trace.py
+constexpr float kWoopBoxRel = 4e-5f;
+constexpr float kWoopBoxAbs = 4e-6f;
+// A Woop hit needs u <= kUMax: with v >= -1e-5, fl(u + v) >= fl(u - 1e-5)
+// > 1.0009 > kBaryMax once u > 1.001, as rounding is monotone (K1's bound,
+// csrc/ray_tri.cu).
+constexpr float kUMax = 1.001f;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Ray {
@@ -172,32 +200,121 @@ __device__ __forceinline__ void mt_vt(const Ray& r, const MtHalf& m,
   t = (y.z * qx + y.w * qy + z.x * qz) * m.inv;
 }
 
-// Coefficient row k (x, y, z, translation) of component c (u, v, w) of lane
-// j of a Woop block: w[k * kWoopRow + c * kWoopB + j].
-__device__ __forceinline__ float aff(const Ray& r, const float* w) {
-  return r.ox * w[0] + r.oy * w[kWoopRow] + r.oz * w[2 * kWoopRow] +
-         w[3 * kWoopRow];
+// K7/K8: fold [tn, tf] so that tn <= t <= tf alone gives the Woop test's
+// isfinite(t) && t >= tnear && t <= tfar: for tnear <= tfar (no NaN),
+// clamping the bounds to the finite range rejects t = +-inf and changes no
+// verdict on a finite t; a NaN t fails every compare. A ray with
+// tnear > tfar, or a NaN bound, can satisfy no t: it gets [inf, -inf]
+// (K1's fold_range, csrc/ray_tri.cu). Nothing else reads the bounds in a
+// way the fold changes: the slab test's entry and limit are finite, and a
+// dead ray hits nothing.
+__device__ __forceinline__ void fold_range(Ray& r) {
+  if (r.tn <= r.tf) {
+    r.tn = fmaxf(r.tn, -FLT_MAX);
+    r.tf = fminf(r.tf, FLT_MAX);
+  } else {
+    r.tn = INFINITY;
+    r.tf = -INFINITY;
+  }
 }
 
-__device__ __forceinline__ float lin(const Ray& r, const float* w) {
-  return r.dx * w[0] + r.dy * w[kWoopRow] + r.dz * w[2 * kWoopRow];
+// A staged Woop coefficient row p = (x, y, z, translation): its affine
+// value at the ray origin and its linear part along the direction, in
+// _woop_tuvok's order.
+__device__ __forceinline__ float woop_aff(const Ray& r, float4 p) {
+  return r.ox * p.x + r.oy * p.y + r.oz * p.z + p.w;
+}
+__device__ __forceinline__ float woop_lin(const Ray& r, float4 p) {
+  return r.dx * p.x + r.dy * p.y + r.dz * p.z;
 }
 
-// The Woop test of lane j of a staged Woop block; the order is
-// _woop_tuvok's.
-__device__ __forceinline__ bool woop_test(const Ray& r, const float* tile,
-                                          int j, float& t, float& u,
-                                          float& v) {
-  const float* wu = tile + j;
-  const float* wv = tile + kWoopB + j;
-  const float* ww = tile + 2 * kWoopB + j;
-  const float ow = aff(r, ww);
-  const float dw = lin(r, ww);
-  t = fabsf(dw) > 1e-18f ? -ow / dw : INFINITY;
-  u = aff(r, wu) + t * lin(r, wu);
-  v = aff(r, wv) + t * lin(r, wv);
-  return (u >= -kBaryEps) && (v >= -kBaryEps) && (u + v <= kBaryMax) &&
-         isfinite(t) && (t >= r.tn) && (t <= r.tf);
+// The t half of a Woop row (w, its first float4): t = -ow/dw, and whether
+// t can belong to a hit: |dw| > 1e-18 and t in the folded range.
+__device__ __forceinline__ bool woop_t(const Ray& r, float4 w, float& t) {
+  const float dw = woop_lin(r, w);
+  const bool ok_dw = fabsf(dw) > kMinDw;
+  // |dw| <= 1e-18 fails the test whatever t is (the plain version's
+  // t = inf); divide by 1 there, off the division's slow path
+  t = -woop_aff(r, w) / (ok_dw ? dw : 1.f);
+  return ok_dw & (t >= r.tn) & (t <= r.tf);
+}
+
+// u (the second float4) or v (the third) at t.
+__device__ __forceinline__ float woop_at(const Ray& r, float4 p, float t) {
+  return woop_aff(r, p) + t * woop_lin(r, p);
+}
+
+__device__ __forceinline__ bool bary_ok(float u, float v) {
+  return (u >= -kBaryEps) & (v >= -kBaryEps) & (u + v <= kBaryMax);
+}
+
+// Stage Woop block blk, (4, 384) floats [k][comp * 128 + j] (comp: u, v,
+// w), as 128 rows of three float4: row j at tile[3 j] is w's coefficients
+// (x, y, z, translation), then u's, then v's. Consecutive threads read
+// consecutive floats of each coefficient row and store 16 bytes 48 apart,
+// which a quarter warp spreads over all 32 banks.
+__device__ __forceinline__ void stage_woop(float4* tile, const float* blk) {
+  for (int q = threadIdx.x; q < kWoopRow; q += kP) {
+    const int comp = q / kWoopB, j = q % kWoopB;
+    tile[3 * j + (comp == 2 ? 0 : comp + 1)] =
+        make_float4(blk[q], blk[kWoopRow + q], blk[2 * kWoopRow + q],
+                    blk[3 * kWoopRow + q]);
+  }
+}
+
+// K7's rows: G staged Woop rows, triangles id0, id0 + 1, ..., against the
+// thread's ray, folded into b in row order (K1's closest_rows). The t
+// halves of the G rows come first; a row's u then runs only where some
+// lane of the warp has a t in range and below its ray's best t, and its v
+// only where some such lane also has u in [-1e-5, kUMax]: conjuncts of the
+// replacement, so no result can change (warp-uniform; all lanes call this
+// together).
+template <int G>
+__device__ __forceinline__ void closest_rows_woop(const Ray& r,
+                                                  const float4* rows,
+                                                  int id0, Best& b) {
+  float t[G];
+  bool in_range[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) in_range[g] = woop_t(r, rows[3 * g], t[g]);
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const bool test = in_range[g] && t[g] < b.t;
+    if (!__any_sync(kFull, test)) continue;
+    const float u = woop_at(r, rows[3 * g + 1], t[g]);
+    const bool cand = test & (u >= -kBaryEps) & (u <= kUMax);
+    if (!__any_sync(kFull, cand)) continue;
+    const float v = woop_at(r, rows[3 * g + 2], t[g]);
+    // strictly closer only: a tie keeps the earlier slot, then the lower row
+    if (cand && bary_ok(u, v)) b = Best{t[g], u, v, id0 + g};
+  }
+}
+
+// K8's rows: G staged Woop rows against the thread's ray; `want`: the ray
+// is live, unoccluded and (mode 5) slab-live. The t halves come first; a
+// row's u runs only where some wanting lane of the warp has a t in range,
+// and its v only where some such lane also has u in [-1e-5, kUMax]. A hit
+// clears `want` and sets `occ` (an OR: the first occluder decides).
+template <int G>
+__device__ __forceinline__ void any_rows_woop(const Ray& r, const float4* rows,
+                                              bool& want, bool& occ) {
+  float t[G];
+  bool in_range[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) in_range[g] = woop_t(r, rows[3 * g], t[g]);
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const bool test = want && in_range[g];
+    if (!__any_sync(kFull, test)) continue;
+    const float u = woop_at(r, rows[3 * g + 1], t[g]);
+    const bool cand = test & (u >= -kBaryEps) & (u <= kUMax);
+    if (!__any_sync(kFull, cand)) continue;
+    const float v = woop_at(r, rows[3 * g + 2], t[g]);
+    if (cand && bary_ok(u, v)) {
+      occ = true;
+      want = false;
+    }
+  }
 }
 
 // K5's rows: the thread's ray against the `rows` staged rows of cluster c,
@@ -240,21 +357,46 @@ __device__ __forceinline__ float slab_exit(float c, float t1, float t2) {
   return !(fabsf(c) > 1e-20f) && hi >= 0.f ? INFINITY : hi;
 }
 
+struct Box {
+  float lx, ly, lz, hx, hy, hz;
+};
+
+// Box k of the slab cull: K6's as given; K8's grown by the Woop test's
+// reach, in the float32 operations of `woop_cull_boxes` in
+// kernels/cluster_trace.py, so the same box (the plain version that the
+// tests hold the cull to).
+template <bool kWoop>
+__device__ __forceinline__ Box cull_box(const float* bmin, const float* bmax,
+                                        int k) {
+  Box b{bmin[3 * k], bmin[3 * k + 1], bmin[3 * k + 2],
+        bmax[3 * k], bmax[3 * k + 1], bmax[3 * k + 2]};
+  if (kWoop) {
+    const float big = fmaxf(fmaxf(fmaxf(fabsf(b.lx), fabsf(b.hx)),
+                                  fmaxf(fabsf(b.ly), fabsf(b.hy))),
+                            fmaxf(fabsf(b.lz), fabsf(b.hz)));
+    const float mb = kWoopBoxAbs * big;
+    const float mx = kWoopBoxRel * (b.hx - b.lx) + mb;
+    const float my = kWoopBoxRel * (b.hy - b.ly) + mb;
+    const float mz = kWoopBoxRel * (b.hz - b.lz) + mb;
+    b = Box{b.lx - mx, b.ly - my, b.lz - mz, b.hx + mx, b.hy + my, b.hz + mz};
+  }
+  return b;
+}
+
 // `_slab_entry_exit` + `_slab_live`, with the exit above: can this ray
-// enter box k before `upper`? Relative and absolute slack, so rounding
+// enter box b before `upper`? Relative and absolute slack, so rounding
 // cannot cull a graze. `slab_live_ref` in kernels/cluster_trace.py is the
 // plain version; tests/test_torch_any_skips.py holds that a ray it calls
 // dead has no hit in the box.
 __device__ __forceinline__ bool slab_live(const Ray& r, float ix, float iy,
-                                          float iz, const float* bmin,
-                                          const float* bmax, int k,
+                                          float iz, const Box& b,
                                           float upper) {
-  const float t1x = (bmin[3 * k] - r.ox) * ix;
-  const float t2x = (bmax[3 * k] - r.ox) * ix;
-  const float t1y = (bmin[3 * k + 1] - r.oy) * iy;
-  const float t2y = (bmax[3 * k + 1] - r.oy) * iy;
-  const float t1z = (bmin[3 * k + 2] - r.oz) * iz;
-  const float t2z = (bmax[3 * k + 2] - r.oz) * iz;
+  const float t1x = (b.lx - r.ox) * ix;
+  const float t2x = (b.hx - r.ox) * ix;
+  const float t1y = (b.ly - r.oy) * iy;
+  const float t2y = (b.hy - r.oy) * iy;
+  const float t1z = (b.lz - r.oz) * iz;
+  const float t2z = (b.hz - r.oz) * iz;
   const float tent = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
                            fmaxf(fminf(t1z, t2z), r.tn));
   const float texit = fminf(fminf(slab_exit(r.dx, t1x, t2x),
@@ -344,13 +486,14 @@ __global__ void __launch_bounds__(kP)
     trace_kernel(Args a, float* __restrict__ t_out, float* __restrict__ u_out,
                  float* __restrict__ v_out, int* __restrict__ tri_out,
                  bool* __restrict__ occ_out) {
-  extern __shared__ float4 tile[];   // B rows of 3 float4, or a Woop block
+  extern __shared__ float4 tile[];   // B rows of 3 float4
   const int p = blockIdx.x;
   const long long i = (long long)p * kP + threadIdx.x;
-  const Ray r = load_ray(a, i);
+  Ray r = load_ray(a, i);
+  if (kWoop) fold_range(r);
   const bool live = !(r.tf < r.tn);
   float ix = 0.f, iy = 0.f, iz = 0.f;
-  if (!kWoop && a.skip == 5) {
+  if (a.skip == 5) {
     ix = safe_inv(r.dx);
     iy = safe_inv(r.dy);
     iz = safe_inv(r.dz);
@@ -358,7 +501,7 @@ __global__ void __launch_bounds__(kP)
   const int* sl = a.shortlist + (long long)p * a.n_super;
   const float* ent = a.entry + (long long)p * a.n_super;
   const int n_slots = a.count[p] * a.factor;
-  const int rows = kWoop ? kWoopB : a.block;
+  const int rows = a.block;
 
   Best b{INFINITY, 0.f, 0.f, -1};
   bool occ = false;
@@ -379,17 +522,17 @@ __global__ void __launch_bounds__(kP)
     const int c = a.factor == 1 ? sc
                                 : min(sc * a.factor + s % a.factor,
                                       a.n_clusters - 1);
-    if (!kWoop && a.skip == 5) {
+    if (a.skip == 5) {
       const float upper = kClosest ? fminf(b.t, r.tf) : r.tf;
       slab = live && (kClosest || !occ) &&
-             slab_live(r, ix, iy, iz, a.bmin, a.bmax,
-                       a.box_per_cluster ? c : sc, upper);
+             slab_live(r, ix, iy, iz,
+                       cull_box<kWoop>(a.bmin, a.bmax,
+                                       a.box_per_cluster ? c : sc),
+                       upper);
       if (!__syncthreads_or(slab)) continue;
     }
-    if (kWoop) {   // 16-byte aligned (the wrapper checks)
-      const float4* src = (const float4*)a.ctris + (long long)c *
-                          (kWoopFloats / 4);
-      for (int k = threadIdx.x; k < kWoopFloats / 4; k += kP) tile[k] = src[k];
+    if (kWoop) {
+      stage_woop(tile, a.ctris + (long long)c * 4 * kWoopRow);
     } else {       // coalesced reads; row j at tile[3 j]
       const float* src = a.ctris + (long long)c * a.block * 9;
       float* dst = reinterpret_cast<float*>(tile);
@@ -402,32 +545,23 @@ __global__ void __launch_bounds__(kP)
       // from below every hit in the slot of every ray of the packet
       if (!__any_sync(kFull, act)) continue;
       if (kWoop) {
-        for (int j = 0; j < rows; ++j) {
-          float t, u, v;
-          if (woop_test(r, reinterpret_cast<const float*>(tile), j, t, u,
-                        v) &&
-              t < b.t)
-            b = Best{t, u, v, c * rows + j};
-        }
+        for (int j = 0; j < rows; j += kWoopGroup)
+          closest_rows_woop<kWoopGroup>(r, tile + 3 * j, c * rows + j, b);
       } else {
         closest_rows_mt(r, live, tile, rows, c, b);
       }
-    } else if (kWoop) {
-      if (!occ)
-        for (int j = 0; j < rows; ++j) {
-          float t, u, v;
-          if (woop_test(r, reinterpret_cast<const float*>(tile), j, t, u,
-                        v)) {
-            occ = true;   // an OR: the first occluder decides
-            break;
-          }
-        }
     } else {
       // a warp none of whose rays is live, unoccluded and (mode 5)
       // slab-live skips the slot's rows
-      const bool want = live && !occ && slab;
+      bool want = live && !occ && slab;
       if (!__any_sync(kFull, want)) continue;
-      any_rows_mt(r, want, tile, rows, occ);
+      if (kWoop) {
+        // the warp leaves the rows once none of its lanes wants a hit
+        for (int j = 0; j < rows && __any_sync(kFull, want); j += kWoopGroup)
+          any_rows_woop<kWoopGroup>(r, tile + 3 * j, want, occ);
+      } else {
+        any_rows_mt(r, want, tile, rows, occ);
+      }
     }
   }
   if (kClosest) {
@@ -461,7 +595,8 @@ template <bool kClosest>
 int launch(const Args& a, int n_packets, int woop, void* stream, float* t,
            float* u, float* v, int* tri, bool* occ) {
   if (woop)
-    trace_kernel<kClosest, true><<<n_packets, kP, kWoopFloats * sizeof(float),
+    trace_kernel<kClosest, true><<<n_packets, kP,
+                                   kWoopB * kMtRow * sizeof(float),
                                    (cudaStream_t)stream>>>(a, t, u, v, tri,
                                                            occ);
   else
@@ -479,8 +614,8 @@ extern "C" {
 // Inputs: packed rays (n_packets * 256), count/shortlist/entry of phase 1,
 // the slab-cull boxes, the cluster blocks and woop: 0 for the (C, B, 9)
 // blocks of K5/K6, 1 for the (C, 4, 384) Woop blocks of K7/K8 (block 128,
-// factor 1, skip 0). Outputs t, u, v (float32) and tri (int32), each
-// n_packets * 256.
+// factor 1; skip 0, or 5 for K8 with the cluster boxes, which it grows).
+// Outputs t, u, v (float32) and tri (int32), each n_packets * 256.
 int cluster_trace_closest(const void* o, const void* d, const void* tnear,
                           const void* tfar, const void* count,
                           const void* shortlist, const void* entry,

@@ -34,10 +34,13 @@ The Woop variant (`ptrace_mxu`): scenes built at B = WOOP_BLOCK = 128
 carry (C, 4, 384) Woop blocks (`build_cluster_woop`), and where F is 1
 `trace_closest` / `trace_any` given them run K7/K8
 (`csrc/cluster_trace.cu` with the Woop test; plain versions
-`trace_closest_mxu_ref` / `trace_any_mxu_ref`) in place of K5/K6: the same phase 1, slots and
-fold, with K1's Woop test (`kernels/ray_tri.py`, watertight epsilon
-1e-5) in place of Moller-Trumbore, and no per-ray cull. Otherwise they
-take K5/K6, as the JAX package does.
+`trace_closest_mxu_ref` / `trace_any_mxu_ref`) in place of K5/K6: the
+same phase 1, slots and fold, with K1's Woop test (`kernels/ray_tri.py`,
+watertight epsilon 1e-5) in place of Moller-Trumbore. K7 runs no per-ray
+cull, as on the TPU; K8 culls as K6 does (mode 5 above SMALL_C
+clusters), against the cluster boxes grown by the Woop test's reach
+(`woop_cull_boxes`), which the TPU kernel does not. Otherwise they take
+K5/K6, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -57,6 +60,10 @@ BOX_MAX = 16_000   # mode-5 culls use per-cluster boxes up to this count
 SMALL_C = 64       # scenes of at most this many clusters run no cull
 
 WOOP_BLOCK = 128   # triangles per cluster of the Woop variant (one lane tile)
+# K8's cull boxes: each cluster AABB grown by WOOP_BOX_REL of its extent
+# per axis and WOOP_BOX_ABS of its largest coordinate (`woop_cull_boxes`)
+WOOP_BOX_REL = 4e-5
+WOOP_BOX_ABS = 4e-6
 
 # kernel launches per wrapper (the plain versions do not count)
 LAUNCHES = {"trace_closest": 0, "trace_any": 0, "trace_closest_mxu": 0,
@@ -235,6 +242,24 @@ def cull_boxes(cmin, cmax, factor: int):
         return cmin, cmax, True
     scmin, scmax = _super_boxes(cmin, cmax, factor)
     return scmin, scmax, False
+
+
+def woop_cull_boxes(cmin, cmax):
+    """K8's mode-5 cull boxes: the cluster AABBs (C, 3) grown by the reach
+    of the Woop test. Its watertight slack passes u, v and 1 - u - v down
+    to -1e-5, so a hit can lie outside its triangle by up to 2e-5 of the
+    triangle's extent along each axis, and so outside the cluster's box: a
+    ray lying just past a box face hits there, and the per-ray slab test
+    of the box itself would cull it. Each box grows by WOOP_BOX_REL (twice
+    that reach) of its own extent per axis, plus WOOP_BOX_ABS of its
+    largest coordinate magnitude for the rounding of the Woop terms.
+    tests/test_torch_any_skips.py holds that no ray `slab_live_ref` calls
+    dead for a triangle's grown box hits it by the Woop test. The plain
+    version of K8's `cull_box`, which grows each box as it reads it, in
+    the same float32 operations."""
+    big = torch.maximum(cmin.abs(), cmax.abs()).amax(-1, keepdim=True)
+    m = WOOP_BOX_REL * (cmax - cmin) + WOOP_BOX_ABS * big
+    return (cmin - m).contiguous(), (cmax + m).contiguous()
 
 
 def slab_live_ref(o, d, tnear, upper, bmin, bmax):
@@ -477,20 +502,26 @@ def _check_tensors(pk: Packets, **blocks):
 
 def _launch(kind, blocks, pk: Packets, outs, cmin=None, cmax=None):
     """Launch `kind` on the cluster blocks (C, B, 9) with their AABBs, or
-    the Woop blocks (C, 4, 384) at factor 1 (no cull, no boxes)."""
+    the Woop blocks (C, 4, 384) at factor 1 (K8 with the AABBs, which it
+    grows as `woop_cull_boxes` does; K7 runs no cull and takes none)."""
     entry, woop = _KINDS[kind]
     c = blocks.shape[0]
     if woop:
         if pk.factor != 1:
             raise ValueError(f"cluster_trace: the Woop kernels take factor "
                              f"1, got {pk.factor}")
-        _check_tensors(pk, cwoop=(blocks, (c, 4, 3 * WOOP_BLOCK),
-                                  torch.float32))
-        if blocks.data_ptr() % 16:
-            raise ValueError("cluster_trace: the Woop blocks must be "
-                             "16-byte aligned (the kernel stages them as "
-                             "float4)")
-        b, skip, boxes = WOOP_BLOCK, 0, (0, 0, 1)
+        b = WOOP_BLOCK
+        skip = _skip_for("closest" if kind == "trace_closest_mxu" else "any",
+                         c)
+        cwoop = (blocks, (c, 4, 3 * b), torch.float32)
+        if skip:
+            _check_tensors(pk, cwoop=cwoop,
+                           cmin=(cmin, (c, 3), torch.float32),
+                           cmax=(cmax, (c, 3), torch.float32))
+            boxes = (cmin.data_ptr(), cmax.data_ptr(), 1)
+        else:
+            _check_tensors(pk, cwoop=cwoop)
+            boxes = (0, 0, 1)
     else:
         b = blocks.shape[1]
         bmin, bmax, per_cluster = cull_boxes(cmin, cmax, pk.factor)
@@ -564,14 +595,15 @@ def closest_packets_mxu(cwoop, pk: Packets):
     return outs
 
 
-def any_packets_mxu(cwoop, pk: Packets):
+def any_packets_mxu(cwoop, cmin, cmax, pk: Packets):
     """K8 on CUDA tensors, `trace_any_mxu_ref` on CPU tensors -> (Rp*P,)
-    bool."""
+    bool. cmin, cmax (C, 3): the cluster AABBs, which K8 grows into its
+    cull boxes (`woop_cull_boxes`)."""
     if not _on_cuda(pk.o):
         return trace_any_mxu_ref(cwoop, pk)
     occ = torch.empty((pk.o.shape[0],), dtype=torch.bool, device=pk.o.device)
     if pk.o.shape[0]:
-        _launch("trace_any_mxu", cwoop, pk, (occ,))
+        _launch("trace_any_mxu", cwoop, pk, (occ,), cmin, cmax)
     return occ
 
 
@@ -608,7 +640,7 @@ def trace_any(ctris, cmin, cmax, o, d, tnear, tfar, cwoop=None,
     factor, woop = _factor_and_woop(ctris, cwoop, factor)
     with torch.no_grad():
         pk = pack(cmin, cmax, o, d, tnear, tfar, factor)
-        occ = any_packets_mxu(cwoop, pk) if woop \
+        occ = any_packets_mxu(cwoop, cmin, cmax, pk) if woop \
             else any_packets(ctris, cmin, cmax, pk)
     return occ[:pk.n_rays]
 
