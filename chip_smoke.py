@@ -45,6 +45,16 @@ line is not printed:
      8 frames; the traced rays per pixel must equal the analytic 28, every
      kernel must have launched, the image must be finite with a plausible
      mean; ms/frame, Mrays/s and a per-pass breakdown are printed.
+     Then [integrators], the naive and NEE path tracers at 1920x1080
+     through Renderer (PATH_RUNS: naive, NEE area/BRDF/MIS/RIS and the
+     MIS weights on Cornell through K1/K2; NEE-RIS on lights1k through
+     K5/K6), each after a warm-up frame: traced rays per pixel equal to
+     path_rays_per_pixel (6 naive, 18 NEE-MIS), one kernel launch per
+     logged query (K5/K6: per chunk) and no other kernel, finite frames,
+     ms/frame and Mrays/s; the four strategies without GI agree on the
+     1080p mean; the weights stay in [0, 1] off the emitters; 64x32
+     naive and NEE-MIS frames on cuda and cpu allclose on at least 99%
+     of the pixels.
   5. the same port at 64x32 for 4 frames on cuda and on cpu (plain
      versions): image means within 3 combined standard errors, fewer than
      1% of reservoirs holding a different sample.
@@ -84,7 +94,9 @@ line is not printed:
 and one 1080p frame of each clustered scene, terrain100k-128 under
 ptrace_mxu included (torch.profiler), and writes
 the tables of device time by kernel to PATH and to PATH with _fwd_bwd,
-_terrain100k, _lights1k and _terrain100k-128 before its extension.
+_terrain100k, _lights1k and _terrain100k-128 before its extension; and
+one NEE-MIS 1080p frame, its device time split into the threefry draws,
+calc_i_m, K1/K2 and the rest (PATH with _nee).
 
 The script imports nothing of JAX or of the JAX package (tpu_restir),
 and checks so at its end, after the CLI has exported.
@@ -236,6 +248,19 @@ def bench_cfg(width, height, view=CORNELL_VIEW, mxu=False):
                             spatial_mis="pairwise"),
         intersector=IntersectorConfig(ptrace_mxu=mxu),
         integrator="restir")
+
+
+def path_rays_per_pixel(cfg):
+    """Traced rays per pixel of one naive or NEE frame: every bounce
+    traces the whole wavefront, so the naive tracer's B + 1 closest-hit
+    queries; NEE traces (B + 1 with GI, else 1) vertices of 1 closest hit
+    and r direct-light rays each (r = 1 for area, BRDF and RIS, 2 for MIS,
+    0 without direct light)."""
+    b = cfg.params.max_bounce_count
+    if cfg.integrator == "naive":
+        return b + 1
+    r = (2 if cfg.direct_strategy == "mis" else 1) if cfg.nee_calc_di else 0
+    return (b + 1 if cfg.nee_calc_gi else 1) * (1 + r)
 
 
 def cuda_ms(fn, reps, windows=3):
@@ -1191,6 +1216,251 @@ def phase_large_path(dev, label, smi, small_mean):
     return launches
 
 
+# the [integrators] phase: (label, integrator, config keywords, timed
+# frames) on the Cornell box at 1920x1080, default max_bounce_count 5; the
+# show-weights frame is direct light only on a black background, so that
+# only its emitters may leave R, G <= 1 (tests/test_features.py:127-140)
+PATH_RUNS = (
+    ("naive", "naive", {}, 2),
+    ("nee-area", "nee", dict(direct_strategy="area"), 1),
+    ("nee-brdf", "nee", dict(direct_strategy="brdf"), 1),
+    ("nee-mis", "nee", dict(direct_strategy="mis"), 1),
+    ("nee-ris", "nee", dict(direct_strategy="ris"), 1),
+    ("nee-mis show_weights", "nee",
+     dict(direct_strategy="mis", show_weights=True, nee_calc_gi=False,
+          bg=(0.0, 0.0, 0.0)), 1),
+)
+LIGHTS_RUN = ("nee-ris", "nee", dict(direct_strategy="ris"), 2)
+PATH_TOL = dict(rtol=1e-4, atol=1e-5)
+PATH_MIN_SHARE = 0.99   # pixels that must agree, cuda against cpu
+
+
+def path_cfg(width, height, integrator, view=CORNELL_VIEW,
+             bg=(0.5, 0.5, 0.5), **kw):
+    """A naive or NEE config: the bench camera, no skybox."""
+    from tpu_restir_torch.config import (CameraConfig, RenderConfig,
+                                         RenderParams)
+    return RenderConfig(
+        camera=CameraConfig(width=width, height=height, fov_y_deg=45.0,
+                            view_from=view[0], view_at=view[1],
+                            pixel_sampler="random"),
+        params=RenderParams(use_skybox=False, bg_color=bg),
+        integrator=integrator, **kw)
+
+
+def _path_frame(scene, cfg, dev, frame=0):
+    from tpu_restir_torch import rng
+    from tpu_restir_torch.render import camera as cam_mod
+    from tpu_restir_torch.renderer import _render_frame
+    return _render_frame(scene, cam_mod.make_camera(cfg.camera, dev), cfg,
+                         rng.frame_key(cfg.seed, frame))
+
+
+def phase_integrators(dev, smi):
+    """The naive and NEE path tracers at 1920x1080 through Renderer, each
+    configuration timed after a one-frame warm-up: PATH_RUNS on the
+    Cornell box (every query through K1/K2: one launch per logged query of
+    each kind), NEE-RIS on lights1k (every query through K5/K6: one launch
+    per ptrace chunk of each logged query); traced rays per pixel equal to
+    path_rays_per_pixel, finite frames, no other kernel launched. Then the
+    four strategies without GI must agree on the 1080p mean, the
+    show-weights frame keep R, G <= 1 off the emitters, and 64x32 naive
+    and NEE-MIS frames on cuda and cpu agree pixel by pixel. Returns the
+    launches of the K1/K2 and K5/K6 runs."""
+    import torch
+
+    from tpu_restir_torch import cornell_box
+    lights, lview = large_scene("lights1k", dev)
+    runs = [("cornell", cornell_box(dev), CORNELL_VIEW, *r)
+            for r in PATH_RUNS]
+    runs.append(("lights1k", lights, lview, *LIGHTS_RUN))
+    launches = {}
+    for scene_label, scene, view, label, integ, kw, frames in runs:
+        cfg = path_cfg(WIDTH, HEIGHT, integ, view, **kw)
+        renderer, img, dt, qlog = timed_frames(scene, cfg, dev, frames)
+        got = _launches()
+        rays = sum(e["rays"] for e in qlog)
+        rpp = rays / float(WIDTH * HEIGHT * frames)
+        analytic = path_rays_per_pixel(cfg)
+        backends = sorted({e["backend"] for e in qlog})
+        if scene_label == "cornell":
+            want_backend = ["fused"]
+            want = {f"{k}_hit": sum(1 for e in qlog if e["kind"] == k)
+                    for k in ("closest", "any")}
+        else:
+            want_backend = ["ptrace"]
+            chunk = cfg.intersector.ptrace_chunk
+            want = {f"trace_{k}": sum(-(-e["rays"] // chunk) for e in qlog
+                                      if e["kind"] == k)
+                    for k in ("closest", "any")}
+        others = {k: v for k, v in got.items() if k not in want and v}
+        finite = bool(torch.isfinite(img).all())
+        mean = renderer.stats()[0]
+        print(f"[integrators] {scene_label} {label} {WIDTH}x{HEIGHT}, "
+              f"{frames} frame(s): {dt / frames * 1e3:.2f} ms/frame, "
+              f"{rays / dt / 1e6:.2f} Mrays/s ({smi}); traced rays/pixel "
+              f"{rpp} (analytic {analytic}); query backends {backends}; "
+              f"launches {got} (logged queries {want}); image mean "
+              f"{mean:.6f}, finite {finite}", flush=True)
+        tag = f"{scene_label} {label}"
+        require(tuple(img.shape) == (HEIGHT, WIDTH, 3) and finite,
+                f"{tag}: wrong shape or non-finite values")
+        require(rpp == float(analytic),
+                f"{tag}: traced {rpp} rays/pixel, analytic {analytic}")
+        require(backends == want_backend, f"{tag}: queries went to "
+                f"{backends}, not {want_backend}")
+        require(all(got[k] == v for k, v in want.items())
+                and next(iter(want.values())) > 0,
+                f"{tag}: launches {got} do not cover every logged query "
+                f"{want}")
+        require(not others, f"{tag}: other kernels launched: {others}")
+        for k, v in want.items():
+            launches[k] = launches.get(k, 0) + v
+        if kw.get("show_weights"):
+            off = img[..., 2] <= 3.0     # the emitters are (17, 12, 4)
+            rg = img[off][:, :2]
+            print(f"[integrators] show_weights: {int(off.sum())} pixels off "
+                  f"the emitters, max R {float(rg[:, 0].max()):.6f}, max G "
+                  f"{float(rg[:, 1].max()):.6f}, max B "
+                  f"{float(img[off][:, 2].max()):.6f}", flush=True)
+            require(float(rg.max()) <= 1.0 + 1e-5
+                    and float(img[off][:, 2].abs().max()) == 0.0
+                    and float(rg[:, 1].max()) > 0.05,
+                    "show_weights: MIS weights outside [0, 1] off the "
+                    "emitters, or none non-trivial")
+    phase_strategy_means(dev)
+    phase_path_cross_device()
+    return launches
+
+
+def phase_strategy_means(dev):
+    """The four NEE strategies without GI (direct light and directly seen
+    emitters, frame key 0 each) estimate one image: their 1080p means
+    within 3 combined standard errors of each other, and, paired pixel by
+    pixel (the same camera rays), the mean difference within 3 standard
+    errors of the difference (the JAX oracle of tests/test_restir.py:35-58,
+    made stricter by the pairing)."""
+    from tpu_restir_torch import cornell_box
+    scene = cornell_box(dev)
+    pix = {}
+    for s in ("area", "brdf", "mis", "ris"):
+        cfg = path_cfg(WIDTH, HEIGHT, "nee", direct_strategy=s,
+                       nee_calc_gi=False)
+        pix[s] = _path_frame(scene, cfg, dev).mean(-1).double()
+    n = WIDTH * HEIGHT
+    stats = {s: (float(p.mean()), float(p.std()) / math.sqrt(n))
+             for s, p in pix.items()}
+    worst, worst_pair = 0.0, 0.0
+    names = list(pix)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            (ma, sa), (mb, sb) = stats[a], stats[b]
+            worst = max(worst, abs(ma - mb) / math.hypot(sa, sb))
+            d = pix[a] - pix[b]
+            se = float(d.std()) / math.sqrt(n)
+            worst_pair = max(worst_pair, abs(float(d.mean())) / se
+                             if se > 0 else 0.0)
+    print(f"[integrators] strategy means without GI at {WIDTH}x{HEIGHT}: "
+          + ", ".join(f"{s} {m:.6f} (se {e:.2g})"
+                      for s, (m, e) in stats.items())
+          + f"; largest |difference| / combined se {worst:.3f}, paired "
+          f"{worst_pair:.3f} (allowed 3)", flush=True)
+    require(worst <= 3.0 and worst_pair <= 3.0,
+            "the NEE strategies disagree on the image mean")
+
+
+def phase_path_cross_device():
+    """64x32 naive and NEE-MIS frames (default bounces) on cuda and on cpu
+    (the plain versions of K1/K2): allclose at PATH_TOL on at least
+    PATH_MIN_SHARE of the pixels."""
+    import torch
+
+    from tpu_restir_torch import cornell_box
+    for integ in ("naive", "nee"):
+        cfg = path_cfg(SMALL_W, SMALL_H, integ)
+        imgs = [_path_frame(cornell_box(torch.device(d)), cfg,
+                            torch.device(d), 3).cpu()
+                for d in ("cuda", "cpu")]
+        close = torch.isclose(imgs[0], imgs[1], **PATH_TOL).all(-1)
+        share = float(close.float().mean())
+        print(f"[integrators] cross-device {integ} {SMALL_W}x{SMALL_H}: "
+              f"{int(close.sum())} of {close.numel()} pixels allclose "
+              f"(rtol {PATH_TOL['rtol']}, atol {PATH_TOL['atol']}; "
+              f"{share:.4%}, allowed >= {PATH_MIN_SHARE:.0%}); max |diff| "
+              f"{float((imgs[0] - imgs[1]).abs().max()):.3g}", flush=True)
+        require(bool(torch.isfinite(imgs[0]).all()),
+                f"cross-device {integ}: non-finite frame")
+        require(share >= PATH_MIN_SHARE,
+                f"cross-device {integ}: cuda and cpu frames disagree")
+
+
+def profile_integrator(dev, path):
+    """One NEE-MIS 1080p Cornell frame under torch.profiler, its device
+    time split into the threefry draws (rng.uniform), calc_i_m, K1/K2 and
+    the rest: the two functions are wrapped in record_function ranges for
+    this run only. Writes the table to path."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from tpu_restir_torch import cornell_box, rng
+    from tpu_restir_torch.render import brdf
+    scene = cornell_box(dev)
+    cfg = path_cfg(WIDTH, HEIGHT, "nee", direct_strategy="mis")
+
+    def ranged(name, fn):
+        def call(*args, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kw)
+        return call
+
+    saved = rng.uniform, brdf.calc_i_m
+    rng.uniform = ranged("threefry_uniform", saved[0])
+    brdf.calc_i_m = ranged("calc_i_m", saved[1])
+    try:
+        _path_frame(scene, cfg, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _path_frame(scene, cfg, dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            _path_frame(scene, cfg, dev)
+            torch.cuda.synchronize()
+    finally:
+        rng.uniform, brdf.calc_i_m = saved
+    events = prof.key_averages()
+    ranges = ("threefry_uniform", "calc_i_m")
+    # (a range may also show as a device-side annotation: not a kernel)
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.key not in ranges]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    n_launch = sum(e.count for e in kernels)
+    # a range's device time: its kernels' time, summed on the host-side
+    # range (the device-side annotation's span where that reads 0)
+    split = {name: (sum(e.device_time_total for e in events if e.key == name
+                        and e.device_type == DeviceType.CPU)
+                    or sum(e.self_device_time_total for e in events
+                           if e.key == name
+                           and e.device_type == DeviceType.CUDA)) / 1e3
+             for name in ranges}
+    split["K1/K2"] = sum(
+        e.self_device_time_total for e in kernels
+        if "(anonymous namespace)::closest_kernel" in e.key
+        or "(anonymous namespace)::any_kernel" in e.key) / 1e3
+    split["rest"] = device_ms - sum(split.values())
+    with open(path, "w") as f:
+        f.write(events.table(sort_by="self_cuda_time_total", row_limit=80))
+    print(f"[profile] 1 NEE-MIS {WIDTH}x{HEIGHT} frame: wall "
+          f"{wall_ms:.1f} ms without the profiler; device kernels "
+          f"{device_ms:.1f} ms in {n_launch} launches, busy share "
+          f"{device_ms / wall_ms:.3f}; device ms "
+          + ", ".join(f"{k} {v:.2f} ({v / device_ms:.3f})"
+                      for k, v in split.items())
+          + f"; table in {path}", flush=True)
+
+
 _SIDECAR_KEYS = ["Image name:", "", "Iteration count:", "Area samples:",
                  "BRDF samples:", "", "Spatial reuse:", "\tPass count:",
                  "\tNeighbor count:", "\tReuse radius:", "",
@@ -1552,6 +1822,7 @@ def main():
     small_mean, small_se = phase_small()
     launches = phase_main_path(dev, small_mean, small_se, smi)
     phase_passes(dev)
+    phase_integrators(dev, smi)
     launches.update(scatter_local=phase_fwd_bwd(dev, smi)["scatter_local"])
     phase_grad_small()
     phase_optimize(dev)
@@ -1574,6 +1845,8 @@ def main():
                if a.startswith("--profile=")]
     if profile:
         phase_profile(dev, profile[0])
+        root, ext = os.path.splitext(profile[0])
+        profile_integrator(dev, f"{root}_nee{ext}")
     # after the CLI's exports and checkpoints
     loaded = sorted(m for m in sys.modules if m.split(".")[0]
                     in ("jax", "jaxlib", "flax", "tpu_restir"))

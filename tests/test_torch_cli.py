@@ -116,8 +116,6 @@ def test_cli_renders_exports_and_resumes(tmp_path):
 @pytest.mark.parametrize("argv,match", [
     (["--scene", "assets/demo/none.obj"], "item 11"),
     (["--skybox", "sky.hdr"], "item 11"),
-    (["--integrator", "nee"], "item 10"),
-    (["--show-weights"], "item 10"),
     (["--devices", "2"], "item 12")])
 def test_cli_refuses_what_is_not_ported(tmp_path, argv, match):
     with pytest.raises(NotImplementedError, match=match):

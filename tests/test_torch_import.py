@@ -1,5 +1,6 @@
 """The port never imports JAX: a fresh interpreter imports tpu_restir_torch,
-renders a 16x16 frame on the CPU and exports it, takes its gradient
+renders a 16x16 frame on the CPU and exports it, renders naive and NEE
+frames (with their threefry draws) and their gradient, takes its gradient
 w.r.t. the material table (`diff`), builds a clustered terrain and renders
 it through the clustered traversal (and a cluster-size-128 terrain through
 its Woop variant), runs the CLI with a denoised, profiled, checkpointed
@@ -48,6 +49,15 @@ loss, grads = render.make_value_and_grad(
     scene, make_camera(cfg.camera, "cpu"), cfg, (1,),
     torch.zeros((16, 16, 3)))(params.extract_params(scene))
 assert torch.isfinite(loss) and len(grads) == 4
+for integ in ("naive", "nee"):
+    pcfg = cfg.replace(integrator=integ, direct_strategy="ris")
+    r = Renderer(scene, pcfg, device="cpu")
+    r.run(2)
+    assert r.stats()[0] > 0.0
+    loss, grads = render.make_value_and_grad(
+        scene, make_camera(pcfg.camera, "cpu"), pcfg, (1,),
+        torch.zeros((16, 16, 3)))(params.extract_params(scene))
+    assert torch.isfinite(loss) and len(grads) == 4
 from tpu_restir_torch.accel import bvh, fcluster
 from tpu_restir_torch.kernels import cluster_trace
 from tpu_restir_torch.scene.procedural import terrain_scene, triangle_soup

@@ -74,7 +74,7 @@ def test_display_matches_jax():
             rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("kw", [dict(integrator="nee"), dict(n_devices=2)])
+@pytest.mark.parametrize("kw", [dict(n_devices=2)])
 def test_renderer_refuses_what_is_not_ported(scene, kw):
     cfg = _cfg().replace(**kw)
     with pytest.raises(NotImplementedError, match="ROADMAP item"):

@@ -6,8 +6,8 @@ batch renderer (SURVEY.md §5.6): every knob the reference exposes in its
 GUI is a flag here; output is the same PNG + sidecar pair. It renders on
 --device (default cuda, which must be present: there is no fallback to
 the CPU). What the port has not ported raises NotImplementedError naming
-its ROADMAP item: OBJ scenes and --skybox (item 11), the naive and nee
-integrators and --show-weights (item 10), --devices above 1 (item 12).
+its ROADMAP item: OBJ scenes and --skybox (item 11), --devices above 1
+(item 12).
 
 Example:
     python -m tpu_restir_torch.cli --scene cornell --size 256x256 \
@@ -220,10 +220,6 @@ def _refuse_unported(a, cfg: RenderConfig) -> None:
     if a.skybox:
         raise NotImplementedError(
             "--skybox: environment maps are not ported yet (ROADMAP item 11)")
-    if cfg.integrator != "restir" or cfg.show_weights:
-        raise NotImplementedError(
-            "the naive and nee integrators and --show-weights are not "
-            "ported yet (ROADMAP item 10)")
     if cfg.n_devices > 1:
         raise NotImplementedError(
             "--devices above 1 is not ported yet (ROADMAP item 12)")

@@ -1,6 +1,7 @@
 """Differentiable rendering: loss and gradients w.r.t. material parameters
-(counterpart of `tpu_restir.diff.render`). The estimator uses fixed frame
-seeds (common random numbers), so render(params) is a deterministic,
+(counterpart of `tpu_restir.diff.render`), through the ReSTIR frame or
+the naive and NEE path tracers. The estimator uses fixed frame seeds
+(common random numbers), so render(params) is a deterministic,
 almost-everywhere-differentiable function of the parameters."""
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 
 from tpu_restir_torch import rng
 from tpu_restir_torch.diff.params import apply_params
+from tpu_restir_torch.render.integrators import render_naive, render_nee
 from tpu_restir_torch.render.integrators.restir.pipeline import (
     init_restir_state, restir_step)
 
@@ -29,18 +31,22 @@ def _detach(obj):
 
 def render_with_params(params: Dict[str, torch.Tensor], scene, cam, cfg,
                        seeds: Sequence[int]):
-    """Average of the ReSTIR frames rendered with the given frame seeds,
-    from a fresh state, as a differentiable function of the material
-    params. The inter-frame state is carried but detached: the estimator
-    differentiates each frame's shading and treats the reuse history as
-    data."""
-    if cfg.integrator != "restir":
-        raise NotImplementedError(
-            f"integrator {cfg.integrator!r} is not ported; only 'restir' is "
-            "(the naive and NEE path tracers are ROADMAP item 10)")
+    """Average of the frames rendered with the given frame seeds, as a
+    differentiable function of the material params. cfg.integrator picks
+    the pipeline: the naive or NEE path tracer (frame keys of cfg.seed and
+    each seed), or ReSTIR from a fresh state, its inter-frame state carried
+    but detached (the estimator differentiates each frame's shading and
+    treats the reuse history as data)."""
     scene_p = apply_params(scene, params)
     h, w = cfg.camera.height, cfg.camera.width
     dev = scene.tri_v.device
+    if cfg.integrator in ("naive", "nee"):
+        fn = render_naive if cfg.integrator == "naive" else render_nee
+        acc = torch.zeros((h, w, 3), device=dev)
+        for i, s in enumerate(seeds):
+            frame = fn(scene_p, cam, cfg, rng.frame_key(cfg.seed, s))
+            acc = acc + (frame - acc) / (i + 1.0)
+        return acc
     state = init_restir_state(h, w, dev)
     acc = torch.zeros((h, w, 3), device=dev)
     for i, s in enumerate(seeds):

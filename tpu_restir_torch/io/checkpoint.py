@@ -4,10 +4,13 @@
 The resumable state is the accumulator, the frame counters, the render
 time and the ReSTIR state (last frame's reservoirs and G-buffer), written
 with one np.savez under the JAX package's keys: `accumulator`, `acc_ctr`,
-`frame_ctr`, `render_time`, and `restir_0` ... `restir_{n-1}` with
-`restir_n`, the RestirState leaves in the JAX pytree's order (the
-dataclass fields depth first, in declaration order). So a checkpoint of
-either package resumes in the other. The port also writes `moment2`, the
+`frame_ctr`, `render_time`, and, for the ReSTIR integrator, `restir_0`
+... `restir_{n-1}` with `restir_n`, the RestirState leaves in the JAX
+pytree's order (the dataclass fields depth first, in declaration order).
+The naive and NEE path tracers hold no ReSTIR state: their checkpoints
+have no `restir_*` keys, and a renderer of theirs ignores those keys, as
+the JAX package does. So a checkpoint of either package resumes in the
+other. The port also writes `moment2`, the
 luminance second moment that guides the SVGF denoiser (the JAX package
 does not save it, so after its resume the variance estimate is 0 and the
 filter passes the image through); a checkpoint without it resumes with a
@@ -47,10 +50,11 @@ def save(renderer, path: str) -> None:
             "acc_ctr": np.asarray(renderer.acc_ctr),
             "frame_ctr": np.asarray(renderer.frame_ctr),
             "render_time": np.asarray(renderer.render_time)}
-    leaves = _leaves(renderer._restir_state)
-    for i, leaf in enumerate(leaves):
-        flat[f"restir_{i}"] = leaf.cpu().numpy()
-    flat["restir_n"] = np.asarray(len(leaves))
+    if renderer._restir_state is not None:
+        leaves = _leaves(renderer._restir_state)
+        for i, leaf in enumerate(leaves):
+            flat[f"restir_{i}"] = leaf.cpu().numpy()
+        flat["restir_n"] = np.asarray(len(leaves))
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savez(path, **flat)
 
@@ -73,7 +77,7 @@ def try_restore(renderer, path: str) -> bool:
         # resume wall-clock accounting from the saved total
         renderer._time_base = renderer.render_time
         renderer._t_reset = time.perf_counter()
-        if "restir_n" in data:
+        if renderer._restir_state is not None and "restir_n" in data:
             n = int(data["restir_n"])
             state = renderer._restir_state
             if n != len(_leaves(state)):

@@ -1,8 +1,9 @@
 """Vector math on tensors whose last axis is the 3-vector axis.
 
-The counterpart of `tpu_restir.mathx`, cut to what the ReSTIR frame
-calls. Three-term sums are written out left to right, the order in which
-XLA reduces a length-3 axis, so that the two packages round alike.
+The counterpart of `tpu_restir.mathx`, cut to what the ReSTIR frame and
+the naive and NEE path tracers call. Three-term sums are written out left
+to right, the order in which XLA reduces a length-3 axis, so that the two
+packages round alike.
 """
 
 from __future__ import annotations
@@ -132,6 +133,16 @@ def reflect(i, n):
     return i - 2.0 * dot1(n, i) * n
 
 
+def refract(i, n, eta):
+    """glm::refract; 0 on total internal reflection. eta: (...,) or a
+    scalar."""
+    eta = torch.as_tensor(eta, dtype=i.dtype, device=i.device)[..., None]
+    ndi = dot1(n, i)
+    k = 1.0 - eta * eta * (1.0 - ndi * ndi)
+    refr = eta * i - (eta * ndi + torch.sqrt(maximum(k, 0.0))) * n
+    return torch.where(k < 0.0, 0.0, refr)
+
+
 def orthogonal(v):
     """A vector orthogonal to v (reference Utils::orthogonal)."""
     x, y, z = v[..., 0], v[..., 1], v[..., 2]
@@ -158,6 +169,28 @@ def to_world(o1, o2, n, local):
 
 def max_component(v):
     return torch.amax(v, dim=-1)
+
+
+def power_heuristic(pdf, pdf_other):
+    """Power heuristic, beta = 2 (reference
+    pg/DirectMISIntegrator.cpp:10-15)."""
+    p2 = pdf * pdf
+    q2 = pdf_other * pdf_other
+    return torch.where(p2 + q2 > 0.0, p2 / (p2 + q2), 0.0)
+
+
+def schlick(incident, normal, ior1, ior2):
+    """Scalar Schlick approximation (reference Utils::schlickApprox)."""
+    f0 = ((ior1 - ior2) / (ior1 + ior2)) ** 2
+    cos_t = maximum(dot(-incident, normal), 0.0)
+    return f0 + (1.0 - f0) * (1.0 - cos_t) ** 5
+
+
+def schlick_f0(incident, normal, f0):
+    """Vector Schlick with an explicit F0 (reference
+    Utils::schlickApprox3)."""
+    cos_t = maximum(dot1(-incident, normal), 0.0)
+    return f0 + (1.0 - f0) * (1.0 - cos_t) ** 5
 
 
 def sanitize(radiance):

@@ -86,6 +86,19 @@ def generate_rays_at(cam: Camera, cfg: CameraConfig, frame_seed, ys, xs):
     return cam.pos.expand(d_w.shape), d_w
 
 
+def generate_rays(cam: Camera, cfg: CameraConfig, key):
+    """Whole-image rays of the path tracers: the pixel-jitter seed is one
+    randint of the frame key's jitter pass (on the host), then
+    generate_rays_at over the (H, W) grid."""
+    dev = cam.pos.device
+    ys, xs = torch.meshgrid(torch.arange(cfg.height, device=dev),
+                            torch.arange(cfg.width, device=dev),
+                            indexing="ij")
+    seed = rng.randint_scalar(rng.pass_key(key, rng.PASS_PIXEL_JITTER), 0,
+                              2 ** 31 - 1)
+    return generate_rays_at(cam, cfg, seed, ys, xs)
+
+
 def project_to_screen(cam_view_mat, focal, width, height, ws_pos):
     """World position -> integer pixel coords + validity, per the
     reference reprojection (pg/ReSTIRIntegrator.cpp:544-565). Invalid when

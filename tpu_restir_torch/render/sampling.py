@@ -1,6 +1,7 @@
 """Shaped Monte-Carlo samplers (counterpart of `tpu_restir.render.sampling`,
-cut to what the ReSTIR frame calls). Every draw is a function of given
-uniforms, so the tests feed both packages the same numbers."""
+cut to what the ReSTIR frame and the path tracers call). Every draw is a
+function of given uniforms; the key-based wrappers of the path tracers
+draw them from `rng.uniform`, the same numbers as `jax.random.uniform`."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import numpy as np
 import torch
 
 from tpu_restir_torch.config import PixelSamplerKind
-from tpu_restir_torch import mathx
+from tpu_restir_torch import mathx, rng
 
 _TWO_PI = 2.0 * math.pi
 
@@ -97,6 +98,11 @@ def cosine_hemisphere_from_uniforms(u, normal):
     return mathx.to_world(o1, o2, normal, local)
 
 
+def sample_cosine_hemisphere(key, normal):
+    return cosine_hemisphere_from_uniforms(
+        rng.uniform(key, normal.shape[:-1] + (2,), normal.device), normal)
+
+
 def pdf_cosine_hemisphere(normal, omega_i):
     """max(n.wi, 0)/pi (CosineWeightedDistribution::getPdf)."""
     return mathx.maximum(mathx.dot(normal, omega_i), 0.0) / math.pi
@@ -115,6 +121,12 @@ def cosine_lobe_from_uniforms(u, omega_r, gamma):
     local = mathx.normalize(local)
     o1, o2 = mathx.onb(omega_r)
     return mathx.to_world(o1, o2, omega_r, local)
+
+
+def sample_cosine_lobe(key, omega_r, gamma):
+    return cosine_lobe_from_uniforms(
+        rng.uniform(key, omega_r.shape[:-1] + (2,), omega_r.device),
+        omega_r, gamma)
 
 
 def pdf_cosine_lobe(omega_i, omega_r, gamma):

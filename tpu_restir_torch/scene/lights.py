@@ -9,7 +9,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpu_restir_torch import mathx
+from tpu_restir_torch import mathx, rng
 from tpu_restir_torch.render import sampling
 
 
@@ -75,6 +75,12 @@ def light_point_from_uniforms(u3, scene):
     return dict(point=point, normal=normal, l_i=r[..., 18:21],
                 pdf_area=pdf_for_any_light_point(scene, w.shape[:-1]),
                 tri=r[..., 21].to(torch.int32))
+
+
+def sample_light_point(key, scene, shape):
+    """light_point_from_uniforms of the draws of key at shape + (3,)."""
+    return light_point_from_uniforms(
+        rng.uniform(key, tuple(shape) + (3,), scene.tri_v.device), scene)
 
 
 def pdf_for_any_light_point(scene, shape):
