@@ -55,6 +55,22 @@ line is not printed:
      1080p mean; the weights stay in [0, 1] off the emitters; 64x32
      naive and NEE-MIS frames on cuda and cpu allclose on at least 99%
      of the pixels.
+     Then [demo], the demo asset (assets/demo: 78 triangles, all six Pc
+     material classes, diffuse, specular and normal maps, the env.pfm
+     sky) loaded on the card through the port's loader: 78 triangles
+     through K1/K2, three 64x64 textures, a valid light CDF; 4 ReSTIR
+     frames at 1920x1080 after a warm-up (the golden's flags: m_area 2,
+     m_brdf 1, temporal, 5-neighbour pairwise spatial, the sky), 29
+     traced rays per pixel, ms/frame, Mrays/s and K1/K2/K3 launches per
+     frame, and the textures and sky alone (CUDA events); one NEE-MIS
+     1080p frame; the CLI with the argv of tests/test_demo_asset.py on
+     cuda (mean within 2%, 4x4 region means within 0.04 of its golden,
+     decoded by the port's PNG reader) and on cpu (the [cross-device]
+     tolerance); value_and_grad at 64x32 on cuda and cpu w.r.t. the
+     demo's texels (one ReSTIR frame) and the TS panel's roughness (one
+     NEE-MIS frame of tests/test_diff_glossy.py's setup_ts scene); the
+     demo forced to the clustered backend, K5/K6 against their plain
+     versions on its 1080p queries.
   5. the same port at 64x32 for 4 frames on cuda and on cpu (plain
      versions): image means within 3 combined standard errors, fewer than
      1% of reservoirs holding a different sample.
@@ -87,7 +103,9 @@ line is not printed:
      terrain100k with and without the denoiser, and the SVGF temporal
      update and filter of one 1080p frame timed alone (CUDA events).
  12. one JSON line of kernel results (K1-K8; K5/K6 launches are those of
-     the two clustered paths, K7/K8's those of the Woop path), then
+     the two clustered paths, K7/K8's those of the Woop path; K1-K4 also
+     carry demo_launches, per demo ReSTIR frame and, for K4, per 64x32
+     texel step), then
      {"ok": true, "device": ...}.
 
 --profile=PATH also profiles two 1080p frames, one 1080p fwd+bwd step
@@ -1469,6 +1487,27 @@ _SIDECAR_KEYS = ["Image name:", "", "Iteration count:", "Area samples:",
                  "Camera vertical FOV:", "", "Pass times (ms):"]
 
 
+def cli_main(argv):
+    """`tpu_restir_torch.cli.main(argv)` in-process, which must return 0
+    -> the Renderer it made."""
+    from tpu_restir_torch import cli
+    from tpu_restir_torch import renderer as renderer_mod
+    made = []
+    base = renderer_mod.Renderer
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    renderer_mod.Renderer = Recorded
+    try:
+        require(cli.main(argv) == 0, f"cli.main failed: {' '.join(argv)}")
+    finally:
+        renderer_mod.Renderer = base
+    return made[-1]
+
+
 def phase_cli(dev, smi):
     """The CLI frame loop in-process: `cli.main` on terrain100k at
     1920x1080 (the bench's terrain camera, temporal and 5-neighbour
@@ -1480,16 +1519,7 @@ def phase_cli(dev, smi):
     finite and differ from the raw one."""
     import numpy as np
 
-    from tpu_restir_torch import cli
     from tpu_restir_torch import renderer as renderer_mod
-    made = []
-    base = renderer_mod.Renderer
-
-    class Recorded(base):
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            made.append(self)
-
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
         out = os.path.join(tmp, "terrain.png")
@@ -1498,16 +1528,11 @@ def phase_cli(dev, smi):
                 "--temporal", "--spatial", "--spatial-mis", "pairwise",
                 "--denoise", "--profile-passes", "--device", str(dev),
                 "--checkpoint", os.path.join(tmp, "ck"), "--out", out]
-        renderer_mod.Renderer = Recorded
-        try:
-            times = []
-            for frames in (CLI_FRAMES, CLI_RESUMED):
-                t0 = time.perf_counter()
-                require(cli.main(argv + ["--frames", str(frames)]) == 0,
-                        "cli.main failed")
-                times.append(time.perf_counter() - t0)
-        finally:
-            renderer_mod.Renderer = base
+        times = []
+        for frames in (CLI_FRAMES, CLI_RESUMED):
+            t0 = time.perf_counter()
+            r = cli_main(argv + ["--frames", str(frames)])
+            times.append(time.perf_counter() - t0)
         with open(out, "rb") as f:
             head = f.read(26)
         png_ok = (head[:8] == b"\x89PNG\r\n\x1a\n"
@@ -1519,7 +1544,6 @@ def phase_cli(dev, smi):
         iters = lines[2]
         passes = {ln.split(":")[0].strip(): float(ln.split(":")[1])
                   for ln in lines[len(_SIDECAR_KEYS):]}
-        r = made[-1]
         den = r.display()
         raw = renderer_mod.display_image(r.accumulator,
                                          r.cfg.params).cpu().numpy()
@@ -1587,6 +1611,402 @@ def phase_denoise_cost(dev, smi):
           f"cuda_ms of 5 runs): SVGF temporal update {update_ms:.3f} ms, SVGF "
           f"filter {filter_ms:.3f} ms (frame differences: update "
           f"{s1 - s0:.2f} ms, filter {d1 - d0:.2f} ms) ({smi})", flush=True)
+
+
+# the demo asset (assets/demo) and the golden of tests/test_demo_asset.py
+# (48x32, 4 frames, seed 123, ReSTIR temporal + pairwise spatial,
+# m_area 2, the env.pfm sky; 4x4 display-space region means)
+DEMO_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
+                        "demo")
+DEMO_VIEW = ((0.0, -6.0, 2.1), (0.0, 0.4, 0.7))
+DEMO_FRAMES = 4          # timed 1080p ReSTIR frames, after 1 warm-up
+DEMO_GOLDEN_MEAN = 0.536838
+DEMO_GOLDEN_REGIONS = [[0.7129, 0.5927, 0.5785, 0.7047],
+                       [0.6801, 0.5566, 0.5822, 0.6730],
+                       [0.3819, 0.3869, 0.4031, 0.4196],
+                       [0.3443, 0.4356, 0.4319, 0.3574]]
+DEMO_ARGV = ["--size", "48x32", "--fov", "50", "--view-from", "0,-6.0,2.1",
+             "--view-at", "0,0.4,0.7", "--frames", "4", "--temporal",
+             "--spatial", "--spatial-mis", "pairwise", "--m-area", "2"]
+# gradients on cuda against cpu: rtol 1e-3 of each entry plus 1e-3 of the
+# field's largest entry (as [grad cross-device]); the texel gradient's
+# backward is an atomic index_put_(accumulate=True) on CUDA, which sums
+# in another order than the CPU
+GRAD_TOL = (1e-3, 1e-3)
+
+
+def demo_scene(dev):
+    """assets/demo/demo.obj with env.pfm as its sky, on dev, through the
+    port's loader (clusters of 32, as the JAX package builds it)."""
+    import torch
+
+    from tpu_restir_torch.scene.envmap import load_hdr
+    from tpu_restir_torch.scene.objloader import load_obj_scene
+    scene = load_obj_scene(os.path.join(DEMO_DIR, "demo.obj"), dev)
+    return dataclasses.replace(scene, envmap=torch.tensor(
+        load_hdr(os.path.join(DEMO_DIR, "env.pfm")), device=dev))
+
+
+def demo_cfg(width, height, integrator="restir", backend="auto"):
+    """The demo golden's camera and ReSTIR flags with the sky; NEE-MIS
+    at 5 bounces for integrator "nee"."""
+    from tpu_restir_torch.config import (CameraConfig, IntersectorConfig,
+                                         RenderConfig, RenderParams,
+                                         RestirParams)
+    return RenderConfig(
+        camera=CameraConfig(width=width, height=height, fov_y_deg=50.0,
+                            view_from=DEMO_VIEW[0], view_at=DEMO_VIEW[1],
+                            pixel_sampler="random"),
+        params=RenderParams(use_skybox=True),
+        restir=RestirParams(m_area=2, m_brdf=1, do_temporal_reuse=True,
+                            do_spatial_reuse=True, spatial_neighbor_count=5,
+                            spatial_mis="pairwise"),
+        intersector=IntersectorConfig(backend=backend),
+        integrator=integrator, direct_strategy="mis")
+
+
+def ts_panel_scene(dev):
+    """The `setup_ts` scene of tests/test_diff_glossy.py: a checker-
+    textured floor, a Torrance-Sparrow panel (roughness 0.45) and an area
+    light -> (scene, camera view, fov)."""
+    import numpy as np
+
+    from tpu_restir_torch.scene.materials import MaterialSpec, MatType
+    from tpu_restir_torch.scene.scene import build_scene
+
+    def quad(*p):
+        p = [np.asarray(x, np.float32) for x in p]
+        return [np.stack([p[0], p[1], p[2]]), np.stack([p[0], p[2], p[3]])]
+
+    tris = (quad((-1, -1, 0), (1, -1, 0), (1, 1, 0), (-1, 1, 0))
+            + quad((-1, 1, 0), (1, 1, 0), (1, 1, 2), (-1, 1, 2))
+            + quad((-0.4, 0.4, 1.9), (0.4, 0.4, 1.9), (0.4, -0.4, 1.9),
+                   (-0.4, -0.4, 1.9)))
+    quv = [np.array([[0, 0], [1, 0], [1, 1]], np.float32),
+           np.array([[0, 0], [1, 1], [0, 1]], np.float32)]
+    checker = np.indices((8, 8)).sum(0) % 2
+    tex = (0.25 + 0.6 * checker)[..., None].repeat(3, -1).astype(np.float32)
+    specs = [MaterialSpec("floor", MatType.LAMBERT, diffuse=(0.6, 0.55, 0.5),
+                          tex_diffuse=0),
+             MaterialSpec("glossy", MatType.TS, diffuse=(0.25, 0.3, 0.45),
+                          specular=(0.4, 0.4, 0.4), shininess=60.0,
+                          roughness=0.45),
+             MaterialSpec("light", MatType.LAMBERT,
+                          diffuse=(0.78, 0.78, 0.78),
+                          emission=(14.0, 11.0, 6.0))]
+    scene = build_scene(np.stack(tris), np.array([0, 0, 1, 1, 2, 2]), specs,
+                        dev, vertex_uvs=np.stack(quv * 3),
+                        textures=tex[None])
+    return scene, ((0.0, -2.6, 1.0), (0.0, 0.0, 0.8)), 55.0
+
+
+def _demo_load(dev):
+    """Load the demo on dev and check it: 78 triangles through the fused
+    backend (K1/K2), three 64x64 textures, all six Pc classes, a valid
+    light CDF, the 32x64 HDR sky."""
+    import torch
+
+    from tpu_restir_torch.render import intersect
+    from tpu_restir_torch.scene.materials import MatType
+    t0 = time.perf_counter()
+    scene = demo_scene(dev)
+    secs = time.perf_counter() - t0
+    cfg = demo_cfg(WIDTH, HEIGHT)
+    backend = intersect._backend(scene, cfg.intersector)
+    classes = {MatType.NORMAL, MatType.LAMBERT, MatType.PHONG,
+               MatType.MIRROR, MatType.DIELECTRIC, MatType.TRANSPARENT}
+    tex = scene.textures
+    cdf = scene.lights.cdf
+    cdf_ok = bool(scene.lights.is_valid and float(cdf[-1]) == 1.0
+                  and bool((cdf[1:] >= cdf[:-1]).all()))
+    print(f"[demo] loaded assets/demo/demo.obj and env.pfm on {dev} in "
+          f"{secs:.2f} s: {scene.num_tris} triangles (clusters of "
+          f"{scene.cluster_size}), backend {backend}; {tex.num_textures} "
+          f"textures, sizes {tex.sizes.tolist()}; material classes "
+          f"{list(scene.materials.types_present)}; {scene.lights.count} "
+          f"emissive triangles, CDF valid {cdf_ok}; sky "
+          f"{tuple(scene.envmap.shape)}, peak {float(scene.envmap.max()):.3f}",
+          flush=True)
+    require(scene.num_tris == 78 and backend == "fused",
+            f"demo: {scene.num_tris} triangles through {backend}")
+    require(tex.num_textures == 3 and tex.sizes.tolist() == [[64, 64]] * 3,
+            f"demo: texture stack {tex.sizes.tolist()}")
+    require(classes <= set(scene.materials.types_present),
+            f"demo: material classes {scene.materials.types_present}")
+    require(cdf_ok, "demo: the light CDF is not valid")
+    require(tuple(scene.envmap.shape) == (32, 64, 3)
+            and float(scene.envmap.max()) > 5.0, "demo: the sky is wrong")
+    require(scene.envmap.device.type == torch.device(dev).type
+            and tex.data.device.type == torch.device(dev).type,
+            "demo: the sky or the textures are not on the device")
+    return scene
+
+
+def _demo_restir(dev, scene, smi):
+    """DEMO_FRAMES ReSTIR frames at 1080p after a warm-up: ms/frame,
+    Mrays/s at the analytic count, K1/K2/K3 launches per frame; every
+    query through the fused backend, no clustered kernel launched."""
+    import torch
+
+    from tpu_restir_torch import metrics
+    cfg = demo_cfg(WIDTH, HEIGHT)
+    renderer, img, dt, qlog = timed_frames(scene, cfg, dev, DEMO_FRAMES)
+    got = _launches()
+    rays = sum(e["rays"] for e in qlog)
+    rpp = rays / float(WIDTH * HEIGHT * DEMO_FRAMES)
+    analytic = metrics.rays_per_pixel(cfg)
+    backends = sorted({e["backend"] for e in qlog})
+    finite = bool(torch.isfinite(img).all())
+    mean = renderer.stats()[0]
+    path = {k: got[k] for k in ("closest_hit", "any_hit", "gather_local")}
+    per_frame = {k: v / DEMO_FRAMES for k, v in path.items()}
+    others = {k: v for k, v in got.items() if k not in path and v}
+    print(f"[demo] ReSTIR {WIDTH}x{HEIGHT} (m_area 2, m_brdf 1, temporal, "
+          f"5-neighbour pairwise spatial, sky), {DEMO_FRAMES} frames: "
+          f"{dt / DEMO_FRAMES * 1e3:.2f} ms/frame, {rays / dt / 1e6:.2f} "
+          f"Mrays/s at {analytic} rays/pixel ({smi}); traced rays/pixel "
+          f"{rpp} (analytic {analytic}); query backends {backends}; K1/K2/K3 "
+          f"launches per frame {per_frame}; image mean {mean:.6f}, finite "
+          f"{finite}", flush=True)
+    require(tuple(img.shape) == (HEIGHT, WIDTH, 3) and finite,
+            "demo: wrong shape or non-finite values")
+    require(analytic == 29 and rpp == float(analytic),
+            f"demo: traced {rpp} rays/pixel, analytic {analytic}")
+    require(backends == ["fused"], f"demo: queries went to {backends}")
+    require(all(v > 0 for v in path.values()),
+            f"demo: a kernel of the path never launched: {path}")
+    require(not others, f"demo: other kernels launched: {others}")
+    _demo_texture_cost(dev, scene, dt / DEMO_FRAMES * 1e3)
+    return path
+
+
+def _demo_texture_cost(dev, scene, frame_ms):
+    """The slice's own work alone, on the 1080p G-buffer's hit records
+    (CUDA events, cuda_ms of 5 runs): apply_textures and apply_normal_map
+    (4 sample_stack calls), and the sky lookup of every primary ray; its
+    share of the ReSTIR frame, which runs it once, beside."""
+    from tpu_restir_torch import rng
+    from tpu_restir_torch.render import camera as cam_mod
+    from tpu_restir_torch.render import intersect
+    from tpu_restir_torch.scene.envmap import sky_radiance
+    from tpu_restir_torch.scene.materials import (apply_normal_map,
+                                                  apply_textures,
+                                                  gather_materials)
+    cfg = demo_cfg(WIDTH, HEIGHT)
+    o, d = cam_mod.generate_rays(cam_mod.make_camera(cfg.camera, dev),
+                                 cfg.camera, rng.frame_key(0, 0))
+    hi = intersect.hit_attributes(scene, o, d, intersect.intersect_closest(
+        scene, o, d, cfg.params.tnear_offset, float("inf")))
+    m = gather_materials(scene.materials, hi.mat_id)
+
+    def textures():
+        mt = apply_textures(scene, m, hi.uv)
+        return apply_normal_map(scene, mt, hi.normal, hi.tangent, hi.uv)
+
+    tex_ms = cuda_ms(textures, 5)
+    sky_ms = cuda_ms(lambda: sky_radiance(scene, cfg.params, d), 5)
+    print(f"[demo] textures alone at {WIDTH}x{HEIGHT} (CUDA events, cuda_ms "
+          f"of 5 runs): apply_textures + apply_normal_map {tex_ms:.3f} ms, "
+          f"sky lookup {sky_ms:.3f} ms; together "
+          f"{(tex_ms + sky_ms) / frame_ms:.4f} of the {frame_ms:.2f} ms "
+          f"ReSTIR frame", flush=True)
+
+
+def _demo_nee(dev, scene, smi):
+    """One NEE-MIS 1080p frame after a warm-up: textures, the normal map
+    and the sky at every bounce."""
+    import torch
+    cfg = demo_cfg(WIDTH, HEIGHT, "nee")
+    renderer, img, dt, qlog = timed_frames(scene, cfg, dev, 1)
+    got = _launches()
+    rays = sum(e["rays"] for e in qlog)
+    rpp = rays / float(WIDTH * HEIGHT)
+    analytic = path_rays_per_pixel(cfg)
+    want = {f"{k}_hit": sum(1 for e in qlog if e["kind"] == k)
+            for k in ("closest", "any")}
+    finite = bool(torch.isfinite(img).all())
+    print(f"[demo] NEE-MIS {WIDTH}x{HEIGHT} (5 bounces, sky), 1 frame: "
+          f"{dt * 1e3:.2f} ms/frame, {rays / dt / 1e6:.2f} Mrays/s ({smi}); "
+          f"traced rays/pixel {rpp} (analytic {analytic}); launches "
+          f"{ {k: got[k] for k in want} } (logged queries {want}); image "
+          f"mean {renderer.stats()[0]:.6f}, finite {finite}", flush=True)
+    require(finite and tuple(img.shape) == (HEIGHT, WIDTH, 3),
+            "demo NEE-MIS: wrong shape or non-finite values")
+    require(rpp == float(analytic),
+            f"demo NEE-MIS: traced {rpp} rays/pixel, analytic {analytic}")
+    require(all(got[k] == v > 0 for k, v in want.items()),
+            f"demo NEE-MIS: launches {got}, logged queries {want}")
+
+
+def _demo_golden():
+    """The CLI with the demo golden's argv on cuda: the sidecar's mean
+    within 2% and the 4x4 display-space region means (the port's PNG
+    reader) within 0.04 of the golden; the same run on cpu: image means
+    within 3 combined standard errors and fewer than 1% of reservoirs
+    holding another sample (the [cross-device] tolerance), the share of
+    pixels allclose at PATH_TOL printed."""
+    import numpy as np
+    import torch
+
+    from tpu_restir_torch.io.png import read_png
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_demo_")
+    try:
+        out, runs = {}, {}
+        for device in ("cuda", "cpu"):
+            path = os.path.join(tmp, f"demo_{device}.png")
+            runs[device] = cli_main(
+                ["--scene", os.path.join(DEMO_DIR, "demo.obj")] + DEMO_ARGV
+                + ["--skybox", os.path.join(DEMO_DIR, "env.pfm"), "--device",
+                   device, "--out", path])
+            side = open(path + ".txt").read()
+            img = read_png(path)[..., :3].astype(np.float32) / 255.0
+            out[device] = (float(side.split("Image mean:")[1].split()[0]),
+                           img.reshape(4, 8, 4, 12, 3).mean(axis=(1, 3, 4)))
+        mean, reg = out["cuda"]
+        reg_err = float(np.abs(reg - np.asarray(DEMO_GOLDEN_REGIONS)).max())
+        acc = {d: r.accumulator.cpu() for d, r in runs.items()}
+        pix = {d: a.mean(-1) for d, a in acc.items()}
+        comb = math.hypot(*(float(p.std()) / p.numel() ** 0.5
+                            for p in pix.values()))
+        diff = abs(float(pix["cuda"].mean()) - float(pix["cpu"].mean()))
+        pts = {d: r._restir_state.res_prev.sample.point.cpu()
+               for d, r in runs.items()}
+        differ = float(((pts["cuda"] - pts["cpu"]).abs().amax(-1) > 1e-4)
+                       .float().mean())
+        close = float(torch.isclose(acc["cuda"], acc["cpu"], **PATH_TOL)
+                      .all(-1).float().mean())
+        print(f"[demo] golden: python -m tpu_restir_torch.cli --scene "
+              f"assets/demo/demo.obj {' '.join(DEMO_ARGV)} --skybox "
+              f"assets/demo/env.pfm --device cuda: image mean {mean:.6f} "
+              f"(golden {DEMO_GOLDEN_MEAN}, |rel diff| "
+              f"{abs(mean - DEMO_GOLDEN_MEAN) / DEMO_GOLDEN_MEAN:.4f}, "
+              f"allowed 0.02); 4x4 region means {np.round(reg, 4).tolist()}, "
+              f"max |diff| {reg_err:.4f} (allowed 0.04); --device cpu: mean "
+              f"{out['cpu'][0]:.6f}, accumulator means differ by {diff:.3g} "
+              f"(allowed 3 x {comb:.3g}), reservoirs with a different "
+              f"sample {differ:.4%} (allowed < 1%), pixels allclose "
+              f"(rtol {PATH_TOL['rtol']}, atol {PATH_TOL['atol']}) "
+              f"{close:.4%}", flush=True)
+        require(abs(mean - DEMO_GOLDEN_MEAN) < 0.02 * DEMO_GOLDEN_MEAN,
+                f"demo golden: mean {mean}")
+        require(reg_err <= 0.04, f"demo golden: region means {reg}")
+        require(diff <= 3 * comb, "demo golden: cuda and cpu means disagree")
+        require(differ < 0.01, "demo golden: cuda and cpu reservoirs "
+                "disagree")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _grad_pair(field):
+    """(loss, grads, launches) on cuda and cpu at 64x32: the texels
+    through one demo ReSTIR frame (seed 1), or roughness through one
+    NEE-MIS frame (2 bounces, seed 0) on the TS panel scene."""
+    import torch
+
+    from tpu_restir_torch.config import RenderParams
+    from tpu_restir_torch.diff.params import extract_params
+    from tpu_restir_torch.diff.render import make_value_and_grad
+    from tpu_restir_torch.render import camera as cam_mod
+    out = {}
+    for device in ("cuda", "cpu"):
+        dev = torch.device(device)
+        if field == "tex_data":
+            scene, cfg, seeds = demo_scene(dev), demo_cfg(SMALL_W,
+                                                          SMALL_H), (1,)
+        else:
+            scene, view, fov = ts_panel_scene(dev)
+            cfg = path_cfg(SMALL_W, SMALL_H, "nee", view,
+                           direct_strategy="mis")
+            cfg = cfg.replace(camera=dataclasses.replace(
+                cfg.camera, fov_y_deg=fov), params=RenderParams(
+                use_skybox=False, max_bounce_count=2))
+            seeds = (0,)
+        vg = make_value_and_grad(scene, cam_mod.make_camera(cfg.camera, dev),
+                                 cfg, seeds, torch.zeros(
+                                     (SMALL_H, SMALL_W, 3), device=dev))
+        _zero_launches()
+        loss, grads = vg(extract_params(scene, (field,)))
+        out[device] = (float(loss), grads[field].cpu(), _launches())
+    return out
+
+
+def _demo_grads():
+    """value_and_grad on cuda and on cpu, w.r.t. the demo's texels (one
+    ReSTIR frame) and the TS panel's roughness (one NEE-MIS frame):
+    finite, loss at rtol 1e-4, gradients within GRAD_TOL. Returns the
+    cuda launches of the texel step."""
+    import torch
+    launches = None
+    for field in ("tex_data", "roughness"):
+        out = _grad_pair(field)
+        (lc, gc, la), (lp, gp, _l) = out["cuda"], out["cpu"]
+        scale = float(gp.abs().max())
+        excess = float(((gc - gp).abs() - (GRAD_TOL[0] * gp.abs()
+                                           + GRAD_TOL[1] * scale)).max())
+        rel = float((gc - gp).abs().max()) / scale if scale else 0.0
+        nonzero = int((gp.abs() > 0).sum())
+        print(f"[demo] gradient cross-device {field} {SMALL_W}x{SMALL_H}: "
+              f"loss cuda {lc:.7f} cpu {lp:.7f}; {nonzero} nonzero entries "
+              f"of {gp.numel()}; max |cuda - cpu| / max |cpu| {rel:.3g}; "
+              f"within rtol {GRAD_TOL[0]} + {GRAD_TOL[1]} x field max: "
+              f"{excess <= 0.0} (worst excess {excess:.3g}); cuda launches "
+              f"{ {k: v for k, v in la.items() if v} }", flush=True)
+        require(bool(torch.isfinite(gc).all()) and nonzero > 0,
+                f"demo {field}: non-finite or all-zero gradient")
+        require(abs(lc - lp) <= 1e-4 * abs(lp),
+                f"demo {field}: cuda and cpu losses disagree")
+        require(excess <= 0.0, f"demo {field}: cuda and cpu gradients "
+                "disagree")
+        if field == "tex_data":
+            launches = la
+            require(all(la[k] > 0 for k in ("closest_hit", "any_hit",
+                                            "gather_local", "scatter_local")),
+                    f"demo {field}: a kernel of the step never launched: {la}")
+    return launches
+
+
+def _demo_forced_ptrace(dev):
+    """The demo forced to the clustered backend (3 clusters of 32): its
+    1080p G-buffer and shadow queries through K5/K6 against their plain
+    versions, 0 mismatches."""
+    import torch
+    scene = demo_scene(dev)
+    cfg = demo_cfg(WIDTH, HEIGHT, backend="ptrace")
+    closest_pk, any_pk = capture_packets(scene, cfg, dev)
+    res = []
+    for kind, pk in (("trace_closest", closest_pk), ("trace_any", any_pk)):
+        kernel, plain = _trace_fns(kind, scene)
+        got, want = kernel(pk), plain(pk)
+        if kind == "trace_closest":
+            mis = int((got[3] != want[3]).sum()) + sum(
+                int((g != w).sum()) for g, w in zip(got[:3], want[:3]))
+            what = f"{int((want[3] >= 0).sum())} hits"
+        else:
+            mis = int((got != want).sum())
+            what = f"{int(want.sum())} occluded"
+        res.append(f"{kind} {pk.n_rays} rays, {what}, mismatches {mis}")
+        require(mis == 0, f"demo ptrace {kind}: kernel and plain differ")
+    torch.cuda.synchronize()
+    print(f"[demo] forced ptrace (C={scene.cluster_tris.shape[0]} clusters "
+          f"of {scene.cluster_size}), K5/K6 against their plain versions: "
+          + "; ".join(res), flush=True)
+
+
+def phase_demo(dev, smi):
+    """The demo asset on the card: load and check it, time 1080p ReSTIR
+    and NEE-MIS frames, the CLI golden on cuda (and cpu), the texel and
+    roughness gradients across devices, and the demo forced through
+    K5/K6. Returns the K1-K4 launches: K1/K2/K3 of the ReSTIR frames,
+    per frame, and those of the 64x32 texel step."""
+    scene = _demo_load(dev)
+    path = _demo_restir(dev, scene, smi)
+    _demo_nee(dev, scene, smi)
+    _demo_golden()
+    step = _demo_grads()
+    _demo_forced_ptrace(dev)
+    out = {k: v // DEMO_FRAMES for k, v in path.items()}
+    out["scatter_local"] = step["scatter_local"]
+    return out
 
 
 def _counters():
@@ -1823,6 +2243,7 @@ def main():
     launches = phase_main_path(dev, small_mean, small_se, smi)
     phase_passes(dev)
     phase_integrators(dev, smi)
+    demo = phase_demo(dev, smi)
     launches.update(scatter_local=phase_fwd_bwd(dev, smi)["scatter_local"])
     phase_grad_small()
     phase_optimize(dev)
@@ -1876,7 +2297,8 @@ def main():
                 "launches": launches[k],
                 **{key: results[k][key] for key in keys},
                 **{key: results[k][key] for key in ("slab_live_share",)
-                   if key in results[k]}}
+                   if key in results[k]},
+                **({"demo_launches": demo[k]} if k in demo else {})}
                for k, (src, rep) in meta.items()]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -113,14 +113,27 @@ def test_cli_renders_exports_and_resumes(tmp_path):
     assert "Temporal reuse: True" in side
 
 
+_DEMO = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "assets", "demo")
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--scene", "assets/demo/none.obj"], "item 11"),
-    (["--skybox", "sky.hdr"], "item 11"),
+    (["--scene", os.path.join(_DEMO, "demo.obj")], "item 11"),
+    (["--skybox", os.path.join(_DEMO, "env.pfm")], "item 11"),
     (["--devices", "2"], "item 12")])
 def test_cli_refuses_what_is_not_ported(tmp_path, argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tcli.main(_SMALL + ["--frames", "1", "--out",
-                            str(tmp_path / "x.png")] + argv)
+    """--devices above 1 (ROADMAP item 12) raises; OBJ scenes and
+    --skybox (item 11), once refused, render."""
+    out = str(tmp_path / "x.png")
+    run = _SMALL + ["--frames", "1", "--out", out] + argv
+    if match == "item 12":
+        with pytest.raises(NotImplementedError, match=match):
+            tcli.main(run)
+        return
+    assert tcli.main(run + ["--bg", "0,0,0"]) == 0
+    side = open(out + ".txt").read()
+    mean = float(side.split("Image mean:")[1].split()[0])
+    assert np.isfinite(mean) and mean > 0.0
 
 
 def test_cli_device_cuda_needs_cuda(tmp_path):

@@ -978,3 +978,34 @@ def test_path_frame_cuda_matches_cpu(cuda, integrator, kw):
     assert torch.isfinite(imgs[0]).all()
     close = torch.isclose(imgs[0], imgs[1], rtol=1e-4, atol=1e-5).all(-1)
     assert float(close.float().mean()) >= 0.99, float(close.float().mean())
+
+
+def test_demo_frame_and_texel_gradient_cuda_match_cpu(cuda):
+    """The demo asset loaded on the card (78 triangles through K1/K2, its
+    texture stack and sky on the device): one 64x32 ReSTIR frame's loss and
+    its texel gradient against the CPU run, as chip_smoke's [demo] phase
+    holds them (loss at rtol 1e-4, gradients at rtol 1e-3 plus 1e-3 of the
+    largest entry: CUDA's index_put_ backward of the texel gathers sums
+    atomically, in another order than the CPU)."""
+    import chip_smoke
+    from tpu_restir_torch.diff.params import extract_params
+    from tpu_restir_torch.diff.render import make_value_and_grad
+    cfg = chip_smoke.demo_cfg(64, 32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        scene = chip_smoke.demo_scene(dev)
+        assert scene.textures.data.device.type == dev.type
+        assert scene.envmap.device.type == dev.type
+        before = ray_tri.LAUNCHES["closest_hit"]
+        vg = make_value_and_grad(scene, cam_mod.make_camera(cfg.camera, dev),
+                                 cfg, (1,), torch.zeros((32, 64, 3),
+                                                        device=dev))
+        loss, grads = vg(extract_params(scene, ("tex_data",)))
+        launched = ray_tri.LAUNCHES["closest_hit"] - before
+        assert (launched > 0) == (dev.type == "cuda"), launched
+        out[dev.type] = (float(loss), grads["tex_data"].cpu())
+    (lc, gc), (lp, gp) = out["cuda"], out["cpu"]
+    assert abs(lc - lp) <= 1e-4 * abs(lp)
+    assert torch.isfinite(gc).all() and (gp != 0).any()
+    scale = float(gp.abs().max())
+    assert bool(((gc - gp).abs() <= 1e-3 * gp.abs() + 1e-3 * scale).all())

@@ -46,6 +46,7 @@ from tpu_restir_torch.diff.render import (make_value_and_grad,
 from tpu_restir_torch.kernels import ray_tri as trt
 from tpu_restir_torch.render import camera as tcam
 from tpu_restir_torch.scene.cornell import cornell_box as t_cornell_box
+from tpu_restir_torch.scene.textures import build_texture_stack
 
 GLOSSY_VIEW = ((-0.2, -2.0, 1.9), (-0.35, 0.3, 1.0))
 
@@ -189,9 +190,21 @@ def test_apply_params_tie_gradients_match_jax():
 def test_params_fields_and_integrators_not_ported_raise():
     ts = t_cornell_box("cpu")
     assert set(DEFAULT_FIELDS) < set(ALL_FIELDS)
-    for f in ("roughness", "tex_data"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            extract_params(ts, (f,))
+    # roughness and the texels, once refused, extract and render; the
+    # texels need a texture stack
+    with pytest.raises(ValueError, match="no texture stack"):
+        extract_params(ts, ("tex_data",))
+    with pytest.raises(ValueError, match="unknown parameter field"):
+        extract_params(ts, ("albedo",))
+    textured = dataclasses.replace(ts, textures=build_texture_stack(
+        [np.full((4, 4, 3), 0.5, np.float32)], "cpu"))
+    p = extract_params(textured, ("roughness", "tex_data"))
+    assert p["tex_data"].shape == (1, 4, 4, 3)
+    assert p["roughness"].shape == (ts.materials.count,)
+    cfg = _cfg(tc, 8, 8, SMOOTH)
+    img = render_with_params(p, textured, tcam.make_camera(cfg.camera, "cpu"),
+                             cfg, (0,))
+    assert img.shape == (8, 8, 3) and torch.isfinite(img).all()
     # the naive and NEE path tracers, once refused, render
     cfg = _cfg(tc, 8, 8, SMOOTH).replace(integrator="nee")
     img = render_with_params(extract_params(ts), ts,

@@ -4,8 +4,9 @@ frames (with their threefry draws) and their gradient, takes its gradient
 w.r.t. the material table (`diff`), builds a clustered terrain and renders
 it through the clustered traversal (and a cluster-size-128 terrain through
 its Woop variant), runs the CLI with a denoised, profiled, checkpointed
-16x16 render, and neither JAX nor the JAX package (`tpu_restir`) may be
-loaded. It runs in a subprocess because the test
+16x16 render and with the demo asset and its sky, takes the demo's
+roughness and texel gradients, and neither JAX nor the JAX package
+(`tpu_restir`) may be loaded, nor an imaging package (PIL, imageio). It runs in a subprocess because the test
 session itself has JAX loaded (the root conftest configures it).
 
 The port keeps its own copy of the config dataclasses; the second test
@@ -83,9 +84,21 @@ assert cli.main(["--size", "16x16", "--frames", "2", "--temporal",
                  "--denoise", "--profile-passes", "--device", "cpu",
                  "--checkpoint", os.path.join(tmp, "ck"),
                  "--out", os.path.join(tmp, "cli.png")]) == 0
+assert cli.main(["--scene", "assets/demo/demo.obj", "--skybox",
+                 "assets/demo/env.pfm", "--size", "16x8", "--frames", "1",
+                 "--device", "cpu", "--out", os.path.join(tmp, "demo.png")]) == 0
+from tpu_restir_torch.scene.objloader import load_obj_scene
+demo = load_obj_scene("assets/demo/demo.obj", "cpu")
+loss, grads = render.make_value_and_grad(
+    demo, make_camera(cfg.camera, "cpu"), cfg, (1,),
+    torch.zeros((16, 16, 3)))(params.extract_params(
+        demo, ("roughness", "tex_data")))
+assert torch.isfinite(loss) and torch.isfinite(grads["tex_data"]).all()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "tpu_restir"))
 print("LOADED", bad)
+print("DECODERS", sorted(m for m in sys.modules
+                         if m.split(".")[0] in ("PIL", "imageio")))
 """
 
 
@@ -95,6 +108,8 @@ def test_port_imports_no_jax():
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+    # the demo's PNG textures and PFM sky load by the port's own readers
+    assert "DECODERS []" in out.stdout, out.stdout
 
 
 def _fields(cls):

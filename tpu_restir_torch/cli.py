@@ -5,14 +5,16 @@ Replaces the reference's interactive ImGui loop with a config/flag-driven
 batch renderer (SURVEY.md §5.6): every knob the reference exposes in its
 GUI is a flag here; output is the same PNG + sidecar pair. It renders on
 --device (default cuda, which must be present: there is no fallback to
-the CPU). What the port has not ported raises NotImplementedError naming
-its ROADMAP item: OBJ scenes and --skybox (item 11), --devices above 1
-(item 12).
+the CPU). --devices above 1 raises NotImplementedError (ROADMAP item 12).
 
-Example:
+Examples:
     python -m tpu_restir_torch.cli --scene cornell --size 256x256 \
         --temporal --spatial --spatial-mis pairwise --frames 64 \
         --out out/cornell.png
+    python -m tpu_restir_torch.cli --scene assets/demo/demo.obj \
+        --skybox assets/demo/env.pfm --fov 50 --view-from 0,-6.0,2.1 \
+        --view-at 0,0.4,0.7 --temporal --spatial --spatial-mis pairwise \
+        --m-area 2 --out out/demo.png
 """
 
 from __future__ import annotations
@@ -98,7 +100,7 @@ def _vec3(s):
 
 def load_scene(name: str, device):
     """A named scene on device: cornell, cornell-glossy, many-lights[:N],
-    terrain[:N_TRIS] or soup[:N_TRIS]."""
+    terrain[:N_TRIS] or soup[:N_TRIS]; any other name is an OBJ path."""
     from tpu_restir_torch.scene.cornell import cornell_box, many_lights_scene
 
     if name == "cornell":
@@ -118,8 +120,9 @@ def load_scene(name: str, device):
 
         n = int(name.split(":")[1]) if ":" in name else 10_000
         return triangle_soup(device, n)
-    raise NotImplementedError(
-        f"scene {name!r}: OBJ scenes are not ported yet (ROADMAP item 11)")
+    from tpu_restir_torch.scene.objloader import load_obj_scene
+
+    return load_obj_scene(name, device)
 
 
 def config_from_args(a, parser=None) -> RenderConfig:
@@ -216,10 +219,7 @@ def device_from_args(a) -> torch.device:
     return dev
 
 
-def _refuse_unported(a, cfg: RenderConfig) -> None:
-    if a.skybox:
-        raise NotImplementedError(
-            "--skybox: environment maps are not ported yet (ROADMAP item 11)")
+def _refuse_unported(cfg: RenderConfig) -> None:
     if cfg.n_devices > 1:
         raise NotImplementedError(
             "--devices above 1 is not ported yet (ROADMAP item 12)")
@@ -229,9 +229,16 @@ def main(argv=None) -> int:
     parser = build_parser()
     a = parser.parse_args(argv)
     cfg = config_from_args(a, parser)
-    _refuse_unported(a, cfg)
+    _refuse_unported(cfg)
     dev = device_from_args(a)
     scene = load_scene(a.scene, dev)
+    if a.skybox:
+        import dataclasses
+
+        from tpu_restir_torch.scene.envmap import load_hdr
+
+        scene = dataclasses.replace(scene, envmap=torch.tensor(
+            load_hdr(a.skybox), device=dev))
 
     from tpu_restir_torch.renderer import Renderer
 

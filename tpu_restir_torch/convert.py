@@ -23,11 +23,13 @@ from tpu_restir_torch.render.integrators.restir.reservoir import (
 from tpu_restir_torch.scene.lights import EmissiveCDF
 from tpu_restir_torch.scene.materials import MaterialTable
 from tpu_restir_torch.scene.scene import SceneArrays
+from tpu_restir_torch.scene.textures import TextureStack
 
 # dataclass fields that hold nested dataclasses
 _NESTED = {
     (SceneArrays, "materials"): MaterialTable,
     (SceneArrays, "lights"): EmissiveCDF,
+    (SceneArrays, "textures"): TextureStack,
     (Reservoir, "sample"): LightSample,
     (RestirState, "res_prev"): Reservoir,
     (RestirState, "gb_prev"): GBuffer,
@@ -39,7 +41,8 @@ def from_tree(cls, tree, device):
     A clustered scene's (C, B, 128) cluster blocks keep their first 9
     channels (v0, e1, e2), the port's (C, B, 9) layout, and its (C, 8, 384)
     Woop blocks their 4 meaningful rows, the port's (C, 4, 384); the JAX
-    scene's `bvh` has no field in the port and is not read."""
+    scene's `bvh` has no field in the port and is not read. A nested
+    field that is None (a scene without a texture stack) stays None."""
     kw = {}
     for f in dataclasses.fields(cls):
         v = getattr(tree, f.name)
@@ -49,7 +52,7 @@ def from_tree(cls, tree, device):
             v = np.asarray(v)[:, :4]
         sub = _NESTED.get((cls, f.name))
         if sub is not None:
-            kw[f.name] = from_tree(sub, v, device)
+            kw[f.name] = None if v is None else from_tree(sub, v, device)
         elif isinstance(v, (np.ndarray, np.generic)):
             kw[f.name] = torch.from_numpy(np.array(v)).to(device)
         else:

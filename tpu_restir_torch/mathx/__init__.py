@@ -79,6 +79,28 @@ def clip(x, lo: float, hi: float):
     return minimum(maximum(x, lo), hi)
 
 
+class _Recip(torch.autograd.Function):
+    """1/x whose backward is -(g r) r with r = 1/x: the forward of 1/x, and
+    a zero cotangent stays zero where r * r overflows float32 (autograd's
+    own -g r^2 is 0 * inf = NaN there, e.g. on the branch a where drops)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        r = torch.reciprocal(x)
+        ctx.save_for_backward(r)
+        return r
+
+    @staticmethod
+    def backward(ctx, g):
+        (r,) = ctx.saved_tensors
+        return -(g * r) * r
+
+
+def recip(x):
+    """1/x, with a backward that keeps a zero cotangent zero (`_Recip`)."""
+    return _Recip.apply(x)
+
+
 def bary_interp(rows, w):
     """Barycentric blend of three per-vertex k-vectors packed as (..., 3k)
     rows with weights w (..., 3), the vertex sum taken in order."""

@@ -70,7 +70,9 @@ class _IBetaX(torch.autograd.Function):
     def backward(ctx, g):
         x, a, b = ctx.saved_tensors
         dx = torch.exp((b - 1.0) * torch.log1p(-x) + (a - 1.0) * torch.log(x))
-        return g * dx, None, None
+        # dx is infinite at x = 1 (b = 1/2) and NaN at x = 0 for a = 1; a
+        # zero cotangent (a lane that a where or a clip drops) stays zero
+        return torch.where(g == 0.0, 0.0, g * dx), None, None
 
 
 def ibeta_nonnorm(x, a, b):

@@ -233,7 +233,9 @@ def _ts_eval(m, n, d, omega_i):
                         _INV_PI * a2 / mathx.maximum(inner * inner, 1e-20))
 
     def g_aux(dd):
-        frac = 1.0 / mathx.maximum(dd * dd, 1e-20) - 1.0
+        # 1/1e-20 squared overflows float32: mathx.recip keeps the backward
+        # finite where the TS branch is not selected (dd = 0)
+        frac = mathx.recip(mathx.maximum(dd * dd, 1e-20)) - 1.0
         return (torch.sqrt(1.0 + a2 * frac) - 1.0) * 0.5
 
     g = 1.0 / (1.0 + g_aux(m_dot_o) + g_aux(m_dot_i))

@@ -127,20 +127,48 @@ def gather_materials(table: MaterialTable, mat_id) -> MaterialTable:
         types_present=table.types_present)
 
 
-def _no_textures(scene):
-    if scene.textures is not None:
-        raise NotImplementedError(
-            "textured materials are not ported yet (ROADMAP item 11)")
-
-
 def apply_textures(scene, m: MaterialTable, uv) -> MaterialTable:
-    """Texture-backed material values at hit UVs; the identity without
-    textures (the only case ported)."""
-    _no_textures(scene)
-    return m
+    """Texture-backed material values at hit UVs: diffuse and specular
+    texels replace the flat colours, and the shininess slot stores
+    roughness, converted as s = 2/r^2 - 2 (reference
+    Material::getDiffuseColor/getSpecularColor/getShininess,
+    pg/material.cpp:105-133). The identity without a texture stack."""
+    if scene.textures is None:
+        return m
+    from tpu_restir_torch import mathx
+    from tpu_restir_torch.scene.textures import sample_stack
+
+    diffuse = sample_stack(scene.textures, m.tex_index[..., 0], uv,
+                           m.diffuse)
+    specular = sample_stack(scene.textures, m.tex_index[..., 1], uv,
+                            m.specular)
+    rough = sample_stack(scene.textures, m.tex_index[..., 2], uv,
+                         torch.zeros_like(m.diffuse))[..., 0]
+    shin_from_tex = 2.0 / mathx.maximum(rough * rough, 1e-6) - 2.0
+    shininess = torch.where(m.tex_index[..., 2] >= 0, shin_from_tex,
+                            m.shininess)
+    return dataclasses.replace(m, diffuse=diffuse, specular=specular,
+                               shininess=shininess)
 
 
 def apply_normal_map(scene, m: MaterialTable, normal, tangent, uv):
-    """Tangent-space normal mapping; the identity without textures."""
-    _no_textures(scene)
-    return normal
+    """Tangent-space normal mapping (reference Intersection.h:26-39): the
+    tangent orthogonalised against the shading normal, the TBN frame, and
+    the mapped normal where a normal map is assigned (not renormalised, as
+    in the JAX package). The identity without a texture stack."""
+    if scene.textures is None:
+        return normal
+    from tpu_restir_torch import mathx
+    from tpu_restir_torch.scene.textures import sample_stack
+
+    has_map = m.tex_index[..., 3] >= 0
+    flat = torch.tensor([0.5, 0.5, 1.0], device=normal.device)
+    texel = sample_stack(scene.textures, m.tex_index[..., 3], uv,
+                         flat.expand(normal.shape))
+    n_ts = texel * 2.0 - 1.0
+    t = tangent - mathx.dot1(tangent, normal) * normal
+    t = mathx.normalize(t)
+    b = mathx.normalize(mathx.cross(normal, t))
+    mapped = (n_ts[..., 0:1] * t + n_ts[..., 1:2] * b
+              + n_ts[..., 2:3] * normal)
+    return torch.where(has_map[..., None], mapped, normal)

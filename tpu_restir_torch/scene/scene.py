@@ -3,7 +3,8 @@
 attributes, per-triangle material ids, the emissive CDF, the Woop rows
 of the ray/triangle kernels and, for scenes above `cluster_size`
 triangles, the cluster blocks of the clustered traversal (and, at
-`cluster_size` 128, the Woop blocks of its Woop variant)."""
+`cluster_size` 128, the Woop blocks of its Woop variant); optionally the
+texture stack and the equirect environment map."""
 
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from tpu_restir_torch.kernels.woop import build_woop_matrices
 from tpu_restir_torch.scene.lights import EmissiveCDF, build_emissive_cdf
 from tpu_restir_torch.scene.materials import (MaterialSpec, MaterialTable,
                                               build_material_table)
+from tpu_restir_torch.scene.textures import TextureStack
 
 
 @dataclasses.dataclass
@@ -42,8 +44,8 @@ class SceneArrays:
     cluster_size: int = 0                        # B (0: not clustered)
     # (C, 4, 384) Woop blocks of K7/K8, built only at B = 128
     cluster_woop: Optional[torch.Tensor] = None
-    textures: Optional[torch.Tensor] = None
-    envmap: Optional[torch.Tensor] = None
+    textures: Optional[TextureStack] = None   # native-size padded stack
+    envmap: Optional[torch.Tensor] = None      # (He, We, 3) float32 equirect
 
     @property
     def num_tris(self) -> int:
@@ -55,8 +57,11 @@ def build_scene(vertices: np.ndarray, material_ids: np.ndarray,
                 vertex_normals: Optional[np.ndarray] = None,
                 vertex_uvs: Optional[np.ndarray] = None,
                 vertex_tangents: Optional[np.ndarray] = None,
+                textures=None, envmap: Optional[np.ndarray] = None,
                 cluster_size: int = 64) -> SceneArrays:
-    """Host-side build (numpy), then one copy to `device`. Scenes above
+    """Host-side build (numpy), then one copy to `device`. `textures` is
+    a TextureStack or a uniform (T, H, W, 3) image stack, `envmap` an
+    (He, We, 3) image; both go to `device`. Scenes above
     `cluster_size` triangles are put in BVH2 leaf order (every per-triangle
     array permuted alike) and get the cluster blocks of the clustered
     traversal (`kernels/cluster_trace.py`), as at
@@ -117,7 +122,25 @@ def build_scene(vertices: np.ndarray, material_ids: np.ndarray,
         cluster_max=None if cluster_max is None else dev(cluster_max),
         cluster_tris=None if cluster_tris is None else dev(cluster_tris),
         cluster_size=0 if cluster_min is None else cluster_size,
-        cluster_woop=None if cluster_woop is None else dev(cluster_woop))
+        cluster_woop=None if cluster_woop is None else dev(cluster_woop),
+        textures=_as_texture_stack(textures, device),
+        envmap=None if envmap is None else dev(envmap))
+
+
+def _as_texture_stack(textures, device) -> Optional[TextureStack]:
+    """A TextureStack (moved to device) or a uniform (T, H, W, 3) image
+    stack (every texture its full size, CLAMP), as
+    tpu_restir/scene/scene.py:160-169."""
+    if textures is None:
+        return None
+    if isinstance(textures, TextureStack):
+        return textures.to(device)
+    arr = np.asarray(textures, np.float32)
+    t, h, w = arr.shape[0], arr.shape[1], arr.shape[2]
+    return TextureStack(
+        data=torch.tensor(arr, device=device),
+        sizes=torch.tensor([[h, w]] * t, dtype=torch.int32, device=device),
+        modes=torch.zeros((t,), dtype=torch.int32, device=device))
 
 
 def build_clusters(v: np.ndarray, block: int):
