@@ -63,14 +63,19 @@ line is not printed:
      m_brdf 1, temporal, 5-neighbour pairwise spatial, the sky), 29
      traced rays per pixel, ms/frame, Mrays/s and K1/K2/K3 launches per
      frame, and the textures and sky alone (CUDA events); one NEE-MIS
-     1080p frame; the CLI with the argv of tests/test_demo_asset.py on
+     1080p frame; K1, K2 and K3 against their plain versions on one
+     demo frame's own G-buffer query, first shadow query and spatial
+     gather (ids, masks, t/u/v and taps bit-identical), as on Cornell;
+     the CLI with the argv of tests/test_demo_asset.py on
      cuda (mean within 2%, 4x4 region means within 0.04 of its golden,
      decoded by the port's PNG reader) and on cpu (the [cross-device]
      tolerance); value_and_grad at 64x32 on cuda and cpu w.r.t. the
      demo's texels (one ReSTIR frame) and the TS panel's roughness (one
-     NEE-MIS frame of tests/test_diff_glossy.py's setup_ts scene); the
-     demo forced to the clustered backend, K5/K6 against their plain
-     versions on its 1080p queries.
+     NEE-MIS frame of tests/test_diff_glossy.py's setup_ts scene), and
+     K4 against its plain versions on the cuda texel step's own
+     cotangents; beyond the demo's path, the demo forced to the
+     clustered backend, K5/K6 against their plain versions on its 1080p
+     queries.
   5. the same port at 64x32 for 4 frames on cuda and on cpu (plain
      versions): image means within 3 combined standard errors, fewer than
      1% of reservoirs holding a different sample.
@@ -120,6 +125,7 @@ The script imports nothing of JAX or of the JAX package (tpu_restir),
 and checks so at its end, after the CLI has exported.
 """
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -357,37 +363,97 @@ def _random_rays(gen, n, dev):
     return o, d / d.norm(dim=-1, keepdim=True)
 
 
-def capture_cornell_queries(scene, cfg, dev):
-    """The inputs of K2 and K3 on the main path, from one Cornell bench
-    frame: the first full-frame shadow query (o, d, tnear, tfar) and the
-    spatial pass's gather (payload, tys, txs, r)."""
+@contextlib.contextmanager
+def capture_first(module, name, keep, got):
+    """Wraps module.name for the block: the arguments of its first call
+    that `keep` accepts are cloned into got[name]."""
+    import torch
+    orig = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        if name not in got and keep(*args):
+            got[name] = tuple(a.detach().clone() if torch.is_tensor(a)
+                              else a for a in args)
+        return orig(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    try:
+        yield got
+    finally:
+        setattr(module, name, orig)
+
+
+def capture_queries(scene, cfg, dev):
+    """The inputs of K1, K2 and K3 on the main path, from one frame of
+    cfg: the first full-frame closest-hit query (the G-buffer's primary
+    rays) and shadow query, each (o, d, tnear, tfar), and the spatial
+    pass's gather (payload, tys, txs, r) -> dict keyed "closest_hit",
+    "any_hit", "gather_local"."""
     from tpu_restir_torch.kernels import local_gather as lg
     from tpu_restir_torch.kernels import ray_tri
     n = cfg.camera.width * cfg.camera.height
     k = cfg.restir.spatial_neighbor_count
     got = {}
-    orig_any, orig_gather = ray_tri.any_hit, lg.gather_local
-
-    def any_hit(sc, o, d, tn, tf):
-        if "any" not in got and o.shape[0] == n:
-            got["any"] = tuple(x.detach().clone() for x in (o, d, tn, tf))
-        return orig_any(sc, o, d, tn, tf)
-
-    def gather_local(payload, tys, txs, r, *args, **kwargs):
-        if "gather" not in got and tys.shape[0] == k:
-            got["gather"] = (payload.detach().clone(), tys.clone(),
-                             txs.clone(), r)
-        return orig_gather(payload, tys, txs, r, *args, **kwargs)
-
-    ray_tri.any_hit, lg.gather_local = any_hit, gather_local
-    try:
+    with capture_first(ray_tri, "closest_hit",
+                       lambda sc, o, *_: o.shape[0] == n, got), \
+            capture_first(ray_tri, "any_hit",
+                          lambda sc, o, *_: o.shape[0] == n, got), \
+            capture_first(lg, "gather_local",
+                          lambda payload, tys, *_: tys.shape[0] == k, got):
         run_frames(scene, cfg, dev, 1)
-    finally:
-        ray_tri.any_hit, lg.gather_local = orig_any, orig_gather
-    require(set(got) == {"any", "gather"},
-            f"a 1080p frame made no full-frame query of kind "
-            f"{ {'any', 'gather'} - set(got)}")
-    return got["any"], got["gather"]
+    want = {"closest_hit", "any_hit", "gather_local"}
+    require(set(got) == want, f"a {cfg.camera.width}x{cfg.camera.height} "
+            f"frame made no full-frame query of kind {want - set(got)}")
+    return {"closest_hit": got["closest_hit"][1:5],
+            "any_hit": got["any_hit"][1:5],
+            "gather_local": got["gather_local"][:4]}
+
+
+def recorder(results):
+    """record(name, err, ms, plain_ms, bnd, library_ms=None) into the
+    kernels line's entries: the largest error over a kernel's checks,
+    the times and bound of its first one."""
+    def record(name, err, ms, plain_ms, bnd, library_ms=None):
+        e = results.setdefault(name, {"max_abs_err": 0.0, "ms": ms,
+                                      "plain_ms": plain_ms,
+                                      "bound_ms": bnd[0], "bound_by": bnd[1],
+                                      "library_ms": library_ms})
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+    return record
+
+
+def check_closest(label, sc, o, d, tn, tf, record):
+    """K1 against closest_hit_ref on one query: 0 id mismatches, t/u/v
+    bit-identical; times and the bound of what the query needs."""
+    import torch
+
+    from tpu_restir_torch.kernels import ray_tri
+    w = ray_tri.woop_rows(sc)
+    got = ray_tri.closest_hit(sc, o, d, tn, tf)
+    want = ray_tri.closest_hit_ref(w, o, d, tn, tf)
+    torch.cuda.synchronize()
+    tri_mis = int((got[3] != want[3]).sum())
+    hit = want[3] >= 0
+    err = max(float((g[hit] - p[hit]).abs().max()) if hit.any() else 0.0
+              for g, p in zip(got[:3], want[:3]))
+    ms = cuda_ms(lambda: ray_tri.closest_hit(sc, o, d, tn, tf), 10)
+    plain = cuda_ms(lambda: ray_tri.closest_hit_ref(w, o, d, tn, tf), 3)
+    # for comparison, the whole test on every (live ray, triangle)
+    n_live = int((tf >= tn).sum())
+    n_bytes = o.shape[0] * (RAY_BYTES + 16) + w.shape[0] * 48
+    bnd = bound(n_bytes, int(ray_tri_ops(w, o, d, tn, tf).sum()))
+    whole = bound(n_bytes, n_live * w.shape[0] * WOOP_OPS)
+    print(f"[K1 closest_hit] {label}: {o.shape[0]} rays x "
+          f"{w.shape[0]} tris; tri mismatches {tri_mis} (must be 0); "
+          f"hits {int(hit.sum())}; max |t,u,v err| {err:.3g} "
+          f"(tolerance 0: bit-identical); kernel {ms:.3f} ms, plain "
+          f"{plain:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}; operations "
+          f"counted per (ray, row); {whole[0]:.3f} ms with the whole "
+          f"test on every pair), bound/kernel {bnd[0] / ms:.2f}",
+          flush=True)
+    require(tri_mis == 0, f"K1 {label}: triangle ids differ")
+    require(err == 0.0, f"K1 {label}: t/u/v differ by {err}")
+    record("closest_hit", err, ms, plain, bnd)
 
 
 def check_any(label, scene, o, d, tn, tf, record):
@@ -465,43 +531,7 @@ def phase_kernels(dev):
     cfg = bench_cfg(WIDTH, HEIGHT)
     n = WIDTH * HEIGHT
     results = {}
-
-    def record(name, err, ms, plain_ms, bnd, library_ms=None):
-        """Largest error over a kernel's checks; times and bound of its
-        first one."""
-        e = results.setdefault(name, {"max_abs_err": 0.0, "ms": ms,
-                                      "plain_ms": plain_ms,
-                                      "bound_ms": bnd[0], "bound_by": bnd[1],
-                                      "library_ms": library_ms})
-        e["max_abs_err"] = max(e["max_abs_err"], err)
-
-    def check_closest(label, sc, o, d, tn, tf):
-        w = ray_tri.woop_rows(sc)
-        got = ray_tri.closest_hit(sc, o, d, tn, tf)
-        want = ray_tri.closest_hit_ref(w, o, d, tn, tf)
-        torch.cuda.synchronize()
-        tri_mis = int((got[3] != want[3]).sum())
-        hit = want[3] >= 0
-        err = max(float((g[hit] - p[hit]).abs().max()) if hit.any() else 0.0
-                  for g, p in zip(got[:3], want[:3]))
-        ms = cuda_ms(lambda: ray_tri.closest_hit(sc, o, d, tn, tf), 10)
-        plain = cuda_ms(lambda: ray_tri.closest_hit_ref(w, o, d, tn, tf), 3)
-        # for comparison, the whole test on every (live ray, triangle)
-        n_live = int((tf >= tn).sum())
-        n_bytes = o.shape[0] * (RAY_BYTES + 16) + w.shape[0] * 48
-        bnd = bound(n_bytes, int(ray_tri_ops(w, o, d, tn, tf).sum()))
-        whole = bound(n_bytes, n_live * w.shape[0] * WOOP_OPS)
-        print(f"[K1 closest_hit] {label}: {o.shape[0]} rays x "
-              f"{w.shape[0]} tris; tri mismatches {tri_mis} (must be 0); "
-              f"hits {int(hit.sum())}; max |t,u,v err| {err:.3g} "
-              f"(tolerance 0: bit-identical); kernel {ms:.3f} ms, plain "
-              f"{plain:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}; operations "
-              f"counted per (ray, row); {whole[0]:.3f} ms with the whole "
-              f"test on every pair), bound/kernel {bnd[0] / ms:.2f}",
-              flush=True)
-        require(tri_mis == 0, f"K1 {label}: triangle ids differ")
-        require(err == 0.0, f"K1 {label}: t/u/v differ by {err}")
-        record("closest_hit", err, ms, plain, bnd)
+    record = recorder(results)
 
     # K1: primary rays of the bench camera, and the emissive subset
     ys, xs = torch.meshgrid(torch.arange(HEIGHT, device=dev),
@@ -513,13 +543,14 @@ def phase_kernels(dev):
     d = d.reshape(-1, 3).contiguous()
     tn = torch.full((n,), cfg.params.tnear_offset, device=dev)
     inf = torch.full((n,), float("inf"), device=dev)
-    check_closest("primary rays, 36 tris", scene, o, d, tn, inf)
+    check_closest("primary rays, 36 tris", scene, o, d, tn, inf,
+                  record)
     idx = scene.lights.tri_idx.long()
     sub = dataclasses.replace(scene, tri_v=scene.tri_v[idx],
                               woop=scene.woop[idx])
     ro, rd = _random_rays(gen, n, dev)
     check_closest("emissive subset, random rays, tfar=inf", sub, ro, rd, tn,
-                  inf)
+                  inf, record)
 
     # K2: random shadow segments; 10% zero-length (dead: tfar < tnear,
     # direction 0) as phat.py makes for pixels whose f is already 0; then
@@ -534,9 +565,10 @@ def phase_kernels(dev):
     dist = mathx.length(seg)
     sd = mathx.normalize(seg).contiguous()
     tf = (dist - cfg.params.tfar_offset).contiguous()
-    shadow, spatial = capture_cornell_queries(scene, cfg, dev)
+    frame = capture_queries(scene, cfg, dev)
     for label, rays in (("random shadow segments", (a, sd, tn, tf)),
-                        ("bench frame's first shadow query", shadow)):
+                        ("bench frame's first shadow query",
+                         frame["any_hit"])):
         check_any(label, scene, *rays, record)
 
     # K3: spatial taps (K=5, r=5, C=24 slim and C=32 full), temporal
@@ -554,7 +586,8 @@ def phase_kernels(dev):
                            ("temporal", 1, 8, 24), ("temporal pos", 1, 8, 3)):
         payload = torch.randn((HEIGHT, WIDTH, c), generator=gen, device=dev)
         check_gather(f"{label}, random taps", payload, *taps(k, r), r, record)
-    check_gather("bench frame's spatial pass", *spatial, record)
+    check_gather("bench frame's spatial pass", *frame["gather_local"],
+                 record)
 
     # K4: the backward of the spatial taps (K=5, r=5, disk_r2=30), taps
     # drawn from the pass's own disk-offset table and clamped to the screen
@@ -1628,23 +1661,21 @@ DEMO_GOLDEN_REGIONS = [[0.7129, 0.5927, 0.5785, 0.7047],
 DEMO_ARGV = ["--size", "48x32", "--fov", "50", "--view-from", "0,-6.0,2.1",
              "--view-at", "0,0.4,0.7", "--frames", "4", "--temporal",
              "--spatial", "--spatial-mis", "pairwise", "--m-area", "2"]
-# gradients on cuda against cpu: rtol 1e-3 of each entry plus 1e-3 of the
-# field's largest entry (as [grad cross-device]); the texel gradient's
-# backward is an atomic index_put_(accumulate=True) on CUDA, which sums
-# in another order than the CPU
-GRAD_TOL = (1e-3, 1e-3)
+# gradients on cuda against cpu: rtol 1e-4 of each entry plus 1e-5 of the
+# field's largest entry, about 25 times the largest gap read on an H100
+# (3.84e-07 of the largest entry, roughness; texels 1.59e-07): the texel
+# gradient's backward is an atomic index_put_(accumulate=True) on CUDA,
+# which sums in another order than the CPU
+GRAD_TOL = (1e-4, 1e-5)
 
 
 def demo_scene(dev):
     """assets/demo/demo.obj with env.pfm as its sky, on dev, through the
     port's loader (clusters of 32, as the JAX package builds it)."""
-    import torch
-
-    from tpu_restir_torch.scene.envmap import load_hdr
+    from tpu_restir_torch.scene.envmap import with_sky
     from tpu_restir_torch.scene.objloader import load_obj_scene
-    scene = load_obj_scene(os.path.join(DEMO_DIR, "demo.obj"), dev)
-    return dataclasses.replace(scene, envmap=torch.tensor(
-        load_hdr(os.path.join(DEMO_DIR, "env.pfm")), device=dev))
+    return with_sky(load_obj_scene(os.path.join(DEMO_DIR, "demo.obj"), dev),
+                    os.path.join(DEMO_DIR, "env.pfm"))
 
 
 def demo_cfg(width, height, integrator="restir", backend="auto"):
@@ -1900,12 +1931,14 @@ def _demo_golden():
 def _grad_pair(field):
     """(loss, grads, launches) on cuda and cpu at 64x32: the texels
     through one demo ReSTIR frame (seed 1), or roughness through one
-    NEE-MIS frame (2 bounces, seed 0) on the TS panel scene."""
+    NEE-MIS frame (2 bounces, seed 0) on the TS panel scene; for the
+    texels also the arguments of the cuda step's scatter_local (K4)."""
     import torch
 
     from tpu_restir_torch.config import RenderParams
     from tpu_restir_torch.diff.params import extract_params
     from tpu_restir_torch.diff.render import make_value_and_grad
+    from tpu_restir_torch.kernels import local_gather as lg
     from tpu_restir_torch.render import camera as cam_mod
     out = {}
     for device in ("cuda", "cpu"):
@@ -1924,17 +1957,22 @@ def _grad_pair(field):
         vg = make_value_and_grad(scene, cam_mod.make_camera(cfg.camera, dev),
                                  cfg, seeds, torch.zeros(
                                      (SMALL_H, SMALL_W, 3), device=dev))
-        _zero_launches()
-        loss, grads = vg(extract_params(scene, (field,)))
-        out[device] = (float(loss), grads[field].cpu(), _launches())
+        taps = {}
+        with capture_first(lg, "scatter_local", lambda *_: True, taps):
+            _zero_launches()
+            loss, grads = vg(extract_params(scene, (field,)))
+            out[device] = (float(loss), grads[field].cpu(), _launches())
+        if device == "cuda" and field == "tex_data":
+            out["scatter_local"] = taps["scatter_local"]
     return out
 
 
-def _demo_grads():
+def _demo_grads(record):
     """value_and_grad on cuda and on cpu, w.r.t. the demo's texels (one
     ReSTIR frame) and the TS panel's roughness (one NEE-MIS frame):
-    finite, loss at rtol 1e-4, gradients within GRAD_TOL. Returns the
-    cuda launches of the texel step."""
+    finite, loss at rtol 1e-4, gradients within GRAD_TOL; K4 held to its
+    plain versions on the texel step's own cotangents. Returns the cuda
+    launches of the texel step."""
     import torch
     launches = None
     for field in ("tex_data", "roughness"):
@@ -1962,13 +2000,59 @@ def _demo_grads():
             require(all(la[k] > 0 for k in ("closest_hit", "any_hit",
                                             "gather_local", "scatter_local")),
                     f"demo {field}: a kernel of the step never launched: {la}")
+            check_scatter("demo texel step's spatial taps",
+                          *out["scatter_local"], record)
     return launches
 
 
+def check_scatter(label, g, tys, txs, r, disk_r2, record):
+    """K4 against scatter_local_ref on one backward's own cotangents:
+    within 1e-5 (index_add_ sums in atomic order) and bit-identical to
+    the sum in the kernel's order; times and the bytes bound."""
+    import torch
+
+    from tpu_restir_torch.kernels import local_gather as lg
+    (k, h, w), c = tys.shape, g.shape[-1]
+    got = lg.scatter_local(g, tys, txs, r, disk_r2)
+    want = lg.scatter_local_ref(g, tys, txs)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ordered = bool(torch.equal(got, lg.scatter_local_ordered_ref(
+        g, tys, txs, r, disk_r2)))
+    ms = cuda_ms(lambda: lg.scatter_local(g, tys, txs, r, disk_r2), 10)
+    plain = cuda_ms(lambda: lg.scatter_local_ref(g, tys, txs), 10)
+    flat = (tys.long() * w + txs.long()).reshape(-1)
+    zero = torch.zeros((h * w, c), device=g.device)
+    src = g.reshape(-1, c)
+    library = cuda_ms(lambda: torch.index_add(zero, 0, flat, src), 10)
+    bnd = bound(4 * (k * h * w * c + 2 * k * h * w + h * w * c), 0)
+    print(f"[K4 scatter_local] {label}: K={k} r={r} disk_r2={disk_r2} "
+          f"C={c} at {h}x{w}; max |err| {err:.3g} (tolerance 1e-5), "
+          f"bit-identical to the sum in the kernel's order {ordered}; "
+          f"kernel {ms:.3f} ms, plain {plain:.3f} ms, PyTorch index_add "
+          f"{library:.3f} ms, bound {bnd[0]:.3g} ms ({bnd[1]})", flush=True)
+    require(err <= 1e-5, f"K4 {label}: max error {err}")
+    require(ordered, f"K4 {label}: differs from the sum in its order")
+    record("scatter_local", err, ms, plain, bnd, library)
+
+
+def _demo_kernels(dev, scene, record):
+    """K1, K2 and K3 held to their plain versions on the demo's own 1080p
+    queries under backend "auto" (the fused one): one ReSTIR frame's
+    G-buffer query and first shadow query against its 78 triangles (a
+    partial group of 4 rows), and its spatial pass's gather."""
+    q = capture_queries(scene, demo_cfg(WIDTH, HEIGHT), dev)
+    check_closest("demo frame's G-buffer query", scene, *q["closest_hit"],
+                  record)
+    check_any("demo frame's first shadow query", scene, *q["any_hit"],
+              record)
+    check_gather("demo frame's spatial pass", *q["gather_local"], record)
+
+
 def _demo_forced_ptrace(dev):
-    """The demo forced to the clustered backend (3 clusters of 32): its
-    1080p G-buffer and shadow queries through K5/K6 against their plain
-    versions, 0 mismatches."""
+    """Beyond the demo's path: the demo forced to the clustered backend
+    (3 clusters of 32), its 1080p G-buffer and shadow queries through
+    K5/K6 against their plain versions, 0 mismatches."""
     import torch
     scene = demo_scene(dev)
     cfg = demo_cfg(WIDTH, HEIGHT, backend="ptrace")
@@ -1992,17 +2076,20 @@ def _demo_forced_ptrace(dev):
           + "; ".join(res), flush=True)
 
 
-def phase_demo(dev, smi):
+def phase_demo(dev, smi, results):
     """The demo asset on the card: load and check it, time 1080p ReSTIR
-    and NEE-MIS frames, the CLI golden on cuda (and cpu), the texel and
-    roughness gradients across devices, and the demo forced through
-    K5/K6. Returns the K1-K4 launches: K1/K2/K3 of the ReSTIR frames,
-    per frame, and those of the 64x32 texel step."""
+    and NEE-MIS frames, hold K1-K4 to their plain versions on the demo's
+    own queries (errors folded into `results`), the CLI golden on cuda
+    (and cpu), the texel and roughness gradients across devices, and the
+    demo forced through K5/K6. Returns the K1-K4 launches: K1/K2/K3 of
+    the ReSTIR frames, per frame, and those of the 64x32 texel step."""
+    record = recorder(results)
     scene = _demo_load(dev)
     path = _demo_restir(dev, scene, smi)
     _demo_nee(dev, scene, smi)
+    _demo_kernels(dev, scene, record)
     _demo_golden()
-    step = _demo_grads()
+    step = _demo_grads(record)
     _demo_forced_ptrace(dev)
     out = {k: v // DEMO_FRAMES for k, v in path.items()}
     out["scatter_local"] = step["scatter_local"]
@@ -2243,7 +2330,7 @@ def main():
     launches = phase_main_path(dev, small_mean, small_se, smi)
     phase_passes(dev)
     phase_integrators(dev, smi)
-    demo = phase_demo(dev, smi)
+    demo = phase_demo(dev, smi, results)
     launches.update(scatter_local=phase_fwd_bwd(dev, smi)["scatter_local"])
     phase_grad_small()
     phase_optimize(dev)

@@ -60,7 +60,7 @@ from tpu_restir_torch.render.integrators import render_nee
 from tpu_restir_torch.render.integrators.restir import gbuffer as tgb
 from tpu_restir_torch.render.integrators.restir import pipeline as tpipe
 from tpu_restir_torch.scene import objloader as tobj
-from tpu_restir_torch.scene.envmap import load_hdr
+from tpu_restir_torch.scene.envmap import with_sky
 from tpu_restir_torch.scene.materials import MatType
 from tpu_restir_torch.scene.scene import SceneArrays
 
@@ -145,8 +145,7 @@ def _assert_same_arrays(ts, js):
 @pytest.fixture(scope="module")
 def demo():
     js = j_load(OBJ).replace(envmap=jnp.asarray(j_load_hdr(ENV)))
-    ts = dataclasses.replace(tobj.load_obj_scene(OBJ, "cpu"),
-                             envmap=torch.from_numpy(load_hdr(ENV)))
+    ts = with_sky(tobj.load_obj_scene(OBJ, "cpu"), ENV)
     return js, ts
 
 
@@ -241,7 +240,8 @@ def test_undecodable_texture_raises(tmp_path, monkeypatch):
     (tmp_path / "wood.jpg").write_bytes(b"\xff\xd8\xff")
     path = _write_scene(tmp_path, "map_Kd wood.jpg\n")
     assert j_load(path).textures is None          # the JAX package drops it
-    monkeypatch.setitem(sys.modules, "PIL", None)
+    for mod in ("imageio", "imageio.v2", "PIL", "PIL.Image"):
+        monkeypatch.setitem(sys.modules, mod, None)
     with pytest.raises(RuntimeError, match="wood.jpg: no decoder"):
         tobj.load_obj_scene(path, "cpu")
     (tmp_path / "odd.png").write_bytes(b"\x89PNG\r\n\x1a\n")

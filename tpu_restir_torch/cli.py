@@ -233,12 +233,9 @@ def main(argv=None) -> int:
     dev = device_from_args(a)
     scene = load_scene(a.scene, dev)
     if a.skybox:
-        import dataclasses
+        from tpu_restir_torch.scene.envmap import with_sky
 
-        from tpu_restir_torch.scene.envmap import load_hdr
-
-        scene = dataclasses.replace(scene, envmap=torch.tensor(
-            load_hdr(a.skybox), device=dev))
+        scene = with_sky(scene, a.skybox)
 
     from tpu_restir_torch.renderer import Renderer
 

@@ -11,6 +11,7 @@ map is loaded or use_skybox is off.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -36,39 +37,22 @@ def sky_radiance(scene, params, d):
 
 def load_hdr(path: str) -> np.ndarray:
     """An HDR/EXR/PFM/PNG environment image as (H, W, 3) float32 on the
-    host. PFM (the demo asset's format) and PNG (byte values 0-255, as
-    imageio gives them) are read natively; other formats go through
-    imageio, else PIL, whichever is installed. Without either, it raises:
-    the sky is never replaced by a flat colour."""
-    low = path.lower()
-    if low.endswith(".pfm"):
+    host. PFM (the demo asset's format) is read here, PNG (byte values
+    0-255, as imageio gives them) and the rest by `io.image.read_image`,
+    which raises where no decoder is installed: the sky is never replaced
+    by a flat colour."""
+    if path.lower().endswith(".pfm"):
         return read_pfm(path)
-    if low.endswith(".png"):
-        from tpu_restir_torch.io.png import read_png_rgb
+    from tpu_restir_torch.io.image import read_image
 
-        return read_png_rgb(path).astype(np.float32)
-    img = _decode_other(path)
-    if img.ndim == 2:
-        img = np.repeat(img[..., None], 3, -1)
-    return img[..., :3]
+    return read_image(path).astype(np.float32)
 
 
-def _decode_other(path: str) -> np.ndarray:
-    try:
-        import imageio.v2 as imageio
-    except ImportError:
-        imageio = None
-    if imageio is not None:
-        return np.asarray(imageio.imread(path), np.float32)
-    try:
-        from PIL import Image
-    except ImportError:
-        raise RuntimeError(
-            f"{path}: no decoder for this format is installed (the port "
-            "reads .pfm itself; other formats need imageio or PIL)") \
-            from None
-    with Image.open(path) as im:
-        return np.asarray(im, np.float32)
+def with_sky(scene, path: str):
+    """scene with the environment image at path as its sky (`envmap`),
+    on the scene's device."""
+    return dataclasses.replace(scene, envmap=torch.tensor(
+        load_hdr(path), device=scene.tri_v.device))
 
 
 def read_pfm(path: str) -> np.ndarray:

@@ -11,8 +11,8 @@ shininess, normal), per-face tangents from UVs, and the emissive
 triangles of the light CDF (built by build_scene). Without a Pc key the
 class is Phong when Ks > 0, else Lambert.
 
-PNG textures are decoded by the port's own reader (`io.png`); other LDR
-formats need PIL, and .hdr/.exr imageio or PIL. A texture whose file does
+PNG textures are decoded by the port's own reader (`io.png`); other
+formats need imageio or PIL (`io.image`). A texture whose file does
 not exist is dropped from its slot, as in the JAX package; a texture that
 exists but cannot be decoded (no decoder installed, or a layout the
 reader does not take) raises, where the JAX package drops it too.
@@ -40,23 +40,6 @@ def _expand_np(c):
                     np.power((c + 0.055) / 1.055, 2.4)).astype(np.float32)
 
 
-def _decode_ldr(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 of an LDR image: PNG by the port's reader, other
-    formats by PIL when it is installed."""
-    if path.lower().endswith(".png"):
-        from tpu_restir_torch.io.png import read_png_rgb
-
-        return read_png_rgb(path)
-    try:
-        from PIL import Image
-    except ImportError:
-        raise RuntimeError(
-            f"{path}: no decoder for this texture format is installed (the "
-            "port reads PNG itself; other formats need PIL)") from None
-    with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"))
-
-
 def _load_image(path: str, srgb: bool) -> Optional[np.ndarray]:
     """LDR as float in [0, 1] (sRGB-expanded like the reference's gamma
     handling); HDR formats as linear float without the expand (the
@@ -68,7 +51,9 @@ def _load_image(path: str, srgb: bool) -> Optional[np.ndarray]:
         from tpu_restir_torch.scene.envmap import load_hdr
 
         return load_hdr(path)
-    img = _decode_ldr(path).astype(np.float32) / 255.0
+    from tpu_restir_torch.io.image import read_image
+
+    img = read_image(path).astype(np.float32) / 255.0
     if srgb:
         img = _expand_np(img)
     return img
