@@ -107,10 +107,31 @@ line is not printed:
      that differs from the raw one; then ms/frame of the bench frame on
      terrain100k with and without the denoiser, and the SVGF temporal
      update and filter of one 1080p frame timed alone (CUDA events).
- 12. one JSON line of kernel results (K1-K8; K5/K6 launches are those of
+ 12. [dist], row-sharded rendering (tpu_restir_torch.dist): the kernels
+     built first, DIST_RANKS = 2 ranks spawned on the one card under gloo
+     (NCCL refuses two ranks on one device), which stages every buffer
+     through host memory; 3 sharded Cornell bench frames at 1920x1080
+     (540-row shards, halo 7 at radius 30), the launch counts zeroed
+     before them and read after (K1, K2, K3 each launched on each rank),
+     equal bit for bit to the one-device frames on the same card; on
+     each rank's own queries of those frames, the ranks in turn, K1 (its
+     G-buffer query), K2 (its first shadow query), K3 at top = halo (its
+     spatial payload and taps) and K3 on its first temporal tap into the
+     halo-extended payload, each bit-identical to its plain version; a
+     sharded fwd+bwd
+     step against the one-device step (loss rtol 1e-5, gradients rtol
+     2e-4 and atol 1e-6, as tests/test_sharded_diff.py); the all-gather
+     fallback at 64x8 (4-row shards) and one lights1k frame (its shards
+     unswizzled) equal to one device, with K5/K6 held to their plain
+     versions on each rank's own packets of it; the backend, the bytes sent
+     and staged a frame a rank, ms/frame a rank and of one device, and the
+     fwd+bwd step's ms, labelled as ranks sharing one card, not a scaling
+     figure; the CLI with --devices 2 where the machine has two cards.
+ 13. one JSON line of kernel results (K1-K8; K5/K6 launches are those of
      the two clustered paths, K7/K8's those of the Woop path; K1-K4 also
      carry demo_launches, per demo ReSTIR frame and, for K4, per 64x32
-     texel step), then
+     texel step; every kernel dist_launches, rank 0's over the 3 sharded
+     frames, and K3 dist_ms, its time at top = halo on rank 0), then
      {"ok": true, "device": ...}.
 
 --profile=PATH also profiles two 1080p frames, one 1080p fwd+bwd step
@@ -132,6 +153,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import statistics
 import struct
 import subprocess
@@ -333,14 +355,9 @@ def phase_build():
     """The four CUDA libraries (one nvcc each, all started together) and
     the host BVH builder of the clustered scenes (g++)."""
     from tpu_restir_torch.accel import bvh
-    from tpu_restir_torch.kernels import build, cluster_trace, local_gather
-    from tpu_restir_torch.kernels import ray_tri
+    from tpu_restir_torch.kernels import build
     t0 = time.perf_counter()
-    build.load_all([("ray_tri", ray_tri._SIGNATURES, ray_tri.FLAGS),
-                    ("local_gather", local_gather._SIGNATURES, ()),
-                    ("local_scatter", local_gather._SCATTER_SIGNATURES, ()),
-                    ("cluster_trace", cluster_trace._SIGNATURES,
-                     cluster_trace.FLAGS)])
+    build.load_kernels()
     total = time.perf_counter() - t0
     t1 = time.perf_counter()
     bvh._lib()
@@ -489,14 +506,15 @@ def check_any(label, scene, o, d, tn, tf, record):
            plain, bnd)
 
 
-def check_gather(label, payload, ty, tx, r, record):
+def check_gather(label, payload, ty, tx, r, record, top=0):
     """K3 against gather_local_ref: bit-identical; kernel, plain and
-    PyTorch-indexing times and the bytes bound."""
+    PyTorch-indexing times and the bytes bound. top: the payload row of
+    output row 0 (halo rows above a rank's strip)."""
     import torch
 
     from tpu_restir_torch.kernels import local_gather as lg
     (k, h, w), c = ty.shape, payload.shape[-1]
-    got = lg.gather_local(payload, ty, tx, r)
+    got = lg.gather_local(payload, ty, tx, r, top=top)
     want = lg.gather_local_ref(payload, ty, tx)
     torch.cuda.synchronize()
     equal = bool(torch.equal(got, want))
@@ -505,11 +523,12 @@ def check_gather(label, payload, ty, tx, r, record):
     tyl, txl = ty.long(), tx.long()
     ms, library, plain = (
         cuda_ms(fn, 10) for fn in (
-            lambda: lg.gather_local(payload, ty, tx, r),
+            lambda: lg.gather_local(payload, ty, tx, r, top=top),
             lambda: payload[tyl, txl],
             lambda: lg.gather_local_ref(payload, ty, tx)))
     bnd = bound(4 * (payload.numel() + 2 * k * h * w + k * h * w * c), 0)
-    print(f"[K3 gather_local] {label}: K={k} r={r} C={c} at {h}x{w}; "
+    print(f"[K3 gather_local] {label}: K={k} r={r} top={top} C={c} "
+          f"at {h}x{w} of {payload.shape[0]} payload rows; "
           f"bit-identical {equal}; kernel {ms:.3f} ms, PyTorch indexing "
           f"{library:.3f} ms, plain {plain:.3f} ms, bound {bnd[0]:.3f} ms "
           f"({bnd[1]}), kernel/bound {ms / bnd[0]:.2f}", flush=True)
@@ -680,16 +699,15 @@ def large_scene(label, dev):
     return _SCENES[key]
 
 
-def capture_packets(scene, cfg, dev):
-    """The packed rays of two queries of one bench frame: the first
-    closest-hit query (the G-buffer's primary rays) and the first any-hit
-    query of a whole frame (the area candidate's shadow rays); under
-    ptrace_mxu those of the Woop kernels' wrappers."""
+@contextlib.contextmanager
+def packets_of(n, mxu, got):
+    """Wraps the clustered kernels' wrappers for the block: the packed
+    rays of the first closest-hit and the first any-hit query of n rays
+    into got["closest"] and got["any"]; with mxu, those of the Woop
+    kernels' wrappers."""
     from tpu_restir_torch.kernels import cluster_trace as ct
-    n = cfg.camera.width * cfg.camera.height
-    got = {}
     names = {"closest": "closest_packets", "any": "any_packets"}
-    if cfg.intersector.ptrace_mxu:
+    if mxu:
         names = {k: v + "_mxu" for k, v in names.items()}
     orig = {k: getattr(ct, v) for k, v in names.items()}
 
@@ -704,10 +722,21 @@ def capture_packets(scene, cfg, dev):
     for kind, name in names.items():
         setattr(ct, name, recorder(kind))
     try:
-        run_frames(scene, cfg, dev, 1)
+        yield got
     finally:
         for kind, name in names.items():
             setattr(ct, name, orig[kind])
+
+
+def capture_packets(scene, cfg, dev):
+    """The packed rays of two queries of one bench frame: the first
+    closest-hit query (the G-buffer's primary rays) and the first any-hit
+    query of a whole frame (the area candidate's shadow rays); under
+    ptrace_mxu those of the Woop kernels' wrappers."""
+    got = {}
+    with packets_of(cfg.camera.width * cfg.camera.height,
+                    cfg.intersector.ptrace_mxu, got):
+        run_frames(scene, cfg, dev, 1)
     require(set(got) == {"closest", "any"},
             f"a 1080p frame made no full-frame query of kind "
             f"{ {'closest', 'any'} - set(got)}")
@@ -2049,14 +2078,11 @@ def _demo_kernels(dev, scene, record):
     check_gather("demo frame's spatial pass", *q["gather_local"], record)
 
 
-def _demo_forced_ptrace(dev):
-    """Beyond the demo's path: the demo forced to the clustered backend
-    (3 clusters of 32), its 1080p G-buffer and shadow queries through
-    K5/K6 against their plain versions, 0 mismatches."""
+def hold_packets(label, scene, closest_pk, any_pk):
+    """K5 and K6 against their plain versions on the packets of a
+    G-buffer query and a shadow query: 0 mismatches (ids, t/u/v and masks
+    bit for bit) -> a summary of each query."""
     import torch
-    scene = demo_scene(dev)
-    cfg = demo_cfg(WIDTH, HEIGHT, backend="ptrace")
-    closest_pk, any_pk = capture_packets(scene, cfg, dev)
     res = []
     for kind, pk in (("trace_closest", closest_pk), ("trace_any", any_pk)):
         kernel, plain = _trace_fns(kind, scene)
@@ -2069,8 +2095,19 @@ def _demo_forced_ptrace(dev):
             mis = int((got != want).sum())
             what = f"{int(want.sum())} occluded"
         res.append(f"{kind} {pk.n_rays} rays, {what}, mismatches {mis}")
-        require(mis == 0, f"demo ptrace {kind}: kernel and plain differ")
+        require(mis == 0, f"{label} {kind}: kernel and plain differ")
     torch.cuda.synchronize()
+    return res
+
+
+def _demo_forced_ptrace(dev):
+    """Beyond the demo's path: the demo forced to the clustered backend
+    (3 clusters of 32), its 1080p G-buffer and shadow queries through
+    K5/K6 against their plain versions, 0 mismatches."""
+    scene = demo_scene(dev)
+    cfg = demo_cfg(WIDTH, HEIGHT, backend="ptrace")
+    res = hold_packets("demo ptrace", scene,
+                       *capture_packets(scene, cfg, dev))
     print(f"[demo] forced ptrace (C={scene.cluster_tris.shape[0]} clusters "
           f"of {scene.cluster_size}), K5/K6 against their plain versions: "
           + "; ".join(res), flush=True)
@@ -2317,6 +2354,327 @@ def phase_profile(dev, path):
                  f"{root}_{label}{ext}")
 
 
+DIST_RANKS = 2    # ranks of the [dist] phase, sharing cuda:0 under gloo
+DIST_SIZE = (1920, 1080)
+DIST_FRAMES = 3   # sharded bench frames; the first is the warm-up
+DIST_FALLBACK = (64, 8)   # 4-row shards: halo 7 takes the all-gather
+
+
+def _dist_rank(rank, n, port, outdir):
+    """One rank of the [dist] phase: joins the gloo group over localhost,
+    renders on cuda:0 and writes what it measured to outdir."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    # a collective that waits longer than this raises on every rank
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=n,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        out = _dist_checks(torch.device("cuda:0"))
+        with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_checks(dev):
+    """The [dist] phase on one rank: DIST_FRAMES sharded Cornell bench
+    frames at 1080p (launch counts zeroed before, read after), held on
+    rank 0 to the one-device frames bit for bit; K1, K2 and K3 (its
+    spatial gather at top = halo, its temporal tap of the extended
+    payload) against their plain versions on the rank's own queries of
+    those frames; a sharded fwd+bwd step against the one-device step; the
+    all-gather fallback at DIST_FALLBACK; one lights1k frame against one
+    device, and K5/K6 against their plain versions on the rank's own
+    packets of it. The ranks share the card, so they run the kernel
+    checks in turn."""
+    import torch
+
+    from tpu_restir_torch import cornell_box, rng
+    from tpu_restir_torch.diff.params import extract_params
+    from tpu_restir_torch.diff.render import make_value_and_grad
+    from tpu_restir_torch.dist import mesh as mesh_mod
+    from tpu_restir_torch.dist.diff import make_sharded_value_and_grad
+    from tpu_restir_torch.dist.halo import halo_width
+    from tpu_restir_torch.dist.sharded import (gather_full,
+                                               make_sharded_restir_step)
+    from tpu_restir_torch.kernels import local_gather as lg
+    from tpu_restir_torch.kernels import ray_tri
+    from tpu_restir_torch.render import camera as cam_mod
+    from tpu_restir_torch.render.integrators.restir.pipeline import (
+        init_restir_state, restir_step)
+
+    mesh = mesh_mod.make_mesh(DIST_RANKS, "tiles", dev)
+    root = mesh.rank == 0
+    out = {"rank": mesh.rank, "backend": mesh.backend,
+           "staged": mesh.staged}
+
+    def frames(scene, cfg, n, key, timed=False, capture=None):
+        """n frames of cfg sharded over the mesh, the launch counts zeroed
+        before them and read after them into out[key] (capture(f): None,
+        or a block that captures kernel inputs in frame f; with timed, ms
+        and bytes sent and staged a frame), then on rank 0 the one-device
+        frames (with timed, their ms) -> on rank 0, whether they are all
+        equal."""
+        cam = cam_mod.make_camera(cfg.camera, dev)
+        step = make_sharded_restir_step(mesh, cfg)
+        h, w = cfg.camera.height, cfg.camera.width
+        state = init_restir_state(h // mesh.size, w, dev)
+        mine, ms, sent, staged = [], [], [], []
+        _zero_launches()
+        for f in range(n):
+            s0 = dict(mesh.stats)
+            mesh_mod.barrier(mesh)
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            with (capture and capture(f)) or contextlib.nullcontext():
+                frame, state = step(scene, cam, rng.make_frame_seed(0, f),
+                                    state, f)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+            sent.append(mesh.stats["sent_bytes"] - s0["sent_bytes"])
+            staged.append(mesh.stats["staged_bytes"] - s0["staged_bytes"])
+            mine.append(frame)
+        out[key] = _launches()
+        if timed:
+            out.update(ms=ms, sent_bytes=sent, staged_bytes=staged)
+        full = [gather_full(fr, mesh) for fr in mine]
+        if not root:
+            mesh_mod.barrier(mesh)
+            return None
+        state = init_restir_state(h, w, dev)
+        equal, one_ms = True, []
+        for f in range(n):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            frame, state = restir_step(scene, cam, cfg,
+                                       rng.make_frame_seed(0, f), state, f)
+            b.record()
+            torch.cuda.synchronize()
+            one_ms.append(a.elapsed_time(b))
+            equal &= bool(torch.equal(frame, full[f]))
+        if timed:
+            out["one_ms"] = one_ms
+        mesh_mod.barrier(mesh)
+        return equal
+
+    scene = cornell_box(dev)
+    cfg = bench_cfg(*DIST_SIZE).replace(n_devices=DIST_RANKS)
+    halo = halo_width(cfg.restir.spatial_reuse_radius)
+    n_local = DIST_SIZE[0] * DIST_SIZE[1] // mesh.size
+    k = cfg.restir.spatial_neighbor_count
+    got, got_t = {}, {}
+
+    def capture(f):
+        """Frame 0: this rank's G-buffer query, first shadow query and
+        spatial gather; frame 1 (a real previous G-buffer): the first
+        temporal tap, K = 1 into the halo-extended payload."""
+        if f == 0:
+            stack = contextlib.ExitStack()
+            for name, mod, keep in (
+                    ("closest_hit", ray_tri,
+                     lambda sc, o, *_: o.shape[0] == n_local),
+                    ("any_hit", ray_tri,
+                     lambda sc, o, *_: o.shape[0] == n_local),
+                    ("gather_local", lg,
+                     lambda p, tys, *_: tys.shape[0] == k)):
+                stack.enter_context(capture_first(mod, name, keep, got))
+            return stack
+        if f == 1:
+            return capture_first(
+                lg, "gather_local",
+                lambda p, tys, *_: tys.shape[0] == 1
+                and p.shape[0] != tys.shape[1], got_t)
+        return None
+
+    out["frames_equal"] = frames(scene, cfg, DIST_FRAMES, "launches",
+                                 timed=True, capture=capture)
+    require({"closest_hit", "any_hit", "gather_local"} <= set(got)
+            and "gather_local" in got_t,
+            f"rank {mesh.rank}: a sharded frame made no query of kind "
+            f"{ {'closest_hit', 'any_hit', 'gather_local'} - set(got)} "
+            f"(temporal tap captured: {'gather_local' in got_t})")
+    # K1, K2 and K3 on this rank's own queries, the ranks in turn (they
+    # share the card)
+    held = {}
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            what = f"rank {mesh.rank}, sharded bench frame"
+            check_closest(f"{what}'s G-buffer query", scene,
+                          *got["closest_hit"][1:5], recorder(held))
+            check_any(f"{what}'s first shadow query", scene,
+                      *got["any_hit"][1:5], recorder(held))
+            check_gather(f"{what}'s halo-extended spatial strip",
+                         *got["gather_local"][:4], recorder(held), top=halo)
+            payload, tys, txs, r = got_t["gather_local"][:4]
+            check_gather(f"{what}'s temporal tap of the extended payload",
+                         payload, tys, txs, r,
+                         recorder(held.setdefault("temporal", {})))
+        mesh_mod.barrier(mesh)
+    out["k1"], out["k2"], out["k3"] = (held[x] for x in (
+        "closest_hit", "any_hit", "gather_local"))
+    out["k3_temporal"] = held["temporal"]["gather_local"]
+    del got, got_t, payload, tys, txs
+
+    # the sharded fwd+bwd step against the one-device step
+    cam = cam_mod.make_camera(cfg.camera, dev)
+    target = torch.zeros((DIST_SIZE[1], DIST_SIZE[0], 3), device=dev)
+    vg = make_sharded_value_and_grad(scene, cam, cfg, (1,), target, mesh)
+    vg(extract_params(scene))   # warm-up
+    _zero_launches()
+    mesh_mod.barrier(mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = vg(extract_params(scene))
+    torch.cuda.synchronize()
+    out["step_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["step_launches"] = _launches()
+    mesh_mod.barrier(mesh)
+    if root:
+        vg1 = make_value_and_grad(scene, cam, cfg, (1,), target)
+        vg1(extract_params(scene))   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss1, g1 = vg1(extract_params(scene))
+        torch.cuda.synchronize()
+        out["one_step_ms"] = 1e3 * (time.perf_counter() - t0)
+        ok = bool(torch.allclose(loss, loss1, rtol=1e-5, atol=0.0))
+        err = {}
+        for key, g in g1.items():
+            ok &= bool(torch.allclose(grads[key], g, rtol=2e-4, atol=1e-6))
+            err[key] = float((grads[key] - g).abs().max())
+        out.update(grads_ok=ok, loss=float(loss), loss1=float(loss1),
+                   grad_err=err)
+    del grads
+    mesh_mod.barrier(mesh)
+
+    # the all-gather fallback: halo 7 above 4-row shards
+    small = bench_cfg(*DIST_FALLBACK).replace(n_devices=DIST_RANKS)
+    out["fallback_equal"] = frames(scene, small, DIST_FRAMES,
+                                   "fallback_launches")
+
+    # beyond the path: one lights1k frame through K5/K6, which are held
+    # to their plain versions on this rank's own packets of it
+    big, view = large_scene("lights1k", dev)
+    pks = {}
+    out["lights_equal"] = frames(
+        big, bench_cfg(*DIST_SIZE, view).replace(n_devices=DIST_RANKS), 1,
+        "lights_launches",
+        capture=lambda f: packets_of(n_local, False, pks))
+    require(set(pks) == {"closest", "any"}, f"rank {mesh.rank}: the "
+            f"lights1k shard made no query of kind "
+            f"{ {'closest', 'any'} - set(pks)}")
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            out["lights_k56"] = hold_packets(
+                f"[dist] rank {mesh.rank} lights1k shard", big,
+                pks["closest"], pks["any"])
+        mesh_mod.barrier(mesh)
+    return out
+
+
+def phase_dist(dev, name, smi):
+    """[dist]: DIST_RANKS ranks sharing the one card under gloo (the
+    kernels built before they start), the checks of _dist_checks, and the
+    CLI with --devices 2 where the machine has two cards -> rank 0's
+    launch counts over its sharded frames and its K3 entry."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from tpu_restir_torch.dist.halo import halo_width
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as outdir:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        mp.start_processes(_dist_rank, args=(DIST_RANKS, port, outdir),
+                           nprocs=DIST_RANKS, start_method="spawn")
+        ranks = []
+        for r in range(DIST_RANKS):
+            with open(os.path.join(outdir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    r0 = ranks[0]
+    cfg = bench_cfg(*DIST_SIZE)
+    halo = halo_width(cfg.restir.spatial_reuse_radius)
+    h = DIST_SIZE[1]
+    print(f"[dist] {DIST_RANKS} ranks sharing one card ({name}; {smi}), "
+          f"backend {r0['backend']}, strips staged through host memory: "
+          f"{r0['staged']}; Cornell bench config at {DIST_SIZE[0]}x{h}, "
+          f"{h} rows in shards of {h // DIST_RANKS}, halo {halo} rows "
+          f"(radius {cfg.restir.spatial_reuse_radius})", flush=True)
+    for r in ranks:
+        for what, e in (("K1 on its G-buffer query", r["k1"]),
+                        ("K2 on its first shadow query", r["k2"]),
+                        (f"K3 at top = {halo} on its spatial payload",
+                         r["k3"]),
+                        ("K3 on its temporal tap of the extended payload",
+                         r["k3_temporal"])):
+            lib = (f", PyTorch indexing {e['library_ms']:.3f} ms"
+                   if e["library_ms"] is not None else "")
+            print(f"[dist] rank {r['rank']}: {what}, bit-identical to its "
+                  f"plain version: kernel {e['ms']:.3f} ms, plain "
+                  f"{e['plain_ms']:.3f} ms{lib}, bound {e['bound_ms']:.3f} "
+                  f"ms ({e['bound_by']})", flush=True)
+        print(f"[dist] rank {r['rank']}: K5/K6 on its lights1k shard "
+              f"packets against their plain versions: "
+              + "; ".join(r["lights_k56"]), flush=True)
+    for r in ranks:
+        print(f"[dist] rank {r['rank']}: halo and gather bytes sent a "
+              f"frame {r['sent_bytes'][1:]}, bytes staged a frame "
+              f"{r['staged_bytes'][1:]}; ms/frame "
+              f"{[round(x, 3) for x in r['ms']]} (the first is the "
+              f"warm-up); fwd+bwd step {r['step_ms']:.1f} ms (after a "
+              f"warm-up); launches over {DIST_FRAMES} frames "
+              f"{r['launches']}, over the step {r['step_launches']}",
+              flush=True)
+    print(f"[dist] one device on the same card: ms/frame "
+          f"{[round(x, 3) for x in r0['one_ms']]}, fwd+bwd step "
+          f"{r0['one_step_ms']:.1f} ms. Two ranks sharing one card: a "
+          "check of exactness and the exchange, not a scaling figure",
+          flush=True)
+    print(f"[dist] frames equal to one device: {r0['frames_equal']}; "
+          f"fwd+bwd loss {r0['loss']:.9g} against {r0['loss1']:.9g}, "
+          f"gradients within rtol 2e-4 + 1e-6: {r0['grads_ok']} (largest "
+          f"differences {r0['grad_err']}); all-gather fallback at "
+          f"{DIST_FALLBACK[0]}x{DIST_FALLBACK[1]} equal: "
+          f"{r0['fallback_equal']}; lights1k frame equal: "
+          f"{r0['lights_equal']} (its {h // DIST_RANKS}-row shards go "
+          f"unswizzled where the rows are not a multiple of 8: exact and "
+          f"only slower; K5/K6 launches "
+          f"{r0['lights_launches']['trace_closest']}/"
+          f"{r0['lights_launches']['trace_any']})", flush=True)
+    require(r0["frames_equal"], "[dist] sharded frames differ from one device")
+    require(r0["grads_ok"], "[dist] sharded gradients differ")
+    require(r0["fallback_equal"], "[dist] the all-gather fallback differs")
+    require(r0["lights_equal"], "[dist] the sharded lights1k frame differs")
+    for r in ranks:
+        for key in ("closest_hit", "any_hit", "gather_local"):
+            require(r["launches"][key] > 0,
+                    f"[dist] rank {r['rank']} never launched {key}")
+        require(r["lights_launches"]["trace_closest"] > 0
+                and r["lights_launches"]["trace_any"] > 0,
+                f"[dist] rank {r['rank']}: lights1k bypassed K5/K6")
+    if torch.cuda.device_count() >= 2:
+        with tempfile.TemporaryDirectory() as tmp:
+            cli_main(["--devices", "2", "--size", "64x32", "--temporal",
+                      "--spatial", "--spatial-mis", "pairwise", "--frames",
+                      "2", "--out", os.path.join(tmp, "two.png")])
+            require(os.path.exists(os.path.join(tmp, "two.png")),
+                    "[dist] the CLI with --devices 2 wrote no image")
+        print("[dist] CLI --devices 2 on two cards: ran", flush=True)
+    else:
+        print(f"[dist] CLI --devices 2: not run ({torch.cuda.device_count()} "
+              "card; it needs two)", flush=True)
+    print(f"[dist] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return r0
+
+
 def main():
     import torch  # noqa: F401  (fails here without PyTorch)
 
@@ -2349,6 +2707,7 @@ def main():
         launches[key] = got[key]
     phase_cli(dev, smi)
     phase_denoise_cost(dev, smi)
+    dist = phase_dist(dev, name, smi)
     profile = [a.split("=", 1)[1] for a in sys.argv[1:]
                if a.startswith("--profile=")]
     if profile:
@@ -2385,7 +2744,10 @@ def main():
                 **{key: results[k][key] for key in keys},
                 **{key: results[k][key] for key in ("slab_live_share",)
                    if key in results[k]},
-                **({"demo_launches": demo[k]} if k in demo else {})}
+                **({"demo_launches": demo[k]} if k in demo else {}),
+                "dist_launches": dist["launches"][k],
+                **({"dist_ms": dist["k3"]["ms"]}
+                   if k == "gather_local" else {})}
                for k, (src, rep) in meta.items()]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -122,14 +122,10 @@ _DEMO = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     (["--skybox", os.path.join(_DEMO, "env.pfm")], "item 11"),
     (["--devices", "2"], "item 12")])
 def test_cli_refuses_what_is_not_ported(tmp_path, argv, match):
-    """--devices above 1 (ROADMAP item 12) raises; OBJ scenes and
-    --skybox (item 11), once refused, render."""
+    """OBJ scenes and --skybox (item 11) and --devices 2 (item 12, two
+    ranks spawned on the CPU), once refused, render."""
     out = str(tmp_path / "x.png")
     run = _SMALL + ["--frames", "1", "--out", out] + argv
-    if match == "item 12":
-        with pytest.raises(NotImplementedError, match=match):
-            tcli.main(run)
-        return
     assert tcli.main(run + ["--bg", "0,0,0"]) == 0
     side = open(out + ".txt").read()
     mean = float(side.split("Image mean:")[1].split()[0])

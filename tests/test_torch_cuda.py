@@ -445,6 +445,74 @@ def test_gather_local_backward_launches_k4(cuda):
     assert torch.equal(payload.grad, lg.scatter_local_ref(gi, tys, txs))
 
 
+def test_gather_local_at_top_halo_on_a_sharded_spatial_payload(cuda):
+    """K3 at top = halo, as a rank of a row-sharded frame launches it: the
+    spatial pass of rank 1 of 4 at 64x64 (16-row shards, radius 30: halo
+    7), given the halo-extended G-buffer and reservoirs that extend_rows
+    delivers (rows 9 to 39 of the one-device buffers), gives that rank's
+    rows of the one-device pass bit for bit, and its gather equals
+    gather_local_ref on the captured payload and taps bit for bit."""
+    from tpu_restir_torch import rng
+    from tpu_restir_torch.render.integrators.restir import gbuffer as gb_mod
+    from tpu_restir_torch.render.integrators.restir.initial import (
+        initial_pass)
+    from tpu_restir_torch.render.integrators.restir.pipeline import (
+        map_pixels)
+    from tpu_restir_torch.render.integrators.restir.spatial import (
+        spatial_pass)
+
+    h = w = 64
+    lh, halo, row0 = 16, 7, 16
+    cfg = RenderConfig(
+        camera=CameraConfig(width=w, height=h, pixel_sampler="random",
+                            view_from=(0.0, -3.9, 1.0),
+                            view_at=(0.0, 0.0, 1.0)),
+        params=RenderParams(use_skybox=False),
+        restir=RestirParams(do_spatial_reuse=True, spatial_mis="pairwise",
+                            spatial_neighbor_count=5))
+    scene = cornell_box(cuda)
+    cam = cam_mod.make_camera(cfg.camera, cuda)
+    seed = rng.make_frame_seed(0, 0)
+    ys = torch.arange(h, dtype=torch.int32, device=cuda)[:, None] \
+        .expand(h, w)
+    xs = torch.arange(w, dtype=torch.int32, device=cuda)[None, :] \
+        .expand(h, w)
+    gb = gb_mod.gbuffer_fill(scene, cam, cfg, seed, ys, xs)
+    res = initial_pass(seed, scene, gb, cfg, ys, xs)
+    want = spatial_pass(seed, 0, scene, gb, res, cfg, ys, xs)
+
+    def rows(obj, sl):
+        return map_pixels(obj, lambda ts: [t[sl] for t in ts])
+
+    own, ext = slice(row0, row0 + lh), slice(row0 - halo, row0 + lh + halo)
+    calls = []
+    orig = lg.gather_local
+
+    def spy(payload, tys, txs, r, top=0, disk_r2=None):
+        calls.append((payload, tys, txs, r, top))
+        return orig(payload, tys, txs, r, top=top, disk_r2=disk_r2)
+
+    lg.gather_local = spy
+    try:
+        before = lg.LAUNCHES["gather_local"]
+        got = spatial_pass(seed, 0, scene, rows(gb, own), rows(res, own),
+                           cfg, ys[own], xs[own], gb_ext=rows(gb, ext),
+                           res_ext=rows(res, ext), ext_row0=row0 - halo,
+                           ext_top=halo)
+        assert lg.LAUNCHES["gather_local"] == before + 1
+    finally:
+        lg.gather_local = orig
+    got_t, want_t = [], []
+    map_pixels(got, lambda ts: got_t.extend(ts) or ts)
+    map_pixels(rows(want, own), lambda ts: want_t.extend(ts) or ts)
+    for a, b in zip(got_t, want_t):
+        assert torch.equal(a, b)
+    (payload, tys, txs, r, top), = calls
+    assert top == halo and payload.shape[0] == lh + 2 * halo
+    assert torch.equal(orig(payload, tys, txs, r, top=top),
+                       lg.gather_local_ref(payload, tys, txs))
+
+
 _TRAP = """
 import torch
 from tpu_restir_torch.kernels import cluster_trace as ct

@@ -5,7 +5,9 @@ w.r.t. the material table (`diff`), builds a clustered terrain and renders
 it through the clustered traversal (and a cluster-size-128 terrain through
 its Woop variant), runs the CLI with a denoised, profiled, checkpointed
 16x16 render and with the demo asset and its sky, takes the demo's
-roughness and texel gradients, and neither JAX nor the JAX package
+roughness and texel gradients, runs the row-sharded step and
+value_and_grad of `dist` on a one-rank mesh, reads a Radiance .hdr sky,
+and neither JAX nor the JAX package
 (`tpu_restir`) may be loaded, nor an imaging package (PIL, imageio). It runs in a subprocess because the test
 session itself has JAX loaded (the root conftest configures it).
 
@@ -44,6 +46,8 @@ r.export(os.path.join(tmp, "frame.png"))
 assert os.path.exists(os.path.join(tmp, "frame.png.txt"))
 import torch
 from tpu_restir_torch.diff import optimize, params, render
+from tpu_restir_torch.render.integrators.restir.pipeline import (
+    init_restir_state)
 from tpu_restir_torch.render.camera import make_camera
 scene = cornell_box("cpu")
 loss, grads = render.make_value_and_grad(
@@ -94,6 +98,22 @@ loss, grads = render.make_value_and_grad(
     torch.zeros((16, 16, 3)))(params.extract_params(
         demo, ("roughness", "tex_data")))
 assert torch.isfinite(loss) and torch.isfinite(grads["tex_data"]).all()
+from tpu_restir_torch.dist import diff as ddiff, halo, mesh, sharded
+one = mesh.make_mesh(1, "tiles", "cpu")
+step = sharded.make_sharded_restir_step(one, cfg)
+frame, _ = step(scene, make_camera(cfg.camera, "cpu"), 1,
+                sharded.split_rows(init_restir_state(16, 16, "cpu"), one, 16),
+                0)
+assert frame.shape == (16, 16, 3) and halo.halo_width(30.0) == 7
+loss, grads = ddiff.make_sharded_value_and_grad(
+    scene, make_camera(cfg.camera, "cpu"), cfg, (1,), torch.zeros((16, 16, 3)),
+    one)(params.extract_params(scene))
+assert torch.isfinite(loss) and len(grads) == 4
+from tpu_restir_torch.scene.envmap import with_sky
+with open(os.path.join(tmp, "sky.hdr"), "wb") as f:
+    f.write(b"#?RADIANCE\\nFORMAT=32-bit_rle_rgbe\\n\\n-Y 1 +X 2\\n"
+            + bytes([128, 64, 32, 129, 128, 64, 32, 131]))
+assert float(with_sky(scene, os.path.join(tmp, "sky.hdr")).envmap.max()) > 4.0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "tpu_restir"))
 print("LOADED", bad)

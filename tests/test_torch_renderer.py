@@ -76,8 +76,11 @@ def test_display_matches_jax():
 
 @pytest.mark.parametrize("kw", [dict(n_devices=2)])
 def test_renderer_refuses_what_is_not_ported(scene, kw):
+    """n_devices = 2, once refused, is ported: it needs a process group of
+    two ranks (tests/test_torch_dist_renderer.py), which this process
+    lacks, and says so."""
     cfg = _cfg().replace(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
         Renderer(scene, cfg, device="cpu")
 
 
@@ -309,11 +312,21 @@ def test_update_config_camera_and_reset(scene):
 
 
 def test_restir_step_is_single_device(scene):
+    """Without a mesh the step renders every row; with one, its state must
+    hold this rank's rows of a height that the ranks divide (the sharded
+    frames: tests/test_torch_dist.py)."""
+    from tpu_restir_torch.dist.mesh import Mesh
+
     cfg = _cfg()
-    state = tpipe.init_restir_state(12, 16, "cpu")
     cam = tcam.make_camera(CCFG, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        tpipe.restir_step(scene, cam, cfg, 1, state, 0, axis_name="rows")
+    frame, _ = tpipe.restir_step(scene, cam, cfg, 1,
+                                 tpipe.init_restir_state(12, 16, "cpu"), 0)
+    assert frame.shape == (12, 16, 3)
+    two = Mesh(None, 0, 2, torch.device("cpu"), "rows", "gloo")
+    with pytest.raises(ValueError, match="not 2 shards of 5 rows"):
+        tpipe.restir_step(scene, cam, cfg, 1,
+                          tpipe.init_restir_state(5, 16, "cpu"), 0,
+                          mesh=two)
 
 
 @pytest.mark.parametrize("restir", [

@@ -291,13 +291,19 @@ def test_environment_readers_match_jax(tmp_path):
 
 
 def test_load_hdr_without_a_decoder_raises(tmp_path, monkeypatch):
-    """.hdr/.exr need imageio or PIL; without them the reader raises,
-    naming the file, and never returns a flat sky."""
-    path = str(tmp_path / "sky.hdr")
-    open(path, "wb").write(b"#?RADIANCE\n")
+    """.exr needs imageio or PIL; without them the reader raises, naming
+    the file, and never returns a flat sky. Radiance .hdr is read by the
+    port's own reader (tests/test_torch_hdr.py), which needs neither and
+    raises, naming the file, on a file it cannot read."""
     for mod in ("imageio", "imageio.v2", "PIL", "PIL.Image"):
         monkeypatch.setitem(sys.modules, mod, None)
-    with pytest.raises(RuntimeError, match="sky.hdr: no decoder"):
+    path = str(tmp_path / "sky.exr")
+    open(path, "wb").write(b"v/1\x01")
+    with pytest.raises(RuntimeError, match="sky.exr: no decoder"):
+        tenv.load_hdr(path)
+    path = str(tmp_path / "sky.hdr")
+    open(path, "wb").write(b"#?RADIANCE\n")
+    with pytest.raises(ValueError, match="sky.hdr: header has no end"):
         tenv.load_hdr(path)
 
 

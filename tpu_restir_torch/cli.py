@@ -5,12 +5,24 @@ Replaces the reference's interactive ImGui loop with a config/flag-driven
 batch renderer (SURVEY.md §5.6): every knob the reference exposes in its
 GUI is a flag here; output is the same PNG + sidecar pair. It renders on
 --device (default cuda, which must be present: there is no fallback to
-the CPU). --devices above 1 raises NotImplementedError (ROADMAP item 12).
+the CPU).
+
+--devices N (N > 1) shards the ReSTIR frame's rows over N ranks of a
+torch.distributed group (`tpu_restir_torch.dist`). Under torchrun the
+process joins the group of its environment and renders on cuda:LOCAL_RANK
+(or the CPU with --device cpu); otherwise the CLI spawns N local ranks
+itself, on cuda:0..N-1 (it raises when fewer cards exist) or, with
+--device cpu, on the CPU under gloo. Rank 0 writes the image, the sidecar
+and the checkpoint.
 
 Examples:
     python -m tpu_restir_torch.cli --scene cornell --size 256x256 \
         --temporal --spatial --spatial-mis pairwise --frames 64 \
         --out out/cornell.png
+    python -m tpu_restir_torch.cli --devices 2 --device cpu --size 64x64 \
+        --temporal --spatial --spatial-mis pairwise --out out/sharded.png
+    torchrun --nproc-per-node 2 -m tpu_restir_torch.cli --devices 2 \
+        --temporal --spatial --spatial-mis pairwise --out out/sharded.png
     python -m tpu_restir_torch.cli --scene assets/demo/demo.obj \
         --skybox assets/demo/env.pfm --fov 50 --view-from 0,-6.0,2.1 \
         --view-at 0,0.4,0.7 --temporal --spatial --spatial-mis pairwise \
@@ -20,6 +32,7 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import torch
@@ -219,18 +232,64 @@ def device_from_args(a) -> torch.device:
     return dev
 
 
-def _refuse_unported(cfg: RenderConfig) -> None:
-    if cfg.n_devices > 1:
-        raise NotImplementedError(
-            "--devices above 1 is not ported yet (ROADMAP item 12)")
+def _local_rank(rank: int, n: int, port: int, argv) -> None:
+    """One rank spawned by main: the torchrun environment, then main."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), LOCAL_RANK=str(rank),
+                      WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n))
+    main(argv)
+
+
+def _spawn(a, argv, n: int) -> int:
+    """Run this command line on n local ranks (start method spawn): on
+    cuda:0..n-1, which must exist, with the kernels built here first so
+    that the ranks do not build them at once; or on the CPU."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    if torch.device(a.device).type == "cuda":
+        device_from_args(a)
+        if torch.cuda.device_count() < n:
+            raise RuntimeError(f"--devices {n}: only "
+                               f"{torch.cuda.device_count()} CUDA device(s)")
+        from tpu_restir_torch.kernels import build
+
+        build.load_kernels()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mp.start_processes(_local_rank, args=(n, port, argv), nprocs=n,
+                       start_method="spawn")
+    return 0
 
 
 def main(argv=None) -> int:
     parser = build_parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
     a = parser.parse_args(argv)
     cfg = config_from_args(a, parser)
-    _refuse_unported(cfg)
-    dev = device_from_args(a)
+    joined = False
+    if cfg.n_devices > 1:
+        if "WORLD_SIZE" not in os.environ:
+            return _spawn(a, argv, cfg.n_devices)
+        from tpu_restir_torch.dist.mesh import init_distributed, local_device
+
+        dev_type = torch.device(a.device).type
+        joined = init_distributed(device_type=dev_type)
+        dev = local_device(dev_type)
+    else:
+        dev = device_from_args(a)
+    try:
+        return _render(a, cfg, dev)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _render(a, cfg: RenderConfig, dev) -> int:
     scene = load_scene(a.scene, dev)
     if a.skybox:
         from tpu_restir_torch.scene.envmap import with_sky
@@ -254,16 +313,19 @@ def main(argv=None) -> int:
             r.step()
             if a.export_every and (i + 1) % a.export_every == 0:
                 r.export(a.out)
-                print(f"frame {i + 1}/{a.frames} exported; "
-                      f"mean/var = {r.stats()}")
+                stats = r.stats()
+                if r.is_root:
+                    print(f"frame {i + 1}/{a.frames} exported; "
+                          f"mean/var = {stats}")
     r.export(a.out)
     if a.checkpoint:
         from tpu_restir_torch.io.checkpoint import save
 
         save(r, a.checkpoint)
     mean, var = r.stats()
-    print(f"done: {a.out}  frames={a.frames}  mean={mean:.6g} "
-          f"var={var:.6g}  time={r.render_time:.2f}s")
+    if r.is_root:
+        print(f"done: {a.out}  frames={a.frames}  mean={mean:.6g} "
+              f"var={var:.6g}  time={r.render_time:.2f}s")
     return 0
 
 

@@ -15,43 +15,42 @@ luminance second moment that guides the SVGF denoiser (the JAX package
 does not save it, so after its resume the variance estimate is 0 and the
 filter passes the image through); a checkpoint without it resumes with a
 zero moment, as in the JAX package.
+
+A row-sharded renderer writes the same full-height file (its rows
+gathered onto rank 0, which writes it; every rank must call `save`), and
+each of its ranks restores its own rows of such a file, so a checkpoint
+resumes across 1 and N ranks as well as across the two packages. Every
+rank must see the same file: a restore that the ranks disagree on raises
+on all of them.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import os
 import time
 
 import numpy as np
 import torch
 
-
-def _leaves(obj):
-    """Tensor leaves of a dataclass tree, fields depth first."""
-    if dataclasses.is_dataclass(obj):
-        return [x for f in dataclasses.fields(obj)
-                for x in _leaves(getattr(obj, f.name))]
-    return [obj]
-
-
-def _rebuild(obj, leaves):
-    """The dataclass tree obj with its leaves replaced, in _leaves order."""
-    if dataclasses.is_dataclass(obj):
-        return dataclasses.replace(obj, **{
-            f.name: _rebuild(getattr(obj, f.name), leaves)
-            for f in dataclasses.fields(obj)})
-    return leaves.pop(0)
+from tpu_restir_torch.dist import mesh as mesh_mod
+from tpu_restir_torch.render.integrators.restir.pipeline import (
+    tree_leaves, tree_rebuild)
 
 
 def save(renderer, path: str) -> None:
-    flat = {"accumulator": renderer.accumulator.cpu().numpy(),
-            "moment2": renderer.moment2.cpu().numpy(),
+    acc = renderer.full_rows(renderer.accumulator)
+    m2 = renderer.full_rows(renderer.moment2)
+    state = (renderer.full_rows(renderer._restir_state)
+             if renderer._restir_state is not None else None)
+    if not renderer.is_root:
+        return
+    flat = {"accumulator": acc.cpu().numpy(),
+            "moment2": m2.cpu().numpy(),
             "acc_ctr": np.asarray(renderer.acc_ctr),
             "frame_ctr": np.asarray(renderer.frame_ctr),
             "render_time": np.asarray(renderer.render_time)}
-    if renderer._restir_state is not None:
-        leaves = _leaves(renderer._restir_state)
+    if state is not None:
+        leaves = tree_leaves(state)
         for i, leaf in enumerate(leaves):
             flat[f"restir_{i}"] = leaf.cpu().numpy()
         flat["restir_n"] = np.asarray(len(leaves))
@@ -59,18 +58,41 @@ def save(renderer, path: str) -> None:
     np.savez(path, **flat)
 
 
+def _agree(renderer, path: str, data) -> None:
+    """Every rank of a multi-rank renderer must restore the same
+    checkpoint (a rank that cannot see rank 0's file would start afresh,
+    and its frame seeds and accumulator weights would differ from the
+    others' without an error): raise on every rank when the ranks differ
+    in whether they found one or in its counters."""
+    mesh = renderer.mesh
+    if mesh is None or mesh.size == 1:
+        return
+    mine = ([1, int(data["acc_ctr"]), int(data["frame_ctr"])]
+            if data is not None else [0, 0, 0])
+    ranks = mesh_mod.all_gather(mesh, torch.tensor(
+        [mine], dtype=torch.int64, device=mesh.device)).cpu()
+    if not bool((ranks == ranks[0]).all()):
+        raise RuntimeError(
+            f"checkpoint {path}: the ranks disagree on it ((found, acc_ctr, "
+            f"frame_ctr) by rank: {ranks.tolist()})")
+
+
 def try_restore(renderer, path: str) -> bool:
     """Load path (or path.npz) into renderer if it exists -> whether it
-    did."""
+    did. Every rank of a multi-rank renderer calls it, and they must all
+    find the same file."""
     p = path if path.endswith(".npz") else path + ".npz"
-    if not os.path.exists(p) and not os.path.exists(path):
+    src = next((q for q in (p, path) if os.path.exists(q)), None)
+    if src is None:
+        _agree(renderer, path, None)
         return False
-    dev = renderer.device
-    with np.load(p if os.path.exists(p) else path) as data:
-        renderer.accumulator = torch.from_numpy(data["accumulator"]).to(dev)
-        renderer.moment2 = (torch.from_numpy(data["moment2"]).to(dev)
-                            if "moment2" in data
-                            else torch.zeros_like(renderer.moment2))
+    with np.load(src) as data:
+        _agree(renderer, path, data)
+        renderer.accumulator = renderer.own_rows(
+            torch.from_numpy(data["accumulator"]))
+        renderer.moment2 = (renderer.own_rows(torch.from_numpy(
+            data["moment2"])) if "moment2" in data
+            else torch.zeros_like(renderer.moment2))
         renderer.acc_ctr = int(data["acc_ctr"])
         renderer.frame_ctr = int(data["frame_ctr"])
         renderer.render_time = float(data["render_time"])
@@ -80,10 +102,10 @@ def try_restore(renderer, path: str) -> bool:
         if renderer._restir_state is not None and "restir_n" in data:
             n = int(data["restir_n"])
             state = renderer._restir_state
-            if n != len(_leaves(state)):
+            if n != len(tree_leaves(state)):
                 raise ValueError(f"checkpoint {p}: {n} ReSTIR state leaves, "
-                                 f"the renderer has {len(_leaves(state))}")
-            renderer._restir_state = _rebuild(
-                state, [torch.from_numpy(data[f"restir_{i}"]).to(dev)
-                        for i in range(n)])
+                                 f"the renderer has {len(tree_leaves(state))}")
+            renderer._restir_state = renderer.own_rows(tree_rebuild(
+                state, [torch.from_numpy(data[f"restir_{i}"]).to(
+                    renderer.device) for i in range(n)]))
     return True

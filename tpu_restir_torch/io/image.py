@@ -14,7 +14,7 @@ import numpy as np
 def read_image(path: str) -> np.ndarray:
     """(H, W, 3) array of an image file, grey replicated and alpha
     dropped: uint8 for PNG and the LDR formats, float32 where the decoder
-    gives floats (.hdr, .exr)."""
+    gives floats (.exr). Skies in Radiance .hdr are read by `io.hdr`."""
     if path.lower().endswith(".png"):
         from tpu_restir_torch.io.png import read_png_rgb
 

@@ -81,3 +81,14 @@ def load_all(specs) -> list:
     with concurrent.futures.ThreadPoolExecutor(max(len(specs), 1)) as ex:
         futures = [ex.submit(load, *spec) for spec in specs]
         return [f.result() for f in futures]
+
+
+def load_kernels() -> list:
+    """Build and load the four libraries of `csrc/` at once (K1/K2, K3,
+    K4, K5-K8), with the flags and signatures of their modules."""
+    from tpu_restir_torch.kernels import cluster_trace, local_gather, ray_tri
+    return load_all([("ray_tri", ray_tri._SIGNATURES, ray_tri.FLAGS),
+                     ("local_gather", local_gather._SIGNATURES, ()),
+                     ("local_scatter", local_gather._SCATTER_SIGNATURES, ()),
+                     ("cluster_trace", cluster_trace._SIGNATURES,
+                      cluster_trace.FLAGS)])

@@ -3,7 +3,14 @@
 pg/simpleguidx11.cpp:359-487). Pass order: G-buffer fill -> initial
 candidates -> [visibility] -> [temporal] -> [spatial x N] -> shade. The
 inter-frame state (last frame's reservoirs and G-buffer) is a RestirState
-returned from each step. One device only.
+returned from each step.
+
+The same passes run on one device and row-sharded: given a row mesh
+(`tpu_restir_torch.dist`), each rank renders its own rows and exchanges
+G-buffer and reservoir halos before the reuse passes. Every draw is PCG4D
+keyed by GLOBAL pixel coordinates, so the sharded frame equals the
+one-device frame bit for bit, as long as reprojections stay within the
+shard and its halo (they are clamped there, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ import dataclasses
 import torch
 
 from tpu_restir_torch import rng
+from tpu_restir_torch.dist import halo as halo_mod
 from tpu_restir_torch.render.integrators.restir import gbuffer as gb_mod
 from tpu_restir_torch.render.integrators.restir import reservoir as rsv
 from tpu_restir_torch.render.integrators.restir.initial import (
@@ -42,20 +50,80 @@ def init_restir_state(h: int, w: int, device) -> RestirState:
                        gb_prev=gb_mod.empty_gbuffer(h, w, device))
 
 
-def restir_step(scene, cam, cfg, frame_seed, state: RestirState,
-                frame_ctr: int, *, axis_name=None, n_devices: int = 1):
-    """One ReSTIR frame -> (radiance image (h, w, 3), new state).
+# the G-buffer's camera snapshot: replicated, not per-pixel
+_CAMERA = ("cam_pos", "view_mat", "focal")
 
-    frame_seed: uint32 from rng.make_frame_seed(cfg.seed, frame)."""
-    if axis_name is not None or n_devices != 1:
-        raise NotImplementedError(
-            "row-sharded multi-device frames are not ported yet "
-            "(ROADMAP item 12)")
+
+def tree_leaves(obj, pixels_only: bool = False):
+    """Tensor leaves of a dataclass tree (a RestirState, Reservoir or
+    GBuffer), fields depth first in declaration order (the JAX pytree's
+    order); with pixels_only, without the G-buffer's camera snapshot."""
+    if dataclasses.is_dataclass(obj):
+        return [x for f in dataclasses.fields(obj)
+                if not (pixels_only and f.name in _CAMERA)
+                for x in tree_leaves(getattr(obj, f.name), pixels_only)]
+    return [obj]
+
+
+def tree_rebuild(obj, leaves, pixels_only: bool = False):
+    """The dataclass tree obj with the leaves of tree_leaves(obj,
+    pixels_only) replaced by `leaves`, in order."""
+    it = iter(leaves)
+
+    def build(o):
+        if dataclasses.is_dataclass(o):
+            return dataclasses.replace(o, **{
+                f.name: build(getattr(o, f.name))
+                for f in dataclasses.fields(o)
+                if not (pixels_only and f.name in _CAMERA)})
+        return next(it)
+
+    return build(obj)
+
+
+def map_pixels(obj, fn):
+    """obj (a GBuffer, Reservoir or RestirState) with fn applied to its
+    per-pixel tensors, passed as one list (fn returns the list of their
+    replacements, in order); the G-buffer's camera snapshot is kept."""
+    return tree_rebuild(obj, fn(tree_leaves(obj, True)), True)
+
+
+def restir_step(scene, cam, cfg, frame_seed, state: RestirState,
+                frame_ctr: int, *, mesh=None):
+    """One ReSTIR frame -> (radiance image (rows, w, 3), new state).
+
+    frame_seed: uint32 from rng.make_frame_seed(cfg.seed, frame).
+    mesh: the row mesh (`dist.mesh.make_mesh`) of a sharded frame, whose
+    state holds this rank's rows; None on one device."""
     r = cfg.restir
     h, w = cfg.camera.height, cfg.camera.width
     dev = state.res_prev.w_sum.device
-    ys = torch.arange(h, dtype=torch.int32, device=dev)[:, None].expand(h, w)
-    xs = torch.arange(w, dtype=torch.int32, device=dev)[None, :].expand(h, w)
+    local_h = state.res_prev.w_sum.shape[0]
+    sharded = mesh is not None and mesh.size > 1
+    row0, halo, use_gather, ext_row0 = 0, 0, False, 0
+    if sharded:
+        if local_h * mesh.size != h:
+            raise ValueError(f"height {h} is not {mesh.size} shards of "
+                             f"{local_h} rows")
+        row0 = mesh.rank * local_h
+        halo = halo_mod.halo_width(r.spatial_reuse_radius)
+        # taps bounded by the halo fit in the neighbour shards; a halo
+        # taller than the shard falls back to an all-gather of the rows
+        use_gather = halo > local_h
+        ext_row0 = 0 if use_gather else row0 - halo
+    # GLOBAL rows: every draw is keyed by them
+    ys = (torch.arange(local_h, dtype=torch.int32, device=dev)[:, None]
+          + row0).expand(local_h, w)
+    xs = torch.arange(w, dtype=torch.int32,
+                      device=dev)[None, :].expand(local_h, w)
+
+    def extend(obj):
+        if not sharded:
+            return obj
+        if use_gather:
+            return map_pixels(obj, lambda ts: halo_mod.gather_rows(ts, mesh))
+        return map_pixels(
+            obj, lambda ts: halo_mod.extend_rows(ts, halo, mesh))
 
     def early(res_now, gb_now):
         """profile_stop_after cut: the same output and state structure."""
@@ -74,10 +142,14 @@ def restir_step(scene, cam, cfg, frame_seed, state: RestirState,
     if stop == "visibility":
         return early(res, gb)
 
+    gb_ext = extend(gb) if (r.do_temporal_reuse or r.do_spatial_reuse) \
+        else gb
     reasons = None
     if r.do_temporal_reuse:
         res_t = temporal_pass(frame_seed, scene, gb, state.gb_prev, res,
-                              state.res_prev, cfg, ys, xs,
+                              state.res_prev, cfg, ys, xs, gb_ext=gb_ext,
+                              gb_prev_ext=extend(state.gb_prev),
+                              ext_row0=ext_row0,
                               return_reasons=r.debug_reprojection)
         if r.debug_reprojection:
             res_t, reasons = res_t
@@ -89,8 +161,13 @@ def restir_step(scene, cam, cfg, frame_seed, state: RestirState,
         return early(res, gb)
 
     if r.do_spatial_reuse:
+        # the payload row of output row 0: 0 on one device, halo in a
+        # halo-extended strip, row0 in all-gathered rows
+        ext_top = row0 if use_gather else halo
         for i in range(r.spatial_pass_count):
-            res = spatial_pass(frame_seed, i, scene, gb, res, cfg, ys, xs)
+            res = spatial_pass(frame_seed, i, scene, gb, res, cfg, ys, xs,
+                               gb_ext=gb_ext, res_ext=extend(res),
+                               ext_row0=ext_row0, ext_top=ext_top)
     if stop == "spatial":
         return early(res, gb)
 

@@ -11,6 +11,12 @@ with a scheme-dependent MIS weight:
   PAIRWISE                - pairwise MIS against the canonical sample, O(M)
 Every p_hat with visibility is one batched occlusion query; all neighbour
 taps come from one gather of the packed payload (kernel K3).
+
+Sharded: the taps read the halo-extended (or all-gathered) G-buffer and
+reservoirs of `gb_ext`/`res_ext`, whose first row is global row
+`ext_row0` and whose row `ext_top` is this rank's first row. Offsets and
+acceptance draws are keyed by GLOBAL pixel coordinates, so the sharded
+pass equals the one-device pass bit for bit.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 
 from tpu_restir_torch.config import SpatialMis
 from tpu_restir_torch import mathx, rng
+from tpu_restir_torch.dist.halo import local_row
 from tpu_restir_torch.kernels import local_gather as lg
 from tpu_restir_torch.render import intersect
 from tpu_restir_torch.render.integrators.restir import packed as pk
@@ -36,13 +43,17 @@ def _safe_div(num, denom):
 
 
 def spatial_pass(frame_seed, pass_idx: int, scene, gb, res_in, cfg, ys,
-                 xs) -> rsv.Reservoir:
+                 xs, *, gb_ext=None, res_ext=None, ext_row0=0,
+                 ext_top=0) -> rsv.Reservoir:
     p = cfg.params
     r = cfg.restir
     h, w = cfg.camera.height, cfg.camera.width
     shape = gb.depth.shape
     dev = gb.depth.device
     n_cand = r.spatial_neighbor_count + 1  # index 0 = centre
+    gb_ext = gb if gb_ext is None else gb_ext
+    res_ext = res_in if res_ext is None else res_ext
+    ext_h = gb_ext.depth.shape[0]
 
     def uni(draw, n, slot):
         return rng.pixel_uniforms(
@@ -57,17 +68,18 @@ def spatial_pass(frame_seed, pass_idx: int, scene, gb, res_in, cfg, ys,
         offi = disk_int_from_uniform(uni(k, 2, 2)[..., 0],
                                      r.spatial_reuse_radius)
         tap_xs.append(torch.clamp(xs + offi[..., 0], 0, w - 1))
-        tap_ys.append(torch.clamp(ys + offi[..., 1], 0, h - 1))
+        tap_ys.append(local_row(torch.clamp(ys + offi[..., 1], 0, h - 1),
+                                ext_row0, ext_h))
 
     slim = pk.reuse_slim(scene.materials)
     gbs, ress = [gb], [res_in]
     if tap_ys:
-        payload = pk.pack_reuse(gb, res_in, slim)       # (h, w, 32|24)
+        payload = pk.pack_reuse(gb_ext, res_ext, slim)  # (ext_h, w, 32|24)
         # offsets are truncated disk samples of radius sqrt(radius_cfg)
         r_bound = int(math.floor(math.sqrt(max(r.spatial_reuse_radius,
                                                 0.0))))
         taps = lg.gather_local(payload, torch.stack(tap_ys),
-                               torch.stack(tap_xs), r_bound, top=0,
+                               torch.stack(tap_xs), r_bound, top=ext_top,
                                disk_r2=int(max(r.spatial_reuse_radius, 0.0)))
         gbc = pk.gb_ch(slim)
         gbs += [pk.unpack_gb(taps[i, ..., :gbc], gb, slim)

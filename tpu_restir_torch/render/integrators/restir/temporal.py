@@ -10,6 +10,13 @@ and previous reservoirs with confidence-weighted balance weights.
 
 Faithful quirk (SURVEY.md §2.5): the previous reservoir is read at the
 CURRENT pixel, the previous G-buffer element at the reprojected pixel.
+
+Sharded: the reprojected taps read the halo-extended (or all-gathered)
+G-buffers `gb_ext`/`gb_prev_ext`, whose first row is global row
+`ext_row0`; a reprojection is clamped into the shard and its halo
+(motion-bounded reuse, as in the JAX package), so under camera motion
+that leaves the halo the sharded pass differs from the one-device pass by
+design.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import dataclasses
 import torch
 
 from tpu_restir_torch import mathx, rng
+from tpu_restir_torch.dist.halo import local_row
 from tpu_restir_torch.kernels import local_gather as lg
 from tpu_restir_torch.render import camera as cam_mod
 from tpu_restir_torch.render.integrators.restir import packed as pk
@@ -27,12 +35,14 @@ from tpu_restir_torch.render.integrators.restir.phat import evaluate_p_hat
 
 
 def _reproject_tap(payload, tys, txs):
-    """Gather payload (h, w, C) at the reprojected coords (h, w).
+    """Gather payload (eh, w, C) at the reprojected coords (h, w), whose
+    rows are payload rows.
 
     The JAX function picks, under lax.cond (temporal.py:53-56), between
     its windowed Pallas gather (every offset within PAD) and an XLA row
     gather; both return payload[tys, txs]. The CUDA gather (K3) has no
-    window bound, so it serves every tap, of any length, unconditionally.
+    window bound, so it serves every tap of any length, on the one-device
+    payload and on a halo-extended or all-gathered one (eh != h) alike.
     Its payloads carry no gradient (the previous G-buffer is detached
     state; positions come from camera rays), so K4's window never binds
     these taps."""
@@ -40,21 +50,27 @@ def _reproject_tap(payload, tys, txs):
 
 
 def temporal_pass(frame_seed, scene, gb, gb_prev, res_cur, res_prev, cfg,
-                  ys, xs, *, return_reasons: bool = False):
+                  ys, xs, *, gb_ext=None, gb_prev_ext=None, ext_row0=0,
+                  return_reasons: bool = False):
     p = cfg.params
     r = cfg.restir
     h, w = cfg.camera.height, cfg.camera.width
+    gb_ext = gb if gb_ext is None else gb_ext
+    gb_prev_ext = gb_prev if gb_prev_ext is None else gb_prev_ext
+    prev_h, cur_h = gb_prev_ext.depth.shape[0], gb_ext.depth.shape[0]
 
     # backward: current surface into the previous camera; irrelevant taps
     # (invalid reprojection, miss pixels) snap to the identity
     bx, by, valid_b = cam_mod.project_to_screen(
         gb_prev.view_mat, gb_prev.focal, w, h, gb.pos)
     rel_b = valid_b & (gb.depth > 0.0)
-    byc = torch.where(rel_b, torch.clamp(by, 0, h - 1), ys)
+    byc = local_row(torch.where(rel_b, torch.clamp(by, 0, h - 1), ys),
+                    ext_row0, prev_h)
     bxc = torch.where(rel_b, torch.clamp(bx, 0, w - 1), xs)
     slim = pk.reuse_slim(scene.materials)
     prev_elem = pk.unpack_gb(
-        _reproject_tap(pk.pack_gb(gb_prev, slim), byc, bxc), gb_prev, slim)
+        _reproject_tap(pk.pack_gb(gb_prev_ext, slim), byc, bxc), gb_prev,
+        slim)
 
     cur_depth = mathx.length(gb.pos - gb.cam_pos)
     prev_depth = mathx.length(prev_elem.pos - gb_prev.cam_pos)
@@ -65,9 +81,10 @@ def temporal_pass(frame_seed, scene, gb, gb_prev, res_cur, res_prev, cfg,
     fx, fy, valid_f = cam_mod.project_to_screen(
         gb.view_mat, gb.focal, w, h, gb_prev.pos)
     rel_f = valid_f & (gb_prev.depth > 0.0)
-    fyc = torch.where(rel_f, torch.clamp(fy, 0, h - 1), ys)
+    fyc = local_row(torch.where(rel_f, torch.clamp(fy, 0, h - 1), ys),
+                    ext_row0, cur_h)
     fxc = torch.where(rel_f, torch.clamp(fx, 0, w - 1), xs)
-    fw_elem_pos = _reproject_tap(gb.pos, fyc, fxc)
+    fw_elem_pos = _reproject_tap(gb_ext.pos, fyc, fxc)
     cur_depth_p = mathx.length(gb_prev.pos - gb_prev.cam_pos)
     prev_depth_p = mathx.length(fw_elem_pos - gb.cam_pos)
     depth_ok_p = torch.minimum(cur_depth_p, prev_depth_p) / mathx.maximum(

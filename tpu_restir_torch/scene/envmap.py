@@ -37,12 +37,16 @@ def sky_radiance(scene, params, d):
 
 def load_hdr(path: str) -> np.ndarray:
     """An HDR/EXR/PFM/PNG environment image as (H, W, 3) float32 on the
-    host. PFM (the demo asset's format) is read here, PNG (byte values
-    0-255, as imageio gives them) and the rest by `io.image.read_image`,
-    which raises where no decoder is installed: the sky is never replaced
-    by a flat colour."""
+    host. PFM (the demo asset's format) is read here, Radiance .hdr as
+    radiance by `io.hdr`, PNG (byte values 0-255, as imageio gives them)
+    and the rest by `io.image.read_image`, which raises where no decoder
+    is installed: the sky is never replaced by a flat colour."""
     if path.lower().endswith(".pfm"):
         return read_pfm(path)
+    if path.lower().endswith(".hdr"):
+        from tpu_restir_torch.io.hdr import read_hdr
+
+        return read_hdr(path)
     from tpu_restir_torch.io.image import read_image
 
     return read_image(path).astype(np.float32)

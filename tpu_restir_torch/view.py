@@ -125,12 +125,16 @@ def _poll_keys(stdin=sys.stdin):
 
 def run_view(renderer, n_frames: int, orbit_deg_per_frame: float = 0.0,
              refresh_every: int = 1, out=sys.stdout, stdin=sys.stdin):
-    """Progressive render with live terminal display + key editing."""
+    """Progressive render with live terminal display + key editing. On a
+    rank of a multi-rank renderer (every rank runs it) only rank 0 draws,
+    and keys are not read: a key read by one rank alone would leave the
+    ranks with different configs."""
     is_tty = hasattr(out, "isatty") and out.isatty()
+    keys = is_tty and renderer.mesh is None
     view_from = renderer.cfg.camera.view_from
     view_at = renderer.cfg.camera.view_at
     for i in range(n_frames):
-        for key in (_poll_keys(stdin) if is_tty else []):
+        for key in (_poll_keys(stdin) if keys else []):
             if key == "q":
                 return renderer.accumulator
             if key == "r":
@@ -149,6 +153,8 @@ def run_view(renderer, n_frames: int, orbit_deg_per_frame: float = 0.0,
         if (i + 1) % refresh_every == 0 or i + 1 == n_frames:
             img = renderer.display()
             mean, var = renderer.stats()
+            if not renderer.is_root:
+                continue
             if is_tty:
                 out.write("\x1b[H\x1b[2J")   # clear
                 out.write(ansi_preview(img) + "\n")
