@@ -127,7 +127,27 @@ line is not printed:
      and staged a frame a rank, ms/frame a rank and of one device, and the
      fwd+bwd step's ms, labelled as ranks sharing one card, not a scaling
      figure; the CLI with --devices 2 where the machine has two cards.
- 13. one JSON line of kernel results (K1-K8; K5/K6 launches are those of
+ 13. [backends], the JAX package's fallback intersection backends
+     (render/intersect.py, plain tensor code; no kernel of theirs), each
+     forced through IntersectorConfig(backend=...) in one 1920x1080 bench
+     frame (28.0 traced rays per pixel): brute and woop_mxu on Cornell,
+     cluster, fcluster and bvh on lights1k; each frame's G-buffer query and
+     first shadow query held to the kernels on the same rays: woop_mxu to
+     K1/K2 (masks equal, ids equal but for near ties, counted; t/u/v on
+     equal ids bit-identical), brute to K1/K2 (its hits a subset of K1's;
+     every difference a ray whose Woop winner, or every Woop hit, lies
+     within the 1e-5 slack of an edge), cluster to K5/K6 (a superset, the
+     differences likewise), fcluster and bvh to K5/K6 (masks equal, ids
+     but for exact-t ties, t bit-identical to K5's and to brute's); at full
+     scale fcluster on terrain100k's G-buffer and first shadow query and bvh
+     on terrain_scene(20_000)'s G-buffer query, held to K5/K6; gradients
+     of a 64x32 G-buffer query under brute (Cornell) and fcluster
+     (lights1k), cuda against cpu within rtol 1e-4 + 1e-5 of the largest
+     entry. Each run prints its ms (CUDA events after a synchronize), peak
+     memory, host syncs (accel.HOST_SYNCS) and the query census of
+     roofline.summarize_query_log; the collapse of terrain100k's wide BVH
+     is timed on the host. Its kernel launches are not in the JSON line.
+ 14. one JSON line of kernel results (K1-K8; K5/K6 launches are those of
      the two clustered paths, K7/K8's those of the Woop path; K1-K4 also
      carry demo_launches, per demo ReSTIR frame and, for K4, per 64x32
      texel step; every kernel dist_launches, rank 0's over the 3 sharded
@@ -172,39 +192,21 @@ CLI_FRAMES, CLI_RESUMED = 8, 4   # CLI frames, then frames resumed from them
 CORNELL_VIEW = ((0.0, -3.9, 1.0), (0.0, 0.0, 1.0))
 TERRAIN_VIEW = ((0.0, -7.0, 4.0), (0.0, 0.0, 0.5))
 
-# the bound of a kernel: the larger of its bytes over the memory rate (H100
-# SXM, NVIDIA's data sheet, at its 700 W limit) and its operations over the
-# card's float32 issue rate without contraction. The ray/triangle kernels
-# are built with --fmad=false, so every product and every sum is its own
-# instruction, and an SM issues at most one per lane per clock: 132 SMs x
-# 128 lanes x 1.98 GHz = 33.5e12 operations/s (the data sheet's 67e12
-# counts a fused multiply-add as two)
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 33.5e12
-WOOP_OPS = 40   # float32 operations of one Woop test (K1/K2/K7/K8)
-MT_OPS = 46     # ... of one fused Moller-Trumbore test (K5/K6)
-# ... of the leading parts of a test that can rule a pair out alone
-WOOP_T_OPS = 13   # the Woop t half: dw (5), ow (6), t = -ow / dw (2)
-WOOP_TU_OPS = 26  # ... and u = ou + t du (13)
-MT_U_OPS = 24     # p = d x e2 (9), det (5), 1 / det, tv = o - v0 (3), u (6)
-# the per-ray slab test of K6's cull (slab_live of csrc/cluster_trace.cu) of
-# one box: the plane distances (6 subtractions, 6 products), the per-axis
-# entries and exits (6 min/max), tent (3 max), texit (2 min), the slack
-# (|tent| + |texit|, times 1e-4, plus 1e-5: 3; an absolute value is an
-# operand modifier), texit + slack and tent - slack (2); the compares and
-# the selects of the clamped axes not counted, as the ray/triangle counts
-# count no compare
-SLAB_OPS = 28
-SAFE_INV_OPS = 3  # a ray's clamped reciprocal direction, once per ray
+# the card's ceilings and the per-test operation counts (H100 SXM, NVIDIA's
+# data sheet at 700 W; the unfused float32 rate, as the ray/triangle
+# kernels build with --fmad=false): one place, tpu_restir_torch/roofline.py
+from tpu_restir_torch.roofline import (  # noqa: E402
+    MT_OPS, MT_U_OPS, RAY_BYTES, SAFE_INV_OPS, SLAB_OPS, WOOP_OPS, WOOP_T_OPS,
+    WOOP_TU_OPS, KernelSpec)
+
 BARY_EPS = 1e-5   # the Woop test's slack (kernels/ray_tri.py)
-RAY_BYTES = 32  # o, d, tnear, tfar of one ray
 
 
 def bound(n_bytes, n_ops):
-    """(bound_ms, bound_by) of n_bytes moved and n_ops float32 operations."""
-    t_bytes = float(n_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = float(n_ops) / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(bound_ms, bound_by) of n_bytes moved and n_ops float32 operations,
+    at the ceilings of roofline.py."""
+    spec = KernelSpec("", float(n_ops), float(n_bytes))
+    return spec.sol_time_s() * 1e3, spec.bound
 
 
 def require(cond, msg):
@@ -2354,6 +2356,508 @@ def phase_profile(dev, path):
                  f"{root}_{label}{ext}")
 
 
+# ---------------------------------------------------------------------------
+# [backends]: the JAX package's fallback intersection backends, plain tensor
+# code on the card (render/intersect.py), held to the kernels on the same rays
+# ---------------------------------------------------------------------------
+
+BACKEND_RUNS = (("cornell", ("brute", "woop_mxu")),
+                ("lights1k", ("cluster", "fcluster", "bvh")))
+BACKEND_GRADS = (("cornell", "brute"), ("lights1k", "fcluster"))
+REL_T_TIE = 1e-6   # winners this close in t are a near tie (woop_mxu vs K1)
+
+
+@contextlib.contextmanager
+def queries_of(n, got):
+    """Wraps intersect.intersect_closest and intersect_any for the block:
+    the flat rays (o, d, tnear, tfar) of the first closest-hit and the
+    first any-hit query of n rays into got["closest"] and got["any"]."""
+    from tpu_restir_torch.render import intersect
+    names = {"closest": "intersect_closest", "any": "intersect_any"}
+    orig = {k: getattr(intersect, v) for k, v in names.items()}
+
+    def wrap(kind):
+        def call(scene, o, d, tnear, tfar, *args, **kwargs):
+            if kind not in got and o[..., 0].numel() == n:
+                got[kind] = tuple(x.detach().clone() for x in
+                                  intersect._flat_rays(o, d, tnear, tfar)[1:])
+            return orig[kind](scene, o, d, tnear, tfar, *args, **kwargs)
+        return call
+
+    for kind, name in names.items():
+        setattr(intersect, name, wrap(kind))
+    try:
+        yield got
+    finally:
+        for kind, name in names.items():
+            setattr(intersect, name, orig[kind])
+
+
+def _backend_cfg(view, backend):
+    """The 1080p bench config with every scene query under backend."""
+    from tpu_restir_torch.config import IntersectorConfig
+    return bench_cfg(WIDTH, HEIGHT, view).replace(
+        intersector=IntersectorConfig(backend=backend))
+
+
+def _closest(scene, rays, backend):
+    """A closest-hit query of flat rays under `backend` -> (t, u, v, tri)
+    with t = inf on a miss."""
+    import torch
+
+    from tpu_restir_torch.config import IntersectorConfig
+    from tpu_restir_torch.render import intersect
+    h = intersect.intersect_closest(scene, *rays,
+                                    IntersectorConfig(backend=backend))
+    return torch.where(h.hit, h.t, math.inf), h.u, h.v, h.tri
+
+
+def _occluded(scene, rays, backend):
+    from tpu_restir_torch.config import IntersectorConfig
+    from tpu_restir_torch.render import intersect
+    return intersect.intersect_any(scene, *rays,
+                                   IntersectorConfig(backend=backend))
+
+
+def slack_edge(u, v):
+    """Woop barycentrics within the test's 1e-5 slack of an edge."""
+    return (u < BARY_EPS) | (v < BARY_EPS) | (1.0 - u - v < BARY_EPS)
+
+
+# float32 roundings that a test's value may carry, per unit of the summed
+# magnitudes of its terms (the maps' own rounding from float64 included)
+ERR_ULPS = 8
+EPS32 = 2.0 ** -24
+
+
+def _pairs64(scene, rays, idx):
+    """float64 copies of the rays idx and of every triangle, for pair-wise
+    error bounds: (o, d, tn, tf) each (R, 1, ...), Woop rows (1, T, 12),
+    v0, e1, e2 (1, T, 3)."""
+    from tpu_restir_torch.kernels import ray_tri
+    o, d, tn, tf = (x[idx].double() for x in rays)
+    return (o[:, None], d[:, None], tn[:, None], tf[:, None],
+            ray_tri.woop_rows(scene).double()[None],
+            scene.tri_v0.double()[None], scene.tri_e1.double()[None],
+            scene.tri_e2.double()[None])
+
+
+def woop_uncertain(scene, rays, idx):
+    """(accept, uncertain) of the Woop test, as K1/K2 compute it, for the
+    rays idx against every triangle: could float32 rounding move any of
+    its values (t, u, v) across a bound of the test (tnear, tfar, the
+    slack edges)? The forward error bounds: o'_c and d'_c within
+    ERR_ULPS ulps of the sum of their terms' magnitudes, t = -o'_w / d'_w
+    within (err o'_w + |t| err d'_w) / |d'_w|, u = o'_u + t d'_u within err
+    o'_u + |t| err d'_u + |d'_u| err t. A grazing ray to a small triangle
+    (a ceiling point's shadow ray to a light of lights1k) can carry an
+    error of 1e-3 in t."""
+    import torch
+
+    from tpu_restir_torch.kernels import ray_tri
+    o, d, tn, tf, w, _v0, _e1, _e2 = _pairs64(scene, rays, idx)
+    o32, d32, tn32, tf32 = (x[idx] for x in rays)
+    t, u, v, ok = ray_tri._woop_tuvok(o32, d32, tn32, tf32,
+                                      ray_tri.woop_rows(scene))
+    t, u, v = t.double(), u.double(), v.double()
+
+    def mags(c):
+        mo = sum((w[..., 4 * c + i] * o[..., i]).abs() for i in range(3)) \
+            + w[..., 4 * c + 3].abs()
+        md = sum((w[..., 4 * c + i] * d[..., i]).abs() for i in range(3))
+        lin = sum(w[..., 4 * c + i] * d[..., i] for i in range(3))
+        return ERR_ULPS * EPS32 * mo, ERR_ULPS * EPS32 * md, lin
+
+    eo_w, ed_w, dw = mags(2)
+    tt = torch.where(torch.isfinite(t), t, 0.0)
+    et = (eo_w + tt.abs() * ed_w) / dw.abs()
+    eu, ev = ((eo + tt.abs() * ed + lin.abs() * et)
+              for eo, ed, lin in (mags(0), mags(1)))
+    s = BARY_EPS
+    unsure = (((u + s).abs() <= eu) | ((v + s).abs() <= ev)
+              | ((1.0 + s - u - v).abs() <= eu + ev)
+              | ((t - tn).abs() <= et)
+              | ((t - tf).abs() <= et))
+    return ok, unsure & torch.isfinite(t)
+
+
+def mt_uncertain(scene, rays, idx):
+    """(accept, uncertain, slack) of the Moller-Trumbore test, as K5/K6
+    compute it, for the rays idx against every triangle: uncertain where
+    float32 rounding could move t, u or v across a bound of the test
+    (errors within ERR_ULPS ulps of the magnitudes |e1||d||e2| of det,
+    |tv||d||e2| of u det, |d||tv||e1| of v det, |e2||tv||e1| of t det);
+    slack where the float64 values lie within the Woop test's 1e-5 slack
+    outside an edge, with t in [tnear, tfar] (what the Woop test accepts
+    and this one does not)."""
+    import torch
+
+    from tpu_restir_torch.render import intersect
+    o, d, tn, tf, _w, v0, e1, e2 = _pairs64(scene, rays, idx)
+    o32, d32, tn32, tf32 = (x[idx] for x in rays)
+    t, u, v, ok = intersect._mt_block(o32, d32, scene.tri_v0, scene.tri_e1,
+                                      scene.tri_e2)
+    ok = ok & (t >= tn32[:, None]) & (t <= tf32[:, None])
+    n = lambda x: x.norm(dim=-1)   # noqa: E731
+    tv = o - v0
+    p = torch.linalg.cross(d, e2, dim=-1)
+    det = (e1 * p).sum(-1)
+    q = torch.linalg.cross(tv, e1, dim=-1)
+    u64, v64 = (tv * p).sum(-1) / det, (d * q).sum(-1) / det
+    t64 = (e2 * q).sum(-1) / det
+    c = ERR_ULPS * EPS32
+    edet = c * n(e1) * n(d) * n(e2)
+    t, u, v = t.double(), u.double(), v.double()
+    eu = (c * n(tv) * n(d) * n(e2) + u.abs() * edet) / det.abs()
+    ev = (c * n(d) * n(tv) * n(e1) + v.abs() * edet) / det.abs()
+    et = (c * n(e2) * n(tv) * n(e1) + t.abs() * edet) / det.abs()
+    unsure = ((u.abs() <= eu) | (v.abs() <= ev)
+              | ((1.0 - u - v).abs() <= eu + ev)
+              | ((t - tn).abs() <= et)
+              | ((t - tf).abs() <= et))
+    edge = torch.minimum(torch.minimum(u64, v64), 1.0 - u64 - v64)
+    slack = ((edge >= -BARY_EPS) & (edge < 0.0) & (t64 >= tn)
+             & (t64 <= tf))
+    return ok, unsure & torch.isfinite(det) & (det != 0), slack
+
+
+def unexplained(scene, rays, idx, woop_side):
+    """Of the rays idx, whose occlusion the Woop test and Moller-Trumbore
+    decide apart, the count not explained. Both tests are recomputed on
+    the rays: the occluding side's test (the Woop test where woop_side)
+    must accept some pair of the ray, and each pair that either test
+    accepts must be one that float32 rounding could flip in either test,
+    or one within the slack band."""
+    if not idx.numel():
+        return 0
+    w_ok, w_unsure = woop_uncertain(scene, rays, idx)
+    m_ok, m_unsure, slack = mt_uncertain(scene, rays, idx)
+    fine = w_unsure | m_unsure | slack
+    occluder = (w_ok if woop_side else m_ok).any(1)
+    return int((((w_ok | m_ok) & ~fine).any(1) | ~occluder).sum())
+
+
+def hold_to_woop_kernel(label, scene, rays, got, want):
+    """A Woop-test backend's closest hits (got) against a Woop kernel's
+    (want, K1) on the same rays: masks equal; ids equal except near ties
+    (winners' t within REL_T_TIE, counted); the largest t/u/v difference on
+    equal ids, which must be 0 (K1's plain test in its operation order)."""
+    hit = want[3] >= 0
+    masks = int(((got[3] >= 0) != hit).sum())
+    diff = hit & (got[3] != want[3])
+    near = diff & ((got[0] - want[0]).abs()
+                   <= REL_T_TIE * want[0].abs())
+    same = hit & ~diff
+    err = max(float((g[same] - w[same]).abs().max()) if same.any() else 0.0
+              for g, w in zip(got[:3], want[:3]))
+    print(f"[backends] {label}: {int(hit.sum())} hits of "
+          f"{hit.numel()} rays; mask mismatches {masks} (must be 0); id "
+          f"mismatches {int(diff.sum())}, of them near ties (t within "
+          f"{REL_T_TIE} t) {int(near.sum())} (all must be); max |t,u,v "
+          f"err| on equal ids {err:.3g} (bound 0: the products summed in "
+          f"K1's order)", flush=True)
+    require(masks == 0, f"{label}: hit masks differ")
+    require(bool((near == diff).all()), f"{label}: ids differ beyond ties")
+    require(err == 0.0, f"{label}: t/u/v differ by {err}")
+
+
+def hold_mt_to_woop(label, scene, rays, got, want):
+    """A Moller-Trumbore backend (no slack; got) against a Woop test with
+    the 1e-5 slack (want): the hits of got are a subset of want's, and
+    every ray that want hits and got misses, or whose ids differ, has its
+    Woop winner within the slack of an edge. Returns the counts."""
+    hit_g, hit_w = got[3] >= 0, want[3] >= 0
+    extra = int((hit_g & ~hit_w).sum())
+    missed = hit_w & ~hit_g
+    diff = hit_g & hit_w & (got[3] != want[3])
+    edge = slack_edge(want[1], want[2])
+    bad = int(((missed | diff) & ~edge).sum())
+    same = hit_g & hit_w & ~diff
+    rel = float(((got[0] - want[0]).abs() / want[0].abs())[same].max()) \
+        if same.any() else 0.0
+    print(f"[backends] {label}: hits {int(hit_g.sum())} against "
+          f"{int(hit_w.sum())} of the Woop test; outside its hits {extra} "
+          f"(must be 0); missed {int(missed.sum())} and id mismatches "
+          f"{int(diff.sum())}, of them with the Woop winner off the slack "
+          f"edge band {bad} (must be 0); max |t| rel diff on equal ids "
+          f"{rel:.3g} (Moller-Trumbore and Woop t round apart)", flush=True)
+    require(extra == 0, f"{label}: hits outside the Woop test's")
+    require(bad == 0, f"{label}: differences away from the slack band")
+
+
+def hold_occlusion(label, scene, rays, got, want, woop_got):
+    """Occlusion of a backend (got) against a kernel's (want): equal when
+    both tests are alike (woop_got None); a Woop backend against a
+    Moller-Trumbore kernel (woop_got True), or the reverse (False), may
+    differ only on rays whose occluders all sit within float32 rounding
+    of a bound of either test, or within the slack band (`unexplained`)."""
+    import torch
+    if woop_got is None:
+        mis = int((got != want).sum())
+        print(f"[backends] {label}: occluded {int(want.sum())} of "
+              f"{want.numel()}; mask mismatches {mis} (must be 0)",
+              flush=True)
+        require(mis == 0, f"{label}: occlusion masks differ")
+        return
+    woop, mt = (got, want) if woop_got else (want, got)
+    w_only = torch.nonzero(woop & ~mt)[:, 0]
+    m_only = torch.nonzero(mt & ~woop)[:, 0]
+    bad = unexplained(scene, rays, w_only, True) \
+        + unexplained(scene, rays, m_only, False)
+    print(f"[backends] {label}: occluded {int(got.sum())} against "
+          f"{int(want.sum())}; occluded by the Woop test only "
+          f"{w_only.numel()}, by Moller-Trumbore only {m_only.numel()}, of "
+          f"them with an occluder that neither float32 rounding nor the "
+          f"slack explains {bad} (must be 0)", flush=True)
+    require(bad == 0, f"{label}: occlusion differs beyond rounding and "
+            "slack")
+
+
+def hold_mt_to_k5(label, scene, rays, got, brute=None):
+    """A Moller-Trumbore backend (fcluster, bvh; got) against K5 on the
+    same flat rays: masks equal, ids equal but for exact-t ties (counted),
+    t bit-identical (and to brute's where given)."""
+    from tpu_restir_torch.kernels import cluster_trace as ct
+    want = ct.trace_closest(scene.cluster_tris, scene.cluster_min,
+                            scene.cluster_max, *rays)
+    hit = want[3] >= 0
+    masks = int(((got[3] >= 0) != hit).sum())
+    diff = hit & (got[3] != want[3])
+    t_same = bool((got[0][hit] == want[0][hit]).all())
+    same = hit & ~diff
+    uv = max(float((g[same] - w[same]).abs().max()) if same.any() else 0.0
+             for g, w in zip(got[1:3], want[1:3]))
+    line = (f"[backends] {label}: {int(hit.sum())} hits of {hit.numel()} "
+            f"rays against K5; mask mismatches {masks} (must be 0); exact-t "
+            f"ties with another id {int(diff.sum())}; t bit-identical "
+            f"{t_same}; max |u,v err| on equal ids {uv:.3g} (0 expected)")
+    if brute is not None:
+        bt = bool(((got[0] == brute[0]) | ~hit).all()
+                  and ((brute[3] >= 0) == hit).all())
+        line += f"; t bit-identical to brute {bt}"
+        require(bt, f"{label}: t differs from brute's")
+    print(line, flush=True)
+    require(masks == 0, f"{label}: hit masks differ from K5's")
+    require(t_same and uv == 0.0, f"{label}: t/u/v differ from K5's")
+
+
+def hold_cluster_to_k5(label, scene, rays, got):
+    """The cluster backend (Woop, slack; got) against K5 (Moller-Trumbore)
+    on the same rays: got's hits a superset of K5's, and every difference
+    a ray whose cluster winner lies within the slack of an edge."""
+    from tpu_restir_torch.kernels import cluster_trace as ct
+    want = ct.trace_closest(scene.cluster_tris, scene.cluster_min,
+                            scene.cluster_max, *rays)
+    hit_g, hit_k = got[3] >= 0, want[3] >= 0
+    lost = int((hit_k & ~hit_g).sum())
+    differ = hit_g & (~hit_k | (got[3] != want[3]))
+    bad = int((differ & ~slack_edge(got[1], got[2])).sum())
+    print(f"[backends] {label}: hits {int(hit_g.sum())} against K5's "
+          f"{int(hit_k.sum())}; K5 hits missed {lost} (must be 0); rays "
+          f"that differ {int(differ.sum())}, of them off the slack band "
+          f"{bad} (must be 0)", flush=True)
+    require(lost == 0, f"{label}: K5 hits missed")
+    require(bad == 0, f"{label}: differences away from the slack band")
+
+
+def _backend_frame(scene, view, backend, dev, smi):
+    """One 1080p bench frame under backend: traced rays per pixel 28.0, a
+    finite image; ms (CUDA events after a synchronize), peak memory, host
+    syncs and the query census printed -> the frame's first full-frame
+    closest and any queries (flat rays)."""
+    import torch
+
+    from tpu_restir_torch import accel, metrics, roofline
+    from tpu_restir_torch.render import intersect
+    cfg = _backend_cfg(view, backend)
+    got = {}
+    syncs = dict(accel.HOST_SYNCS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    intersect.QUERY_LOG = qlog = []
+    try:
+        with queries_of(WIDTH * HEIGHT, got):
+            a.record()
+            img, _state = run_frames(scene, cfg, dev, 1)
+            b.record()
+            torch.cuda.synchronize()
+    finally:
+        intersect.QUERY_LOG = None
+    ms = a.elapsed_time(b)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rpp = sum(e["rays"] for e in qlog) / float(WIDTH * HEIGHT)
+    synced = {k: v - syncs[k] for k, v in accel.HOST_SYNCS.items()
+              if v != syncs[k]}
+    backends = sorted({e["backend"] for e in qlog})
+    print(f"[backends] {backend} frame, {scene.num_tris} tris, "
+          f"{WIDTH}x{HEIGHT}: {ms:.1f} ms ({smi}), peak memory {peak:.2f} "
+          f"GiB, host syncs {synced}; traced rays/pixel {rpp} (analytic "
+          f"{metrics.rays_per_pixel(cfg)}); queries "
+          f"{roofline.summarize_query_log(qlog)}", flush=True)
+    require(tuple(img.shape) == (HEIGHT, WIDTH, 3)
+            and bool(torch.isfinite(img).all()),
+            f"{backend}: a bad image")
+    require(rpp == 28.0, f"{backend}: traced {rpp} rays/pixel, not 28")
+    require(backends == [backend], f"{backend}: queries went to {backends}")
+    require(set(got) == {"closest", "any"},
+            f"{backend}: no full-frame query of kind "
+            f"{ {'closest', 'any'} - set(got)}")
+    return got["closest"], got["any"]
+
+
+def _timed_query(fn, label):
+    """fn() once, its ms (CUDA events after a synchronize) and peak
+    memory printed -> its result."""
+    import torch
+
+    from tpu_restir_torch import accel
+    syncs = dict(accel.HOST_SYNCS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    synced = {k: v - syncs[k] for k, v in accel.HOST_SYNCS.items()
+              if v != syncs[k]}
+    print(f"[backends] {label}: {a.elapsed_time(b):.1f} ms, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, host "
+          f"syncs {synced}", flush=True)
+    return out
+
+
+def _backend_grads(dev):
+    """d/d(o, d) of sum(t w0 + u w1 + v w2) over a 64x32 G-buffer query
+    under brute (Cornell: autograd through its operations) and fcluster
+    (lights1k: the detached-winner derivative), cuda against cpu, within
+    the demo gradient's limit: rtol 1e-4 plus 1e-5 of the largest entry."""
+    import torch
+
+    from tpu_restir_torch.config import IntersectorConfig
+    from tpu_restir_torch.render import intersect
+    rtol, frac = GRAD_TOL
+    for label, backend in BACKEND_GRADS:
+        scene, view = scene_and_view(label, dev)
+        rays = {}
+        with queries_of(SMALL_W * SMALL_H, rays):
+            run_frames(scene, bench_cfg(SMALL_W, SMALL_H, view), dev, 1)
+        w = torch.randn((3, SMALL_W * SMALL_H), device=dev,
+                        generator=torch.Generator(dev).manual_seed(5))
+        out = {}
+        for device in (dev, torch.device("cpu")):
+            sc = scene_and_view(label, device)[0]
+            o, d, tn, tf = (x.to(device) for x in rays["closest"])
+            o.requires_grad_(True)
+            d.requires_grad_(True)
+            h = intersect.intersect_closest(
+                sc, o, d, tn, tf, IntersectorConfig(backend=backend))
+            ww = w.to(device)
+            loss = (torch.where(h.hit, h.t, 0.0) * ww[0] + h.u * ww[1]
+                    + h.v * ww[2]).sum()
+            out[device.type] = [g.cpu() for g in
+                                torch.autograd.grad(loss, (o, d))]
+        worst = 0.0
+        for gc, gp in zip(out[dev.type], out["cpu"]):
+            scale = float(gp.abs().max())
+            require(scale > 0.0, f"{label} {backend}: a zero gradient")
+            bad = (gc - gp).abs() - (rtol * gp.abs() + frac * scale)
+            worst = max(worst, float(bad.max()))
+        print(f"[backends] gradient cross-device {backend} on {label}, "
+              f"{SMALL_W}x{SMALL_H} G-buffer query: within rtol {rtol} + "
+              f"{frac} x largest entry {worst <= 0.0} (worst excess "
+              f"{worst:.3g})", flush=True)
+        require(worst <= 0.0, f"{label} {backend}: cuda and cpu gradients "
+                "disagree")
+
+
+def phase_backends(dev, smi):
+    """The [backends] phase (module docstring, step 13)."""
+    import torch
+
+    from tpu_restir_torch.accel import bvh as bvh2_mod
+    from tpu_restir_torch.accel import wide
+    from tpu_restir_torch.kernels import cluster_trace as ct
+    from tpu_restir_torch.kernels import ray_tri
+    from tpu_restir_torch.scene.procedural import terrain_scene
+    t0 = time.perf_counter()
+    print(smi, flush=True)
+    # the wide BVH's share of a clustered scene's build, on this host
+    tv = large_scene("terrain100k", dev)[0].tri_v.cpu().numpy()
+    b2 = bvh2_mod.build_bvh2(tv, leaf_size=4)
+    t1 = time.perf_counter()
+    w8 = wide.collapse_bvh8(b2)
+    print(f"[backends] terrain100k: collapse_bvh8 {time.perf_counter() - t1:.2f}"
+          f" s on the host ({w8.meta.shape[0]} wide nodes, depth "
+          f"{w8.max_depth}), part of build_scene", flush=True)
+    for label, backends in BACKEND_RUNS:
+        scene, view = scene_and_view(label, dev)
+        for backend in backends:
+            closest, shadow = _backend_frame(scene, view, backend, dev, smi)
+            got = _timed_query(lambda: _closest(scene, closest, backend),
+                               f"{backend} {label} G-buffer query")
+            occ = _timed_query(lambda: _occluded(scene, shadow, backend),
+                               f"{backend} {label} first shadow query")
+            tag = f"{backend} {label}"
+            if backend == "woop_mxu":
+                k1 = ray_tri.closest_hit(scene, *closest)
+                hold_to_woop_kernel(f"{tag} G-buffer query vs K1", scene,
+                                    closest, got, k1)
+                hold_occlusion(f"{tag} shadow query vs K2", scene, shadow,
+                               occ, ray_tri.any_hit(scene, *shadow), None)
+            elif backend == "brute":
+                k1 = ray_tri.closest_hit(scene, *closest)
+                hold_mt_to_woop(f"{tag} G-buffer query vs K1", scene,
+                                closest, got, k1)
+                hold_occlusion(f"{tag} shadow query vs K2", scene, shadow,
+                               occ, ray_tri.any_hit(scene, *shadow), False)
+            else:
+                k6 = ct.trace_any(scene.cluster_tris, scene.cluster_min,
+                                  scene.cluster_max, *shadow)
+                if backend == "cluster":
+                    hold_cluster_to_k5(f"{tag} G-buffer query vs K5", scene,
+                                       closest, got)
+                    hold_occlusion(f"{tag} shadow query vs K6", scene,
+                                   shadow, occ, k6, True)
+                else:
+                    brute = _closest(scene, closest, "brute")
+                    hold_mt_to_k5(f"{tag} G-buffer query vs K5", scene,
+                                  closest, got, brute)
+                    hold_occlusion(f"{tag} shadow query vs K6", scene,
+                                   shadow, occ, k6, None)
+                    hold_occlusion(f"{tag} shadow query vs brute", scene,
+                                   shadow, occ, _occluded(scene, shadow,
+                                                          "brute"), None)
+    # full scale: fcluster on terrain100k's queries (taken from a frame of
+    # the default backend), bvh on terrain_scene(20_000)'s G-buffer query
+    for label, backend in (("terrain100k", "fcluster"),
+                           ("terrain20k", "bvh")):
+        if label == "terrain20k":
+            scene, view = terrain_scene(dev, 20_000), TERRAIN_VIEW
+        else:
+            scene, view = large_scene(label, dev)
+        rays = {}
+        with queries_of(WIDTH * HEIGHT, rays):
+            run_frames(scene, bench_cfg(WIDTH, HEIGHT, view), dev, 1)
+        got = _timed_query(lambda: _closest(scene, rays["closest"], backend),
+                           f"{backend} {label} G-buffer query")
+        hold_mt_to_k5(f"{backend} {label} G-buffer query vs K5", scene,
+                      rays["closest"], got)
+        if backend == "fcluster":
+            occ = _timed_query(
+                lambda: _occluded(scene, rays["any"], backend),
+                f"{backend} {label} first shadow query")
+            hold_occlusion(f"{backend} {label} shadow query vs K6", scene,
+                           rays["any"], occ, ct.trace_any(
+                               scene.cluster_tris, scene.cluster_min,
+                               scene.cluster_max, *rays["any"]), None)
+    _backend_grads(dev)
+    print(f"[backends] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 DIST_RANKS = 2    # ranks of the [dist] phase, sharing cuda:0 under gloo
 DIST_SIZE = (1920, 1080)
 DIST_FRAMES = 3   # sharded bench frames; the first is the warm-up
@@ -2708,6 +3212,7 @@ def main():
     phase_cli(dev, smi)
     phase_denoise_cost(dev, smi)
     dist = phase_dist(dev, name, smi)
+    phase_backends(dev, smi)
     profile = [a.split("=", 1)[1] for a in sys.argv[1:]
                if a.startswith("--profile=")]
     if profile:

@@ -1077,3 +1077,43 @@ def test_demo_frame_and_texel_gradient_cuda_match_cpu(cuda):
     assert torch.isfinite(gc).all() and (gp != 0).any()
     scale = float(gp.abs().max())
     assert bool(((gc - gp).abs() <= 1e-3 * gp.abs() + 1e-3 * scale).all())
+
+
+# the backends that are plain tensor code (render/intersect.py), each on a
+# scene it serves: the same operations on either device, so every result
+# is bit for bit the CPU's, and no kernel launches
+BACKEND_SCENES = {
+    "cornell": lambda dev: cornell_box(dev),
+    "lights500": lambda dev: many_lights_scene(dev, 500),
+    "terrain5k": lambda dev: terrain_scene(dev, 5_000),
+}
+
+
+@pytest.mark.parametrize("kind", ["closest", "any"])
+@pytest.mark.parametrize("name,backend", [
+    ("cornell", "brute"), ("cornell", "woop_mxu"), ("lights500", "cluster"),
+    ("lights500", "fcluster"), ("lights500", "bvh"),
+    ("terrain5k", "fcluster"), ("terrain5k", "bvh")])
+def test_backend_query_cuda_matches_cpu(cuda, name, backend, kind):
+    """Each fallback backend's closest and any query on 4,096 rays, cuda
+    against cpu: ids, masks and t, u, v equal."""
+    from tpu_restir_torch.config import IntersectorConfig
+    from tpu_restir_torch.render import intersect
+    o, d, tn, tf = _cluster_rays(cuda, 4096, 17, 3.0,
+                                 1e4 if kind == "closest" else 1.5)
+    cfg = IntersectorConfig(backend=backend)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        scene = BACKEND_SCENES[name](dev)
+        before = {**ray_tri.LAUNCHES, **ct.LAUNCHES}
+        args = (o.to(dev), d.to(dev), tn.to(dev), tf.to(dev), cfg)
+        if kind == "closest":
+            h = intersect.intersect_closest(scene, *args)
+            out[dev.type] = [x.cpu() for x in (h.tri, h.t, h.u, h.v)]
+        else:
+            out[dev.type] = [intersect.intersect_any(scene, *args).cpu()]
+        assert {**ray_tri.LAUNCHES, **ct.LAUNCHES} == before
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+    hit = out["cpu"][0] >= 0 if kind == "closest" else out["cpu"][0]
+    assert 0 < int(hit.sum()) < hit.numel()

@@ -18,8 +18,8 @@ nothing of JAX.
     every rank: rank 0's display equals one device's.
   * `cli.main(["--devices", "2", "--device", "cpu", ...])` spawns two
     ranks and writes the PNG of `--devices 1`.
-  * The refusals of row sharding are gone; the one of the fallback
-    intersection backends stays (ROADMAP item 13).
+  * The refusals of row sharding are gone, and so is the one of the
+    fallback intersection backends.
 """
 
 import os
@@ -118,5 +118,5 @@ def test_sharding_refusals_are_gone():
         src = open(os.path.join(PKG, rel)).read()
         assert "ROADMAP item 12" not in src and "NotImplementedError" \
             not in src, rel
-    assert "ROADMAP item 13" in open(os.path.join(
-        PKG, "render", "intersect.py")).read()
+    src = open(os.path.join(PKG, "render", "intersect.py")).read()
+    assert "ROADMAP item 13" not in src and "NotImplementedError" not in src

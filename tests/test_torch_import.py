@@ -3,7 +3,8 @@ renders a 16x16 frame on the CPU and exports it, renders naive and NEE
 frames (with their threefry draws) and their gradient, takes its gradient
 w.r.t. the material table (`diff`), builds a clustered terrain and renders
 it through the clustered traversal (and a cluster-size-128 terrain through
-its Woop variant), runs the CLI with a denoised, profiled, checkpointed
+its Woop variant), queries the terrain under each fallback backend, loads
+`roofline`, runs the CLI with a denoised, profiled, checkpointed
 16x16 render and with the demo asset and its sky, takes the demo's
 roughness and texel gradients, runs the row-sharded step and
 value_and_grad of `dist` on a one-rank mesh, reads a Radiance .hdr sky,
@@ -83,6 +84,14 @@ hit = cluster_trace.trace_closest(
     torch.tensor([[0.0, -7.0, 4.0]]), torch.tensor([[0.0, 0.8, -0.6]]),
     torch.tensor([1e-3]), torch.tensor([1e4]), cwoop=woop.cluster_woop)
 assert int(hit[3][0]) >= 0
+from tpu_restir_torch import roofline
+from tpu_restir_torch.config import IntersectorConfig
+from tpu_restir_torch.render import intersect
+o1, d1 = torch.tensor([[0.0, -7.0, 4.0]]), torch.tensor([[0.0, 0.8, -0.6]])
+for b in ("brute", "woop_mxu", "cluster", "fcluster", "bvh"):
+    assert bool(intersect.intersect_closest(
+        terrain, o1, d1, 1e-3, 1e4, IntersectorConfig(backend=b)).hit[0]), b
+assert roofline.summarize_query_log([])["total_rays"] == 0
 from tpu_restir_torch import cli
 assert cli.main(["--size", "16x16", "--frames", "2", "--temporal",
                  "--denoise", "--profile-passes", "--device", "cpu",

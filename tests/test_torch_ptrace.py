@@ -401,21 +401,22 @@ def test_ptrace_gradient_matches_jax():
 
 def test_backend_selection():
     """'auto' takes the small-scene kernels up to fused_max_tris triangles
-    and the clustered traversal above; what is not ported raises."""
+    and the clustered traversal above; a backend the scene lacks the
+    arrays for raises."""
     _js, big = _scenes("soup1500")
     small = t_cornell_box("cpu")
     assert tintersect._backend(small, IntersectorConfig()) == "fused"
     assert tintersect._backend(big, IntersectorConfig()) == "ptrace"
     assert tintersect._backend(
         big, IntersectorConfig(fused_max_tris=4096)) == "fused"
-    with pytest.raises(ValueError, match="clustered"):
+    with pytest.raises(ValueError, match="no cluster blocks"):
         tintersect._backend(small, T_PT)
     with pytest.raises(ValueError, match="fused_max_tris"):
         tintersect._backend(big, IntersectorConfig(backend="fused"))
     # ptrace_mxu is a variant of "ptrace" (K7/K8 where they apply)
     assert tintersect._backend(big, T_MXU) == "ptrace"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        tintersect._backend(big, IntersectorConfig(backend="fcluster"))
+    assert tintersect._backend(
+        big, IntersectorConfig(backend="fcluster")) == "fcluster"
     tintersect.QUERY_LOG = log = []
     try:
         o, d, tn, tf = _t(*_random_rays(37, 10, 2.0))

@@ -76,10 +76,11 @@ def test_convert_scene_round_trip():
 
 def test_build_scene_refuses_large_scenes():
     """Scenes above 64 triangles are built clustered (tests/
-    test_torch_accel.py holds them to the JAX build); on them the port
-    refuses what it has not ported, the JAX package's other backends.
-    ptrace_mxu on a scene of 64-triangle clusters (no Woop blocks) takes
-    K5/K6, as the JAX package does: the same hits as without it."""
+    test_torch_accel.py holds them to the JAX build), with a wide BVH; on
+    them every backend of the JAX package runs (the wide BVH's occlusion
+    equals brute's). ptrace_mxu on a scene of 64-triangle clusters (no
+    Woop blocks) takes K5/K6, as the JAX package does: the same hits as
+    without it."""
     from tpu_restir_torch.config import IntersectorConfig
     from tpu_restir_torch.render import intersect
 
@@ -97,9 +98,11 @@ def test_build_scene_refuses_large_scenes():
         for mxu in (False, True)]
     assert torch.equal(hits[0].tri, hits[1].tri)
     assert torch.equal(hits[0].t, hits[1].t) and bool(hits[0].hit.any())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        intersect.intersect_any(scene, o, d, 1e-3, 1e4,
-                                IntersectorConfig(backend="bvh"))
+    assert scene.bvh is not None
+    occ = [intersect.intersect_any(scene, o, d, 1e-3, 1e4,
+                                   IntersectorConfig(backend=b))
+           for b in ("bvh", "brute")]
+    assert torch.equal(occ[0], occ[1]) and bool(occ[0].any())
 
 
 def test_camera_and_rays():

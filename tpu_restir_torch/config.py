@@ -106,11 +106,16 @@ class CameraConfig:
 
 @dataclass(frozen=True)
 class IntersectorConfig:
-    """Intersection backend selection. The port runs "fused" (K1/K2, up to
-    `fused_max_tris` triangles) and "ptrace" (K5/K6, clustered scenes, in
-    chunks of `ptrace_chunk` rays; K7/K8 with `ptrace_mxu` on scenes built
-    at cluster size 128), or "auto" between the two; the other
-    fields configure the JAX package's backends and are kept for parity."""
+    """Intersection backend selection (`render/intersect.py`): "auto",
+    "fused" (K1/K2, up to `fused_max_tris` triangles), "ptrace" (K5/K6 on
+    clustered scenes, in chunks of `ptrace_chunk` rays; K7/K8 with
+    `ptrace_mxu` on scenes built at cluster size 128), "brute" and
+    "woop_mxu" (every triangle, in blocks of `tri_block`), "cluster",
+    "fcluster" (packets of `packet_size` rays, `shortlist_k` clusters a
+    round, `bin_rays` to re-bin incoherent rays) and "bvh"; the last five
+    take queries in chunks of `ray_chunk` rays, and "auto" takes
+    "fcluster" over "cluster" above `bvh_threshold` triangles. Every field
+    is read, as in the JAX package."""
 
     backend: str = "auto"
     ray_chunk: int = 1 << 18

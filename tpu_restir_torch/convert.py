@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpu_restir_torch.accel.wide import BVH8Arrays
 from tpu_restir_torch.render.integrators.restir.gbuffer import GBuffer
 from tpu_restir_torch.render.integrators.restir.pipeline import RestirState
 from tpu_restir_torch.render.integrators.restir.reservoir import (
@@ -30,6 +31,7 @@ _NESTED = {
     (SceneArrays, "materials"): MaterialTable,
     (SceneArrays, "lights"): EmissiveCDF,
     (SceneArrays, "textures"): TextureStack,
+    (SceneArrays, "bvh"): BVH8Arrays,
     (Reservoir, "sample"): LightSample,
     (RestirState, "res_prev"): Reservoir,
     (RestirState, "gb_prev"): GBuffer,
@@ -40,9 +42,9 @@ def from_tree(cls, tree, device):
     """Numpy tree with the fields of `cls` -> `cls` with tensors on device.
     A clustered scene's (C, B, 128) cluster blocks keep their first 9
     channels (v0, e1, e2), the port's (C, B, 9) layout, and its (C, 8, 384)
-    Woop blocks their 4 meaningful rows, the port's (C, 4, 384); the JAX
-    scene's `bvh` has no field in the port and is not read. A nested
-    field that is None (a scene without a texture stack) stays None."""
+    Woop blocks their 4 meaningful rows, the port's (C, 4, 384); its wide
+    BVH (`bvh`) comes across whole. A nested field that is None (a scene
+    without a texture stack) stays None."""
     kw = {}
     for f in dataclasses.fields(cls):
         v = getattr(tree, f.name)

@@ -39,7 +39,9 @@ def woop_rows(scene):
 
 def _woop_tuvok(o, d, tn, tf, w):
     """(t, u, v, ok), each (R, T), for rays (R, ...) against rows (T, 12),
-    in the operation order of tpu_restir.kernels.ray_tri._woop_tuvok."""
+    in the operation order of tpu_restir.kernels.ray_tri._woop_tuvok (also
+    the block test of the woop_mxu and cluster backends,
+    `kernels/woop.intersect_block`)."""
     ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
 
@@ -51,7 +53,10 @@ def _woop_tuvok(o, d, tn, tf, w):
         return dx * w[:, 4 * c] + dy * w[:, 4 * c + 1] + dz * w[:, 4 * c + 2]
 
     ow, dw = aff(2), lin(2)
-    t = torch.where(torch.abs(dw) > 1e-18, -ow / dw, torch.inf)
+    # the division's operand is selected too, so that a graph through it
+    # (the woop_mxu and cluster backends) has no 0 * inf = NaN
+    ok_dw = torch.abs(dw) > 1e-18
+    t = torch.where(ok_dw, -ow / torch.where(ok_dw, dw, 1.0), torch.inf)
     u = aff(0) + t * lin(0)
     v = aff(1) + t * lin(1)
     ok = ((u >= -_BARY_EPS) & (v >= -_BARY_EPS)

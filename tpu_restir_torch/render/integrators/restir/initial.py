@@ -113,9 +113,11 @@ def _brdf_candidate(u5, scene, gb, cfg):
         hit = _closest_emissive_visible(scene, o2, s.omega_i,
                                         p.tnear_offset, cfg)
     else:
-        hit = intersect.intersect_closest(scene, o2, s.omega_i,
-                                          p.tnear_offset, torch.inf,
-                                          cfg.intersector)
+        # bounce directions are incoherent: under fcluster the rays are
+        # binned into coherent packets first (initial.py:152-157)
+        hit = intersect.intersect_closest(
+            scene, o2, s.omega_i, p.tnear_offset, torch.inf,
+            dataclasses.replace(cfg.intersector, bin_rays=True))
     hi = intersect.hit_attributes(scene, o2, s.omega_i, hit)
     m2 = gather_materials(scene.materials, hi.mat_id)
     emissive = hi.did_hit & m2.is_emissive()

@@ -3,8 +3,9 @@
 attributes, per-triangle material ids, the emissive CDF, the Woop rows
 of the ray/triangle kernels and, for scenes above `cluster_size`
 triangles, the cluster blocks of the clustered traversal (and, at
-`cluster_size` 128, the Woop blocks of its Woop variant); optionally the
-texture stack and the equirect environment map."""
+`cluster_size` 128, the Woop blocks of its Woop variant) and the wide BVH
+of the 'bvh' backend; optionally the texture stack and the equirect
+environment map."""
 
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from tpu_restir_torch.accel.wide import BVH8Arrays, collapse_bvh8
 from tpu_restir_torch.kernels.cluster_trace import (WOOP_BLOCK,
                                                     build_cluster_woop)
 from tpu_restir_torch.kernels.woop import build_woop_matrices
@@ -44,6 +46,7 @@ class SceneArrays:
     cluster_size: int = 0                        # B (0: not clustered)
     # (C, 4, 384) Woop blocks of K7/K8, built only at B = 128
     cluster_woop: Optional[torch.Tensor] = None
+    bvh: Optional[BVH8Arrays] = None           # wide BVH (accel/wide.py)
     textures: Optional[TextureStack] = None   # native-size padded stack
     envmap: Optional[torch.Tensor] = None      # (He, We, 3) float32 equirect
 
@@ -64,18 +67,19 @@ def build_scene(vertices: np.ndarray, material_ids: np.ndarray,
     (He, We, 3) image; both go to `device`. Scenes above
     `cluster_size` triangles are put in BVH2 leaf order (every per-triangle
     array permuted alike) and get the cluster blocks of the clustered
-    traversal (`kernels/cluster_trace.py`), as at
-    tpu_restir/scene/scene.py:80-107; at cluster_size 128 also the Woop
-    blocks of its Woop variant (`ptrace_mxu`, K7/K8)."""
+    traversal (`kernels/cluster_trace.py`) and the wide BVH collapsed from
+    the same BVH2 (`accel/wide.py`), as at tpu_restir/scene/scene.py:80-107;
+    at cluster_size 128 also the Woop blocks of its Woop variant
+    (`ptrace_mxu`, K7/K8)."""
     v = np.asarray(vertices, np.float32)
     n_tris = v.shape[0]
-    cluster_min = cluster_max = cluster_tris = cluster_woop = None
+    cluster_min = cluster_max = cluster_tris = cluster_woop = bvh8 = None
     if n_tris > cluster_size:
         from tpu_restir_torch.accel.bvh import build_bvh2
 
-        # the BVH8 collapse of the JAX package keeps this order
-        # (tpu_restir/accel/wide.py:119), so the BVH2 order is the leaf order
-        perm = build_bvh2(v, leaf_size=4).order
+        # the collapse keeps the BVH2's order (its leaf order)
+        bvh8 = collapse_bvh8(build_bvh2(v, leaf_size=4))
+        perm = bvh8.order
         v = v[perm]
         material_ids = np.asarray(material_ids)[perm]
         if vertex_normals is not None:
@@ -123,6 +127,7 @@ def build_scene(vertices: np.ndarray, material_ids: np.ndarray,
         cluster_tris=None if cluster_tris is None else dev(cluster_tris),
         cluster_size=0 if cluster_min is None else cluster_size,
         cluster_woop=None if cluster_woop is None else dev(cluster_woop),
+        bvh=None if bvh8 is None else bvh8.to_device(device),
         textures=_as_texture_stack(textures, device),
         envmap=None if envmap is None else dev(envmap))
 
