@@ -147,11 +147,28 @@ line is not printed:
      memory, host syncs (accel.HOST_SYNCS) and the query census of
      roofline.summarize_query_log; the collapse of terrain100k's wide BVH
      is timed on the host. Its kernel launches are not in the JSON line.
- 14. one JSON line of kernel results (K1-K8; K5/K6 launches are those of
+ 14. [bench], the port's measuring entry points: `tpu_restir_torch.bench`
+     in this process (bench.py's configuration: 8 chained Cornell frames,
+     3 fwd+bwd steps, 4 chained frames each of lights1k and terrain100k,
+     and terrain1M, terrain_scene(1_000_000), in the bench's child
+     process `tools.bench_terrain1m`), the launch counts zeroed before it
+     and read after it (K1-K6 launched, K7/K8 not); its JSON line parsed:
+     bench.py's keys and metric, 28.0 traced rays per pixel (the analytic
+     count) on Cornell, lights1k, terrain100k and terrain1M, no "failed:"
+     entry; finite frames and step; terrain1M at factor 4, cull mode 5 on
+     per-cluster boxes, its child loading the kernels this process built;
+     then terrain1M built here: K5 on its frame's G-buffer query and K6 on
+     its first shadow query and on the G-buffer rays as occlusion rays
+     held to their plain versions (0 mismatches, t/u/v bit-identical),
+     and phase 1 (`cluster_trace.pack`) alone on those rays, its ms and
+     transient memory; then `tools.roofline_frame` once (per-pass ms and
+     model lines of cornell, lights1k and terrain100k).
+ 15. one JSON line of kernel results (K1-K8; K5/K6 launches are those of
      the two clustered paths, K7/K8's those of the Woop path; K1-K4 also
      carry demo_launches, per demo ReSTIR frame and, for K4, per 64x32
      texel step; every kernel dist_launches, rank 0's over the 3 sharded
-     frames, and K3 dist_ms, its time at top = halo on rank 0), then
+     frames, K3 dist_ms, its time at top = halo on rank 0, and every
+     kernel bench_launches, those of the [bench] run), then
      {"ok": true, "device": ...}.
 
 --profile=PATH also profiles two 1080p frames, one 1080p fwd+bwd step
@@ -176,7 +193,6 @@ import shutil
 import socket
 import statistics
 import struct
-import subprocess
 import sys
 import tempfile
 import time
@@ -187,10 +203,12 @@ SMALL_W, SMALL_H, SMALL_FRAMES = 64, 32, 4
 LARGE_FRAMES = 4          # timed frames per clustered scene, after 1 warm-up
 CLUSTER_SMALL_FRAMES = 2  # 64x32 frames of a clustered scene, cuda and cpu
 CLI_FRAMES, CLI_RESUMED = 8, 4   # CLI frames, then frames resumed from them
-# (view_from, view_at): the Cornell camera, and the JAX bench's terrain
-# camera (bench.py:141-145)
-CORNELL_VIEW = ((0.0, -3.9, 1.0), (0.0, 0.0, 1.0))
-TERRAIN_VIEW = ((0.0, -7.0, 4.0), (0.0, 0.0, 0.5))
+
+# the bench configuration, its cameras ((view_from, view_at): the Cornell
+# camera and the terrain camera), scenes and forward+backward step, and the
+# card's name and power limit: one place, tpu_restir_torch/bench.py
+from tpu_restir_torch.bench import (  # noqa: E402
+    CORNELL_VIEW, SCENES, TERRAIN_VIEW, bench_cfg, gpu_line)
 
 # the card's ceilings and the per-test operation counts (H100 SXM, NVIDIA's
 # data sheet at 700 W; the unfused float32 rate, as the ray/triangle
@@ -282,22 +300,6 @@ def ray_tri_ops(w, o, d, tn, tf, occ=None):
     return ops
 
 
-def bench_cfg(width, height, view=CORNELL_VIEW, mxu=False):
-    from tpu_restir_torch.config import (CameraConfig, IntersectorConfig,
-                                         RenderConfig, RenderParams,
-                                         RestirParams)
-    return RenderConfig(
-        camera=CameraConfig(width=width, height=height, fov_y_deg=45.0,
-                            view_from=view[0], view_at=view[1],
-                            pixel_sampler="random"),
-        params=RenderParams(use_skybox=False),
-        restir=RestirParams(m_area=1, m_brdf=1, do_temporal_reuse=True,
-                            do_spatial_reuse=True, spatial_neighbor_count=5,
-                            spatial_mis="pairwise"),
-        intersector=IntersectorConfig(ptrace_mxu=mxu),
-        integrator="restir")
-
-
 def path_rays_per_pixel(cfg):
     """Traced rays per pixel of one naive or NEE frame: every bounce
     traces the whole wavefront, so the naive tracer's B + 1 closest-hit
@@ -330,14 +332,6 @@ def cuda_ms(fn, reps, windows=3):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
-
-
-def gpu_line():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    require(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
 
 
 def phase_device():
@@ -671,21 +665,18 @@ def _woop_rebuild(scene, device):
 
 
 def large_scene(label, dev):
-    """terrain100k (terrain_scene(100_000), the bench camera of bench.py),
+    """terrain100k (terrain_scene(100_000), the bench's terrain camera),
     lights1k (many_lights_scene(1000), the Cornell camera), or the Woop
     variant's terrain100k-128 / terrain20k-128 (the terrain rebuilt at
     cluster size 128), built once per device -> (scene, camera view)."""
     import torch
 
-    from tpu_restir_torch.scene.cornell import many_lights_scene
     from tpu_restir_torch.scene.procedural import terrain_scene
     key = (label, str(torch.device(dev)))
     if key not in _SCENES:
         build, view = {
-            "terrain100k": (lambda d: terrain_scene(d, 100_000),
-                            TERRAIN_VIEW),
-            "lights1k": (lambda d: many_lights_scene(d, 1000),
-                         CORNELL_VIEW),
+            "terrain100k": SCENES["terrain100k"],
+            "lights1k": SCENES["lights1k"],
             "terrain100k-128": (lambda d: _woop_rebuild(
                 large_scene("terrain100k", d)[0], d), TERRAIN_VIEW),
             "terrain20k-128": (lambda d: _woop_rebuild(
@@ -949,6 +940,105 @@ def _trace_fns(kind, scene):
     }[kind]
 
 
+def hold_trace(name, scene, kind, label, pk, results):
+    """One clustered query (packets pk of scene) through the kernel of
+    kind and its plain version: ids and masks equal, t/u/v bit-identical
+    (raises otherwise); kernel and plain ms; at factor 1 the bound from
+    what the query's data needs (`trace_bound`; the counts are written
+    for factor 1, so at factor > 1 none is computed). Adds or updates the
+    kernel's JSON entry in results. -> for an any-hit kind, whether the
+    query held occluded and visible rays (None for closest hit)."""
+    import torch
+
+    from tpu_restir_torch.kernels import cluster_trace as ct
+    rp = pk.count.shape[0]
+    closest = kind.startswith("trace_closest")
+    kernel, plain = _trace_fns(kind, scene)
+    got = kernel(pk)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    want = plain(pk)
+    b.record()
+    torch.cuda.synchronize()
+    plain_ms = a.elapsed_time(b)
+    live = pk.tfar >= pk.tnear
+    if closest:
+        mis = int((got[3] != want[3]).sum())
+        hit = want[3] >= 0
+        n_pos = int(hit.sum())
+        err = max(float((g[hit] - w[hit]).abs().max()) if hit.any()
+                  else 0.0 for g, w in zip(got[:3], want[:3]))
+        what = f"tri mismatches {mis}; hits {n_pos}; max |t,u,v err| " \
+            f"{err:.3g} (0 expected: both keep the test's operation " \
+            f"order without contractions)"
+    else:
+        mis = int((got != want).sum())
+        n_pos = int(want.sum())
+        err = float((got.float() - want.float()).abs().max())
+        what = f"mask mismatches {mis}; occluded {n_pos}, visible " \
+            f"{int((live & ~want).sum())}"
+    ms = cuda_ms(lambda: kernel(pk), 5)
+    dead = int((~live[:pk.n_rays]).sum())
+    mode = ct._skip_for("closest" if closest else "any",
+                        scene.cluster_tris.shape[0], pk.factor)
+    slab = not closest and mode == 5
+    bnd, extra = None, ""
+    if pk.factor == 1:
+        bnd, whole = trace_bound(kind, scene, pk, got, slab=slab)
+        if slab:
+            n_listed, b_listed = whole.pop("listed pairs")
+            extra = f"; that bound is slab-aware (a box test of " \
+                f"{SLAB_OPS} operations a (visible ray, listed cluster) " \
+                f"pair, rows only where the ray is slab-live); with the " \
+                f"rows of every listed pair {n_listed} operations (bound " \
+                f"{b_listed[0]:.3f} ms)"
+        extra += "; the whole test on every pair: " + ", ".join(
+            f"{n} {what} (bound {b[0]:.3f} ms)"
+            for what, (n, b) in whole.items())
+        if mode == 5:
+            listed_n, live_share, warp_share, kept_share = slab_live_share(
+                scene, pk, want, woop=kind.endswith("_mxu"))
+            extra += f"; listed (visible ray, cluster) pairs " \
+                f"{listed_n}: slab-live {live_share:.4f}, in warps that " \
+                f"test the slot {warp_share:.4f}, in slots the block " \
+                f"stages {kept_share:.4f}"
+    bound_text = "bound not computed (its counts are written for " \
+        "factor 1)" if bnd is None else \
+        f"bound {bnd[0]:.3f} ms ({bnd[1]}; operations counted per " \
+        f"(ray, row)), bound/kernel {bnd[0] / ms:.2f}"
+    if kind.endswith("_mxu"):
+        # the fused Moller-Trumbore kernel on the same scene and packets
+        other = kind[:-4]
+        ms_mt = cuda_ms(lambda: _trace_fns(other, scene)[0](pk), 5)
+        extra += f"; {other} (K5/K6) on the same packets {ms_mt:.3f} ms"
+    print(f"[K5-K8 {kind}] {name} {label}: {pk.n_rays} rays in "
+          f"{rp} packets, {dead} dead after the scene-box clamp; C="
+          f"{scene.cluster_tris.shape[0]} clusters of "
+          f"{scene.cluster_tris.shape[1]}, factor {pk.factor}, S="
+          f"{pk.shortlist.shape[1]}, mean shortlist "
+          f"{float(pk.count.float().mean()):.1f}, cull mode {mode}; "
+          f"the whole query against the plain version: {what} (must be "
+          f"0 mismatches); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"{bound_text}{extra}", flush=True)
+    require(mis == 0, f"{kind} {name} {label}: kernel and plain version "
+            f"differ on {mis} rays")
+    if closest:
+        require(n_pos > 0, f"{kind} {name} {label}: no ray hit")
+    require(err == 0.0, f"{kind} {name} {label}: t/u/v differ by {err}, "
+            f"not bit-identical")
+    if bnd is not None:
+        results.setdefault(kind, {"max_abs_err": 0.0, "ms": ms,
+                                  "plain_ms": plain_ms, "bound_ms": bnd[0],
+                                  "bound_by": bnd[1], "library_ms": None})
+        if mode == 5:
+            results[kind].setdefault("slab_live_share", live_share)
+    results[kind]["max_abs_err"] = max(results[kind]["max_abs_err"], err)
+    if not closest:
+        return bool(n_pos) and bool((live & ~want).any())
+    return None
+
+
 def phase_ptrace_kernels(dev, results,
                          scenes=("terrain100k", "lights1k", "terrain100k-128")):
     """K5-K8 against their plain versions on the card, both on the whole
@@ -985,87 +1075,8 @@ def phase_ptrace_kernels(dev, results,
                            "G-buffer rays as occlusion rays", closest_pk))
     both_sides = set()   # (scene, any-hit kind) held to occluded and visible
     for name, scene, kind, label, pk in checks:
-        rp = pk.count.shape[0]
-        closest = kind.startswith("trace_closest")
-        kernel, plain = _trace_fns(kind, scene)
-        got = kernel(pk)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        want = plain(pk)
-        b.record()
-        torch.cuda.synchronize()
-        plain_ms = a.elapsed_time(b)
-        live = pk.tfar >= pk.tnear
-        if closest:
-            mis = int((got[3] != want[3]).sum())
-            hit = want[3] >= 0
-            n_pos = int(hit.sum())
-            err = max(float((g[hit] - w[hit]).abs().max()) if hit.any()
-                      else 0.0 for g, w in zip(got[:3], want[:3]))
-            what = f"tri mismatches {mis}; hits {n_pos}; max |t,u,v err| " \
-                f"{err:.3g} (0 expected: both keep the test's operation " \
-                f"order without contractions)"
-        else:
-            mis = int((got != want).sum())
-            n_pos = int(want.sum())
-            err = float((got.float() - want.float()).abs().max())
-            what = f"mask mismatches {mis}; occluded {n_pos}, visible " \
-                f"{int((live & ~want).sum())}"
-            if n_pos and bool((live & ~want).any()):
-                both_sides.add((name, kind))
-        ms = cuda_ms(lambda: kernel(pk), 5)
-        dead = int((~live[:pk.n_rays]).sum())
-        mode = ct._skip_for("closest" if closest else "any",
-                            scene.cluster_tris.shape[0], pk.factor)
-        slab = not closest and mode == 5
-        bnd, whole = trace_bound(kind, scene, pk, got, slab=slab)
-        extra = ""
-        if slab:
-            n_listed, b_listed = whole.pop("listed pairs")
-            extra = f"; that bound is slab-aware (a box test of " \
-                f"{SLAB_OPS} operations a (visible ray, listed cluster) " \
-                f"pair, rows only where the ray is slab-live); with the " \
-                f"rows of every listed pair {n_listed} operations (bound " \
-                f"{b_listed[0]:.3f} ms)"
-        extra += "; the whole test on every pair: " + ", ".join(
-            f"{n} {what} (bound {b[0]:.3f} ms)"
-            for what, (n, b) in whole.items())
-        if mode == 5:
-            listed_n, live_share, warp_share, kept_share = slab_live_share(
-                scene, pk, want, woop=kind.endswith("_mxu"))
-            extra += f"; listed (visible ray, cluster) pairs {listed_n}: " \
-                f"slab-live {live_share:.4f}, in warps that test the slot " \
-                f"{warp_share:.4f}, in slots the block stages " \
-                f"{kept_share:.4f}"
-        if kind.endswith("_mxu"):
-            # the fused Moller-Trumbore kernel on the same scene and packets
-            other = kind[:-4]
-            ms_mt = cuda_ms(lambda: _trace_fns(other, scene)[0](pk), 5)
-            extra += f"; {other} (K5/K6) on the same packets {ms_mt:.3f} ms"
-        print(f"[K5-K8 {kind}] {name} {label}: {pk.n_rays} rays in "
-              f"{rp} packets, {dead} dead after the scene-box clamp; C="
-              f"{scene.cluster_tris.shape[0]} clusters of "
-              f"{scene.cluster_tris.shape[1]}, mean shortlist "
-              f"{float(pk.count.float().mean()):.1f}, cull mode {mode}; "
-              f"the whole query against the plain version: {what} (must be "
-              f"0 mismatches); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {bnd[0]:.3f} ms ({bnd[1]}; operations counted per "
-              f"(ray, row)), bound/kernel {bnd[0] / ms:.2f}{extra}",
-              flush=True)
-        require(mis == 0, f"{kind} {name} {label}: kernel and plain version "
-                f"differ on {mis} rays")
-        if closest:
-            require(n_pos > 0, f"{kind} {name} {label}: no ray hit")
-        require(err == 0.0, f"{kind} {name} {label}: t/u/v differ by {err}, "
-                f"not bit-identical")
-        e = results.setdefault(kind, {"max_abs_err": 0.0, "ms": ms,
-                                      "plain_ms": plain_ms,
-                                      "bound_ms": bnd[0], "bound_by": bnd[1],
-                                      "library_ms": None})
-        e["max_abs_err"] = max(e["max_abs_err"], err)
-        if mode == 5:
-            e.setdefault("slab_live_share", live_share)
+        if hold_trace(name, scene, kind, label, pk, results):
+            both_sides.add((name, kind))
     lacking = {(name, kind) for name, _s, kind, _l, _p in checks
                if kind.startswith("trace_any")} - both_sides
     require(not lacking, f"any-hit kernels not held to a query with both "
@@ -1140,9 +1151,9 @@ def timed_frames(scene, cfg, dev, n_frames):
 
 def scene_and_view(label, dev):
     """(scene on dev, camera view) of "cornell" or a clustered scene."""
-    from tpu_restir_torch import cornell_box
     if label == "cornell":
-        return cornell_box(dev), CORNELL_VIEW
+        build, view = SCENES["cornell"]
+        return build(dev), view
     return large_scene(label, dev)
 
 
@@ -2156,19 +2167,12 @@ def _launches():
 
 
 def bench_step(dev, width, height, label="cornell"):
-    """The JAX bench's forward+backward step (bench.py:114-126): a callable
-    params -> (loss, grads) and the parameters at the scene's values."""
-    import torch
-
-    from tpu_restir_torch.diff.params import extract_params
-    from tpu_restir_torch.diff.render import make_value_and_grad
-    from tpu_restir_torch.render import camera as cam_mod
+    """The bench's forward+backward step (`bench.fwd_bwd_step`) on a scene
+    at width x height: a callable params -> (loss, grads) and the
+    parameters at the scene's values."""
+    from tpu_restir_torch import bench
     scene, view = scene_and_view(label, dev)
-    cfg = bench_cfg(width, height, view)
-    cam = cam_mod.make_camera(cfg.camera, dev)
-    target = torch.zeros((height, width, 3), device=dev)
-    return (make_value_and_grad(scene, cam, cfg, (1,), target),
-            extract_params(scene))
+    return bench.fwd_bwd_step(scene, bench_cfg(width, height, view), dev)
 
 
 def phase_fwd_bwd(dev, smi):
@@ -2858,6 +2862,144 @@ def phase_backends(dev, smi):
     print(f"[backends] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# the [bench] phase: the labels of the bench line's secondary entries and
+# the kernels of the bench's path (K1-K6; ptrace_mxu is off in the bench)
+BENCH_ENTRIES = ("lights1k", "terrain100k", "terrain1M")
+BENCH_KERNELS = ("closest_hit", "any_hit", "gather_local", "scatter_local",
+                 "trace_closest", "trace_any")
+
+
+def phase_bench(dev, smi, results):
+    """[bench]: `tpu_restir_torch.bench` run in this process (its terrain1M
+    child a process of its own, which must load the kernels that this one
+    built), the launch counts zeroed just before and read just after; its
+    last line parsed: bench.py's keys and metric, a traced rays per pixel
+    of 28.0 (the analytic count) on Cornell, lights1k, terrain100k and
+    terrain1M, no "failed:" entry; every frame and the step finite, the
+    exact traced rays 28 a pixel, terrain1M at factor 4 with cull mode 5
+    on per-cluster boxes; K1-K6 launched and K7/K8 not. Then terrain1M
+    built here: K5 on its frame's G-buffer query and K6 on its first
+    shadow query and on the G-buffer rays as occlusion rays, against
+    their plain versions (0 mismatches, t/u/v bit-identical). Then the
+    whole-frame roofline (`tools.roofline_frame`) once, its blocks
+    printed. -> the bench's launch counts."""
+    import io
+    import re
+
+    import torch
+
+    from tpu_restir_torch import bench, metrics
+    from tpu_restir_torch.tools import roofline_frame
+    t0 = time.perf_counter()
+    _zero_launches()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            _obj, report = bench.main(["--device", str(dev)])
+    finally:
+        print(buf.getvalue(), end="", flush=True)
+    launches = _launches()
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    unit = line["unit"]
+    n_pix = WIDTH * HEIGHT
+    analytic = metrics.rays_per_pixel(bench_cfg(WIDTH, HEIGHT))
+    require(list(line) == ["metric", "value", "unit", "vs_baseline"]
+            and line["metric"] == bench.METRIC,
+            f"the bench line lacks bench.py's keys or metric: {line}")
+    require("failed:" not in unit, f"a bench entry failed: {unit}")
+    main_rpp = re.search(r"rpp ([0-9.]+) traced/([0-9]+) analytic\)$", unit)
+    require(main_rpp is not None
+            and float(main_rpp.group(1)) == float(analytic) == 28.0
+            and int(main_rpp.group(2)) == analytic,
+            f"Cornell's traced rays per pixel: {unit}")
+    for label in BENCH_ENTRIES:
+        m = re.search(rf"{label} ([0-9.]+) \(rpp ([0-9.]+)\)", unit)
+        require(m is not None and float(m.group(2)) == float(analytic),
+                f"{label}: no entry with {analytic}.0 traced rays per "
+                f"pixel in {unit}")
+    t1m = report["terrain1M"]
+    require(t1m is not None, "the terrain1M child printed no info line")
+    report["rays"]["terrain1M"] = t1m["rays"]
+    report["finite"]["terrain1M"] = t1m["finite"]
+    require(all(v == analytic * n_pix for v in report["rays"].values()),
+            f"traced rays a frame {report['rays']}, want {analytic * n_pix}")
+    require(all(report["finite"].values()) and report["step_finite"],
+            f"non-finite frames or step: {report['finite']}, step "
+            f"{report['step_finite']}")
+    require(t1m["factor"] == 4 and t1m["cull_modes"]
+            == {"closest": 5, "any": 5} and t1m["per_cluster_boxes"],
+            f"terrain1M is not at factor 4 in cull mode 5 on per-cluster "
+            f"boxes: {t1m}")
+    require(not t1m["rebuilt_kernels"],
+            f"the terrain1M child rebuilt {t1m['rebuilt_kernels']}")
+    missing = [k for k in BENCH_KERNELS if not launches[k]]
+    require(not missing, f"kernels of the bench's path never launched: "
+            f"{missing} ({launches})")
+    require(not launches["trace_closest_mxu"]
+            and not launches["trace_any_mxu"],
+            f"K7/K8 ran with ptrace_mxu off: {launches}")
+    print(f"[bench] line parsed: {line['value']} Mrays/s fwd+bwd; traced "
+          f"rays a frame {report['rays']}; ms/frame "
+          + ", ".join(f"{k} {v:.2f}" for k, v in report["ms_frame"].items())
+          + f", terrain1M {t1m['ms_frame']:.2f}; step {report['step_ms']:.2f}"
+          f" ms; peak memory "
+          + ", ".join(f"{k} {bench.fmt_gib(v)}"
+                      for k, v in report["peak_gib"].items())
+          + f", terrain1M {bench.fmt_gib(t1m['peak_gib'])}; terrain1M "
+          f"build " + ", ".join(f"{k} {v:.2f} s" for k, v
+                                in t1m["build_seconds"].items())
+          + f"; launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+
+    t1 = time.perf_counter()
+    build, view = SCENES["terrain1M"]
+    scene = build(dev)
+    print(f"[bench] terrain1M rebuilt here for the K5/K6 hold in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    closest_pk, any_pk = capture_packets(scene, bench_cfg(WIDTH, HEIGHT,
+                                                          view), dev)
+    require(closest_pk.factor == any_pk.factor == 4,
+            f"terrain1M packets at factor {closest_pk.factor}")
+    sides = [hold_trace("terrain1M", scene, kind, label, pk, results)
+             for kind, label, pk in (
+                 ("trace_closest", "G-buffer primary rays", closest_pk),
+                 ("trace_any", "area-candidate shadow rays", any_pk),
+                 ("trace_any", "G-buffer rays as occlusion rays",
+                  closest_pk))]
+    require(any(sides), "K6 on terrain1M not held to a query with both "
+            "occluded and visible rays")
+    # phase 1 alone (cluster_trace.pack: the scene-box clamp and the dense
+    # (packets, superclusters) shortlists) on the same rays, and the memory
+    # it holds beyond what was allocated before it
+    from tpu_restir_torch.kernels import cluster_trace as ct
+    for label, pk in (("G-buffer", closest_pk), ("shadow", any_pk)):
+        rays = (pk.o[:pk.n_rays], pk.d[:pk.n_rays], pk.tnear[:pk.n_rays],
+                pk.tfar[:pk.n_rays])
+        args = (scene.cluster_min, scene.cluster_max, *rays, pk.factor)
+        ms = cuda_ms(lambda: ct.pack(*args), 3)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ct.pack(*args)
+        torch.cuda.synchronize()
+        extra_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        print(f"[bench] terrain1M phase 1 ({label} query, {pk.n_rays} rays, "
+              f"{pk.count.shape[0]} packets x S={pk.shortlist.shape[1]}): "
+              f"{ms:.3f} ms a query; x 28 queries {28 * ms:.1f} ms = "
+              f"{28 * ms / t1m['ms_frame']:.1%} of the child's "
+              f"{t1m['ms_frame']:.1f} ms/frame; transient memory "
+              f"{extra_gib:.2f} GiB ({smi})", flush=True)
+    del scene, closest_pk, any_pk
+    torch.cuda.empty_cache()
+
+    t2 = time.perf_counter()
+    roofline_frame.main(["--device", str(dev)])
+    print(f"[bench] the whole-frame roofline ({roofline_frame.INNER} chained "
+          f"frames a prefix) in {time.perf_counter() - t2:.1f} s; the phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 DIST_RANKS = 2    # ranks of the [dist] phase, sharing cuda:0 under gloo
 DIST_SIZE = (1920, 1080)
 DIST_FRAMES = 3   # sharded bench frames; the first is the warm-up
@@ -3213,6 +3355,7 @@ def main():
     phase_denoise_cost(dev, smi)
     dist = phase_dist(dev, name, smi)
     phase_backends(dev, smi)
+    bench_launches = phase_bench(dev, smi, results)
     profile = [a.split("=", 1)[1] for a in sys.argv[1:]
                if a.startswith("--profile=")]
     if profile:
@@ -3251,6 +3394,7 @@ def main():
                    if key in results[k]},
                 **({"demo_launches": demo[k]} if k in demo else {}),
                 "dist_launches": dist["launches"][k],
+                "bench_launches": bench_launches[k],
                 **({"dist_ms": dist["k3"]["ms"]}
                    if k == "gather_local" else {})}
                for k, (src, rep) in meta.items()]

@@ -8,6 +8,8 @@ its Woop variant), queries the terrain under each fallback backend, loads
 16x16 render and with the demo asset and its sky, takes the demo's
 roughness and texel gradients, runs the row-sharded step and
 value_and_grad of `dist` on a one-rank mesh, reads a Radiance .hdr sky,
+runs the bench's functions at 16x16 on small scenes and imports its
+terrain1M child and the whole-frame roofline (`tpu_restir_torch.tools`),
 and neither JAX nor the JAX package
 (`tpu_restir`) may be loaded, nor an imaging package (PIL, imageio). It runs in a subprocess because the test
 session itself has JAX loaded (the root conftest configures it).
@@ -123,6 +125,17 @@ with open(os.path.join(tmp, "sky.hdr"), "wb") as f:
     f.write(b"#?RADIANCE\\nFORMAT=32-bit_rle_rgbe\\n\\n-Y 1 +X 2\\n"
             + bytes([128, 64, 32, 129, 128, 64, 32, 131]))
 assert float(with_sky(scene, os.path.join(tmp, "sky.hdr")).envmap.max()) > 4.0
+from tpu_restir_torch import bench
+from tpu_restir_torch.tools import bench_terrain1m, roofline_frame
+small = dict(bench.SCENES,
+             lights1k=(lambda d: many_lights_scene(d, 50), bench.CORNELL_VIEW),
+             terrain100k=(lambda d: terrain_scene(d, 600), bench.TERRAIN_VIEW))
+line, _rep = bench.run_bench(
+    "cpu", 16, 16, scenes=small, n_frames=1, n_steps=1, n_secondary=1,
+    child=[sys.executable, "-c", "print('TERRAIN1M 1.0 rpp 28.0')"])
+assert "failed:" not in line["unit"] and "rpp 28.0 traced/28" in line["unit"]
+assert bench_terrain1m.scene_info(terrain)["factor"] == 1
+assert roofline_frame.INNER == 4
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "tpu_restir"))
 print("LOADED", bad)

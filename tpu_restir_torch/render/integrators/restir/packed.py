@@ -27,7 +27,9 @@ from tpu_restir_torch.render.integrators.restir.reservoir import (
 from tpu_restir_torch.scene.materials import MatType
 
 GB_CH = 19
+RES_CH = 13
 GB_CH_SLIM = 12
+RES_CH_SLIM = 12
 
 # Types whose BRDF eval reads specular/shininess/inv_i_m at a surface. The
 # set omits NORMAL as the reference's does (a known defect of the
