@@ -47,14 +47,21 @@ line is not printed:
      mean; ms/frame, Mrays/s and a per-pass breakdown are printed.
      Then [integrators], the naive and NEE path tracers at 1920x1080
      through Renderer (PATH_RUNS: naive, NEE area/BRDF/MIS/RIS and the
-     MIS weights on Cornell through K1/K2; NEE-RIS on lights1k through
+     MIS weights on Cornell through K1/K2; NEE-RIS on lights1k, and
+     naive and NEE-MIS on terrain100k from the terrain camera, through
      K5/K6), each after a warm-up frame: traced rays per pixel equal to
      path_rays_per_pixel (6 naive, 18 NEE-MIS), one kernel launch per
      logged query (K5/K6: per chunk) and no other kernel, finite frames,
-     ms/frame and Mrays/s; the four strategies without GI agree on the
+     ms/frame, Mrays/s and peak memory; on terrain100k one more frame of
+     each, the shortlist count of every query by bounce and role (mean,
+     p50, p95, p99, max of C), and K5 on the bounce-1 path query and K6
+     on the bounce-1 shadow query held to their plain versions (the
+     whole query, or every 16th packet where the plain version would take
+     over HOLD_BUDGET_S); the four strategies without GI agree on the
      1080p mean; the weights stay in [0, 1] off the emitters; 64x32
-     naive and NEE-MIS frames on cuda and cpu allclose on at least 99%
-     of the pixels.
+     naive and NEE-MIS frames, and a NEE-MIS frame of the clustered
+     terrain_scene(5_000), on cuda and cpu allclose on at least 99% of
+     the pixels.
      Then [demo], the demo asset (assets/demo: 78 triangles, all six Pc
      material classes, diffuse, specular and normal maps, the env.pfm
      sky) loaded on the card through the port's loader: 78 triangles
@@ -147,7 +154,14 @@ line is not printed:
      memory, host syncs (accel.HOST_SYNCS) and the query census of
      roofline.summarize_query_log; the collapse of terrain100k's wide BVH
      is timed on the host. Its kernel launches are not in the JSON line.
- 14. [bench], the port's measuring entry points: `tpu_restir_torch.bench`
+ 14. [tools], the JAX system's profilers and scaling bench as the port
+     has them (`tpu_restir_torch.tools`): profile_ptrace and
+     profile_phase1 on terrain100k's 1080p primary-ray query (the phase
+     split, the shortlist counts and rounds; phase 1's alternatives and
+     how far their slots agree with `build_shortlists`), scaling_bench
+     with 2 ranks sharing the card at 1920x1080 (t1 against tN, the halo
+     bytes by the JAX formula and as sent).
+ 15. [bench], the port's measuring entry points: `tpu_restir_torch.bench`
      in this process (bench.py's configuration: 8 chained Cornell frames,
      3 fwd+bwd steps, 4 chained frames each of lights1k and terrain100k,
      and terrain1M, terrain_scene(1_000_000), in the bench's child
@@ -160,10 +174,12 @@ line is not printed:
      then terrain1M built here: K5 on its frame's G-buffer query and K6 on
      its first shadow query and on the G-buffer rays as occlusion rays
      held to their plain versions (0 mismatches, t/u/v bit-identical),
+     with their bounds at factor 4 (each distinct (ray, cluster) pair of
+     the supercluster expansion once, slab-aware in cull mode 5),
      and phase 1 (`cluster_trace.pack`) alone on those rays, its ms and
      transient memory; then `tools.roofline_frame` once (per-pass ms and
      model lines of cornell, lights1k and terrain100k).
- 15. one JSON line of kernel results (K1-K8; K5/K6 launches are those of
+ 16. one JSON line of kernel results (K1-K8; K5/K6 launches are those of
      the two clustered paths, K7/K8's those of the Woop path; K1-K4 also
      carry demo_launches, per demo ReSTIR frame and, for K4, per 64x32
      texel step; every kernel dist_launches, rank 0's over the 3 sharded
@@ -736,14 +752,57 @@ def capture_packets(scene, cfg, dev):
     return got["closest"], got["any"]
 
 
-def closest_pairs(pk, t):
-    """(per ray, per packet): the (live ray, listed slot) pairs that a
-    closest-hit query at factor 1 needs, whose result has the t given.
-    Per ray: each live ray against the listed slots whose entry distance
-    is at most its own min(t, tfar), the least any front-to-back traversal
-    of these shortlists must test. Per packet: every live ray of a packet
-    against the listed slots whose entry is within the packet's largest
-    min(t, tfar), the count of a traversal that stops per packet."""
+def distinct_slots(pk, c):
+    """The (packet, cluster) pairs that the shortlists of packets pk list
+    in a scene of c clusters, slot by slot in order, at most
+    `_REF_PACKETS` packets at a time: yields (packets (A,), shortlist
+    position q, clusters (A,)). Slot j of a packet lists supercluster
+    q = j // F and cluster min(sl[q] F + j % F, c - 1), as the kernels and
+    `cluster_trace._slots` expand it; a slot that the clamp makes repeat
+    the last cluster (where c is not a multiple of F) is left out, so each
+    distinct pair comes once: the repeats are the kernels' overhead, not
+    work the query needs. At factor 1, the listed slots themselves."""
+    import torch
+
+    from tpu_restir_torch.kernels import cluster_trace as ct
+    f = pk.factor
+    n_slots = int(pk.count.max()) * f if pk.count.numel() else 0
+    for j in range(n_slots):
+        q, r = divmod(j, f)
+        act = pk.count > q
+        if f > 1:
+            act &= pk.shortlist[:, q] * f + r < c
+        act = torch.nonzero(act)[:, 0]
+        for k in range(0, act.shape[0], ct._REF_PACKETS):
+            a = act[k:k + ct._REF_PACKETS]
+            sc = pk.shortlist[a, q].long()
+            yield a, q, sc if f == 1 else sc * f + r
+
+
+def listed_clusters(pk, c):
+    """(Rp, S) int64: the distinct clusters that each shortlist entry of
+    packets pk lists in a scene of c clusters (F, fewer for the last
+    supercluster where c is not a multiple of F; 1 at factor 1), 0 past a
+    packet's count."""
+    import torch
+    f = pk.factor
+    n = torch.clamp(c - pk.shortlist.long() * f, max=f)
+    listed = torch.arange(pk.shortlist.shape[1], device=n.device)[None] \
+        < pk.count[:, None]
+    return torch.where(listed, n, 0)
+
+
+def closest_pairs(pk, t, c):
+    """(per ray, per packet): the (live ray, cluster) pairs that a
+    closest-hit query of a scene of c clusters needs, whose result has
+    the t given; a cluster's entry distance is that of its shortlist entry
+    (its supercluster's at factor F > 1), and each distinct cluster counts
+    once (`distinct_slots`). Per ray: each live ray against the listed
+    clusters whose entry distance is at most its own min(t, tfar), the
+    least any front-to-back traversal of these shortlists must test. Per
+    packet: every live ray of a packet against the listed clusters whose
+    entry is within the packet's largest min(t, tfar), the count of a
+    traversal that stops per packet."""
     import torch
 
     from tpu_restir_torch.kernels import cluster_trace as ct
@@ -751,35 +810,39 @@ def closest_pairs(pk, t):
     live = (pk.tfar >= pk.tnear).view(rp, ct.P)
     count = pk.count.long()
     reach = torch.minimum(t.view(rp, ct.P), pk.tfar.view(rp, ct.P))
+    n = listed_clusters(pk, c)
     # entries ascend along a row (+inf past count): a searchsorted count
-    within = torch.searchsorted(pk.entry, reach.contiguous(), right=True)
-    per_ray = int(torch.where(live, torch.minimum(within, count[:, None]),
-                              0).sum())
+    # of the entries within reach, then the clusters those entries list
+    within = torch.minimum(
+        torch.searchsorted(pk.entry, reach.contiguous(), right=True),
+        count[:, None])
+    upto = torch.cat([n.new_zeros((rp, 1)), n.cumsum(1)], 1)
+    per_ray = int(torch.where(live, upto.gather(1, within), 0).sum())
     top = torch.where(live, reach, -float("inf")).amax(1)
-    listed = torch.arange(pk.entry.shape[1], device=count.device)[None] \
-        < count[:, None]
-    needed = ((pk.entry <= top[:, None]) & listed).sum(1)
+    needed = torch.where(pk.entry <= top[:, None], n, 0).sum(1)
     per_packet = int((live.sum(1) * needed).sum())
     return per_ray, per_packet
 
 
 def trace_ops(kind, scene, pk, out, slab=False):
-    """Operations per ray (Rp*P,) that a clustered query at factor 1 needs,
-    from the plain test slot by slot in shortlist order: closest hit, each
-    live ray every row of the listed slots whose entry is within its own
-    min(t, tfar) at the end (as `closest_pairs` counts them); any hit, each
-    visible live ray every row of every listed slot, each occluded ray one
-    whole test; a dead ray none. Rows by mt_row_ops, or woop_row_ops under
-    ptrace_mxu (closest hit: the least hit t carried from slot to slot).
-    slab (any hit, cull mode 5): a visible live ray pays its reciprocal
-    direction once and one box test (SLAB_OPS) per listed slot, and the
-    rows of only the slots whose box `slab_live_ref` leaves it (upper =
-    tfar), since the slab test rules the others out; K8's boxes are
-    `woop_cull_boxes` of the cluster AABBs, as it culls."""
+    """Operations per ray (Rp*P,) that a clustered query needs, from the
+    plain test over the distinct listed clusters in shortlist order
+    (`distinct_slots`; at factor F > 1 a cluster's entry distance is its
+    supercluster's): closest hit, each live ray every row of the listed
+    clusters whose entry is within its own min(t, tfar) at the end (as
+    `closest_pairs` counts them); any hit, each visible live ray every row
+    of every listed cluster, each occluded ray one whole test; a dead ray
+    none. Rows by mt_row_ops, or woop_row_ops under ptrace_mxu (closest
+    hit: the least hit t carried from slot to slot). slab (cull mode 5:
+    K6 and K8, and K5 at F > 1): a ray that would test a cluster pays its
+    reciprocal direction once and one box test (SLAB_OPS) per such
+    cluster, and the rows of only the clusters whose cull box
+    `slab_live_ref` leaves it, since the slab test rules the others out
+    (upper: tfar for any hit, min(t, tfar) for closest hit); the boxes are
+    those the kernels cull on (`cull_boxes`)."""
     import torch
 
     from tpu_restir_torch.kernels import cluster_trace as ct
-    require(pk.factor == 1, "the count is written for factor 1")
     woop = kind.endswith("_mxu")
     closest = kind.startswith("trace_closest")
     blocks = scene.cluster_woop if woop else scene.cluster_tris
@@ -793,64 +856,64 @@ def trace_ops(kind, scene, pk, out, slab=False):
         need = need & ~out.view(rp, 1, ct.P)
     ops = torch.zeros((rp, ct.P), dtype=torch.int64, device=pk.o.device)
     if slab:
-        require(not closest, "the slab count is K6's and K8's")
         o = pk.o.view(rp, 1, ct.P, 3)
         d = pk.d.view(rp, 1, ct.P, 3)
-        bmin, bmax = cull_boxes(scene, woop)
+        bmin, bmax, per_cluster = cull_boxes(scene, woop, pk.factor)
+        upper = reach if closest else tf
         ops += SAFE_INV_OPS * need.view(rp, ct.P).long()
-    for j in range(int(pk.count.max()) if rp else 0):
-        act = torch.nonzero(pk.count > j)[:, 0]
-        for k in range(0, act.shape[0], ct._REF_PACKETS):
-            a = act[k:k + ct._REF_PACKETS]
-            cl = pk.shortlist[a, j].long()
-            tr = blocks[cl]
-            r = [x[a] for x in ray]
-            slot = need[a]
+    for a, q, cl in distinct_slots(pk, blocks.shape[0]):
+        tr = blocks[cl]
+        r = [x[a] for x in ray]
+        slot = need[a]
+        if closest:
+            slot = slot & (pk.entry[a, q, None, None] <= reach[a])
+        if slab:
+            box = cl if per_cluster else pk.shortlist[a, q].long()
+            ops[a] += SLAB_OPS * slot[:, 0].long()
+            slot = slot & ct.slab_live_ref(
+                o[a], d[a], tn[a], upper[a], bmin[box, None, None],
+                bmax[box, None, None])
+        if woop:
+            t, u, _v, ok = ct._woop(tr, *r, tn[a], tf[a])
+            rows = woop_row_ops(t, u, ok, tn[a], tf[a],
+                                best[a] if closest else None)
             if closest:
-                slot = slot & (pk.entry[a, j, None, None] <= reach[a])
-            if slab:
-                ops[a] += SLAB_OPS * slot[:, 0].long()
-                slot = slot & ct.slab_live_ref(
-                    o[a], d[a], tn[a], tf[a], bmin[cl, None, None],
-                    bmax[cl, None, None])
-            if woop:
-                t, u, _v, ok = ct._woop(tr, *r, tn[a], tf[a])
-                rows = woop_row_ops(t, u, ok, tn[a], tf[a],
-                                    best[a] if closest else None)
-                if closest:
-                    best[a] = torch.minimum(
-                        best[a], torch.where(ok, t, math.inf).amin(
-                            1, keepdim=True))
-            else:
-                u = ct._mt(tr, *r, tn[a], tf[a])[1]
-                rows = mt_row_ops(u, mt_det(tr, *r[3:]))
-            ops[a] += torch.where(slot, rows, 0).sum(1)
+                best[a] = torch.minimum(
+                    best[a], torch.where(ok, t, math.inf).amin(
+                        1, keepdim=True))
+        else:
+            u = ct._mt(tr, *r, tn[a], tf[a])[1]
+            rows = mt_row_ops(u, mt_det(tr, *r[3:]))
+        ops[a] += torch.where(slot, rows, 0).sum(1)
     if not closest:
         ops += (WOOP_OPS if woop else MT_OPS) * out.view(rp, ct.P).long()
     return ops.reshape(-1)
 
 
-def cull_boxes(scene, woop):
-    """The boxes of the any-hit kernels' mode-5 cull at factor 1: the
-    cluster AABBs (K6), or K8's grown by the Woop test's reach
+def cull_boxes(scene, woop, factor=1):
+    """The boxes of the mode-5 cull -> (bmin, bmax, per_cluster): the
+    cluster AABBs (K6, and K5 at factor > 1) while the kernels cull per
+    cluster, else the supercluster AABBs (`cluster_trace.cull_boxes`); or
+    K8's, the cluster AABBs grown by the Woop test's reach
     (`cluster_trace.woop_cull_boxes`)."""
     from tpu_restir_torch.kernels import cluster_trace as ct
     if woop:
-        return ct.woop_cull_boxes(scene.cluster_min, scene.cluster_max)
-    return scene.cluster_min, scene.cluster_max
+        return (*ct.woop_cull_boxes(scene.cluster_min, scene.cluster_max),
+                True)
+    return ct.cull_boxes(scene.cluster_min, scene.cluster_max, factor)
 
 
 def trace_bound(kind, scene, pk, out, slab=False):
-    """The bound of a clustered query at factor 1, from what its data
-    needs: the operations of `trace_ops` (slab: K6's or K8's count in cull
-    mode 5, box tests and the rows of slab-live pairs). Bytes: the rays, the
-    outputs, the listed shortlist entries (id and entry distance) and
-    every cluster block once. -> ((bound_ms, bound_by), {what: (count,
-    bound)}) where the second part holds for comparison the bound of the
-    rows of every listed pair (with slab: "listed pairs") and the (ray,
-    triangle) pairs that the listed count tests, with the whole test on
-    each ("pairs"), and for closest hit the same counted per packet
-    ("pairs per packet")."""
+    """The bound of a clustered query, from what its data needs: the
+    operations of `trace_ops` (slab: in cull mode 5, box tests and the
+    rows of slab-live pairs). Bytes: the rays, the outputs, the listed
+    shortlist entries (id and entry distance) and every cluster block
+    once. -> ((bound_ms, bound_by), {what: (count, bound)}) where the
+    second part holds for comparison the bound of the rows of every needed
+    pair (with slab: "listed pairs") and the (ray, triangle) pairs that
+    the listed count tests, with the whole test on each ("pairs"), and for
+    closest hit the same counted per packet ("pairs per packet"). Each
+    distinct (ray, cluster) pair counts once at any factor."""
     from tpu_restir_torch.kernels import cluster_trace as ct
     woop = kind.endswith("_mxu")
     if woop:
@@ -859,22 +922,23 @@ def trace_bound(kind, scene, pk, out, slab=False):
     else:
         rows, whole = scene.cluster_tris.shape[1], MT_OPS
         block_bytes = scene.cluster_tris[0].numel() * 4
+    c = scene.cluster_tris.shape[0]
     rp = pk.count.shape[0]
     live = (pk.tfar >= pk.tnear).view(rp, ct.P)
     count = pk.count.long()
     if kind.startswith("trace_closest"):
-        per_ray, per_packet = closest_pairs(pk, out[0])
+        per_ray, per_packet = closest_pairs(pk, out[0], c)
         pairs = {"pairs": per_ray * rows, "pairs per packet": per_packet * rows}
         out_bytes = 16
     else:
         occ = out.view(rp, ct.P)
         visible = (live & ~occ).sum(1)
-        pairs = {"pairs": int((visible * count).sum()) * rows
-                 + int(occ.sum())}
+        pairs = {"pairs": int((visible * listed_clusters(pk, c).sum(1))
+                              .sum()) * rows + int(occ.sum())}
         out_bytes = 1
     n = pk.o.shape[0]
     n_bytes = n * (RAY_BYTES + out_bytes) + int(count.sum()) * 8 \
-        + scene.cluster_tris.shape[0] * block_bytes
+        + c * block_bytes
     listed_ops = int(trace_ops(kind, scene, pk, out).sum())
     extra = {k: (v, bound(n_bytes, v * whole)) for k, v in pairs.items()}
     if not slab:
@@ -886,32 +950,39 @@ def trace_bound(kind, scene, pk, out, slab=False):
 
 
 def slab_live_share(scene, pk, occ, chunk=16, woop=False):
-    """An any-hit query in cull mode 5 at factor 1: (listed (visible live
-    ray, cluster) pairs, the share of them that the per-ray slab test
-    (`slab_live_ref`, upper = tfar; on K8's grown boxes with woop) leaves
-    live, the share of them in warps (32 consecutive rays) of which some
-    visible ray's test keeps the slot, whose rows K6 and K8 run, and the
-    share in slots that some visible ray of the packet keeps, which a
-    block vote alone would test whole)."""
+    """An any-hit query in cull mode 5: (listed (visible live ray,
+    cluster) pairs, each distinct cluster once (`distinct_slots`), the
+    share of them that the per-ray slab test (`slab_live_ref`, upper =
+    tfar, on the boxes the kernel culls on: `cull_boxes`) leaves live, the
+    share of them in warps (32 consecutive rays) of which some visible
+    ray's test keeps the slot, whose rows K6 and K8 run, and the share in
+    slots that some visible ray of the packet keeps, which a block vote
+    alone would test whole)."""
     import torch
 
     from tpu_restir_torch.kernels import cluster_trace as ct
-    require(pk.factor == 1, "the count is written for factor 1")
     rp = pk.count.shape[0]
+    f = pk.factor
+    c = scene.cluster_tris.shape[0]
     o = pk.o.view(rp, 1, ct.P, 3)
     d = pk.d.view(rp, 1, ct.P, 3)
     tn = pk.tnear.view(rp, 1, ct.P)
     tf = pk.tfar.view(rp, 1, ct.P)
     vis = ((pk.tfar >= pk.tnear) & ~occ).view(rp, 1, ct.P)
-    bmin, bmax = cull_boxes(scene, woop)
+    bmin, bmax, per_cluster = cull_boxes(scene, woop, f)
     listed_n = live_n = warp_n = kept_n = 0
-    for j0 in range(0, int(pk.count.max()), chunk):
-        sl = pk.shortlist[:, j0:j0 + chunk].long()
-        listed = (torch.arange(j0, j0 + sl.shape[1], device=sl.device)[None]
-                  < pk.count[:, None])[..., None]               # (rp, J, 1)
-        pairs = vis & listed
-        live = pairs & ct.slab_live_ref(o, d, tn, tf, bmin[sl][:, :, None],
-                                        bmax[sl][:, :, None])
+    n_slots = int(pk.count.max()) * f
+    for j0 in range(0, n_slots, chunk):
+        js = torch.arange(j0, min(j0 + chunk, n_slots),
+                          device=pk.count.device)
+        q = js // f
+        sc = pk.shortlist[:, q].long()                          # (rp, J)
+        cl = sc * f + js % f
+        listed = (q[None] < pk.count[:, None]) & (cl < c)
+        box = torch.clamp(cl, max=c - 1) if per_cluster else sc
+        pairs = vis & listed[..., None]                         # (rp, J, P)
+        live = pairs & ct.slab_live_ref(o, d, tn, tf, bmin[box][:, :, None],
+                                        bmax[box][:, :, None])
         rp_, j_ = live.shape[:2]
         warp = live.view(rp_, j_, ct.P // 32, 32).any(3, keepdim=True)
         listed_n += int(pairs.sum())
@@ -943,9 +1014,9 @@ def _trace_fns(kind, scene):
 def hold_trace(name, scene, kind, label, pk, results):
     """One clustered query (packets pk of scene) through the kernel of
     kind and its plain version: ids and masks equal, t/u/v bit-identical
-    (raises otherwise); kernel and plain ms; at factor 1 the bound from
-    what the query's data needs (`trace_bound`; the counts are written
-    for factor 1, so at factor > 1 none is computed). Adds or updates the
+    (raises otherwise); kernel and plain ms; the bound from what the
+    query's data needs (`trace_bound`, slab-aware in cull mode 5, each
+    distinct (ray, cluster) pair once at any factor). Adds or updates the
     kernel's JSON entry in results. -> for an any-hit kind, whether the
     query held occluded and visible rays (None for closest hit)."""
     import torch
@@ -982,31 +1053,30 @@ def hold_trace(name, scene, kind, label, pk, results):
     dead = int((~live[:pk.n_rays]).sum())
     mode = ct._skip_for("closest" if closest else "any",
                         scene.cluster_tris.shape[0], pk.factor)
-    slab = not closest and mode == 5
-    bnd, extra = None, ""
-    if pk.factor == 1:
-        bnd, whole = trace_bound(kind, scene, pk, got, slab=slab)
-        if slab:
-            n_listed, b_listed = whole.pop("listed pairs")
-            extra = f"; that bound is slab-aware (a box test of " \
-                f"{SLAB_OPS} operations a (visible ray, listed cluster) " \
-                f"pair, rows only where the ray is slab-live); with the " \
-                f"rows of every listed pair {n_listed} operations (bound " \
-                f"{b_listed[0]:.3f} ms)"
-        extra += "; the whole test on every pair: " + ", ".join(
-            f"{n} {what} (bound {b[0]:.3f} ms)"
-            for what, (n, b) in whole.items())
-        if mode == 5:
-            listed_n, live_share, warp_share, kept_share = slab_live_share(
-                scene, pk, want, woop=kind.endswith("_mxu"))
-            extra += f"; listed (visible ray, cluster) pairs " \
-                f"{listed_n}: slab-live {live_share:.4f}, in warps that " \
-                f"test the slot {warp_share:.4f}, in slots the block " \
-                f"stages {kept_share:.4f}"
-    bound_text = "bound not computed (its counts are written for " \
-        "factor 1)" if bnd is None else \
-        f"bound {bnd[0]:.3f} ms ({bnd[1]}; operations counted per " \
-        f"(ray, row)), bound/kernel {bnd[0] / ms:.2f}"
+    slab = mode == 5
+    bnd, whole = trace_bound(kind, scene, pk, got, slab=slab)
+    extra = ""
+    if slab:
+        n_listed, b_listed = whole.pop("listed pairs")
+        pair = "live ray, cluster within reach" if closest \
+            else "visible ray, listed cluster"
+        extra = f"; that bound is slab-aware (a box test of {SLAB_OPS} " \
+            f"operations a ({pair}) pair, rows only where the ray is " \
+            f"slab-live); with the rows of every such pair {n_listed} " \
+            f"operations (bound {b_listed[0]:.3f} ms)"
+    extra += "; the whole test on every pair: " + ", ".join(
+        f"{n} {what} (bound {b[0]:.3f} ms)"
+        for what, (n, b) in whole.items())
+    if slab and not closest:
+        listed_n, live_share, warp_share, kept_share = slab_live_share(
+            scene, pk, want, woop=kind.endswith("_mxu"))
+        extra += f"; listed (visible ray, cluster) pairs " \
+            f"{listed_n}: slab-live {live_share:.4f}, in warps that " \
+            f"test the slot {warp_share:.4f}, in slots the block " \
+            f"stages {kept_share:.4f}"
+    bound_text = f"bound {bnd[0]:.3f} ms ({bnd[1]}; operations counted " \
+        f"per (ray, row), each distinct (ray, cluster) pair once), " \
+        f"bound/kernel {bnd[0] / ms:.2f}"
     if kind.endswith("_mxu"):
         # the fused Moller-Trumbore kernel on the same scene and packets
         other = kind[:-4]
@@ -1027,12 +1097,11 @@ def hold_trace(name, scene, kind, label, pk, results):
         require(n_pos > 0, f"{kind} {name} {label}: no ray hit")
     require(err == 0.0, f"{kind} {name} {label}: t/u/v differ by {err}, "
             f"not bit-identical")
-    if bnd is not None:
-        results.setdefault(kind, {"max_abs_err": 0.0, "ms": ms,
-                                  "plain_ms": plain_ms, "bound_ms": bnd[0],
-                                  "bound_by": bnd[1], "library_ms": None})
-        if mode == 5:
-            results[kind].setdefault("slab_live_share", live_share)
+    results.setdefault(kind, {"max_abs_err": 0.0, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": bnd[0],
+                              "bound_by": bnd[1], "library_ms": None})
+    if slab and not closest:
+        results[kind].setdefault("slab_live_share", live_share)
     results[kind]["max_abs_err"] = max(results[kind]["max_abs_err"], err)
     if not closest:
         return bool(n_pos) and bool((live & ~want).any())
@@ -1126,16 +1195,18 @@ def run_frames(scene, cfg, dev, n_frames, seed=0):
     return acc, state
 
 
-def timed_frames(scene, cfg, dev, n_frames):
+def timed_frames(scene, cfg, dev, n_frames, warm=True):
     """The frame yardstick: Renderer.run of n_frames frames after a
-    one-frame warm-up on another Renderer (allocator, libraries), the
-    kernel launch counts zeroed and the query log opened just before it ->
-    (renderer, image, seconds, query log). run ends in a synchronize."""
+    one-frame warm-up on another Renderer (allocator, libraries; warm
+    False: the caller ran one), the kernel launch counts zeroed and the
+    query log opened just before it -> (renderer, image, seconds, query
+    log). run ends in a synchronize."""
     import torch
 
     from tpu_restir_torch.render import intersect
     from tpu_restir_torch.renderer import Renderer
-    Renderer(scene, cfg, device=dev).run(1)
+    if warm:
+        Renderer(scene, cfg, device=dev).run(1)
     torch.cuda.synchronize()
     renderer = Renderer(scene, cfg, device=dev)
     _zero_launches()
@@ -1324,6 +1395,25 @@ PATH_RUNS = (
           bg=(0.0, 0.0, 0.0)), 1),
 )
 LIGHTS_RUN = ("nee-ris", "nee", dict(direct_strategy="ris"), 2)
+# terrain100k at 1920x1080 (the bench's terrain camera): every bounce and
+# shadow query through K5/K6, incoherent packets from bounce 1 on
+TERRAIN_PATH_RUNS = (
+    ("naive", "naive", {}, 1),
+    ("nee-mis", "nee", dict(direct_strategy="mis"), 1),
+)
+# the queries of one path vertex, in the order a frame makes them: the
+# path's closest hit, then the direct strategy's (MIS: the BRDF sample's
+# closest hit, then the light sample's shadow ray); and those whose
+# bounce-1 query K5/K6 are held on
+QUERY_ROLES = {"naive": ("path",), "nee-mis": ("path", "BRDF sample",
+                                               "shadow")}
+HELD_ROLES = {"naive": (), "nee-mis": ("path", "shadow")}
+# the most seconds the plain K5/K6 may take on a whole bounce-1 query (its
+# hold, the plain version and then the bound's counts, takes ~3x that),
+# estimated from every ESTIMATE_STRIDE-th packet; beyond, every
+# HOLD_STRIDE-th packet is held
+HOLD_BUDGET_S = 20.0
+ESTIMATE_STRIDE, HOLD_STRIDE = 128, 32
 PATH_TOL = dict(rtol=1e-4, atol=1e-5)
 PATH_MIN_SHARE = 0.99   # pixels that must agree, cuda against cpu
 
@@ -1353,24 +1443,35 @@ def phase_integrators(dev, smi):
     """The naive and NEE path tracers at 1920x1080 through Renderer, each
     configuration timed after a one-frame warm-up: PATH_RUNS on the
     Cornell box (every query through K1/K2: one launch per logged query of
-    each kind), NEE-RIS on lights1k (every query through K5/K6: one launch
-    per ptrace chunk of each logged query); traced rays per pixel equal to
-    path_rays_per_pixel, finite frames, no other kernel launched. Then the
-    four strategies without GI must agree on the 1080p mean, the
-    show-weights frame keep R, G <= 1 off the emitters, and 64x32 naive
-    and NEE-MIS frames on cuda and cpu agree pixel by pixel. Returns the
+    each kind), NEE-RIS on lights1k and TERRAIN_PATH_RUNS (naive, NEE-MIS)
+    on terrain100k (every query through K5/K6: one launch per ptrace chunk
+    of each logged query); traced rays per pixel equal to
+    path_rays_per_pixel, finite frames, no other kernel launched, ms/frame,
+    Mrays/s and peak memory; on terrain100k the shortlist counts of every
+    query and K5/K6 held on bounce-1 queries (`path_queries`, whose frame
+    is the warm-up). Then the four strategies without GI must agree on the
+    1080p mean, the show-weights frame keep R, G <= 1 off the emitters,
+    and 64x32 naive and NEE-MIS frames on cuda and cpu agree pixel by
+    pixel, and a 64x32 NEE-MIS frame of a clustered scene. Returns the
     launches of the K1/K2 and K5/K6 runs."""
     import torch
 
     from tpu_restir_torch import cornell_box
     lights, lview = large_scene("lights1k", dev)
+    terrain, tview = large_scene("terrain100k", dev)
     runs = [("cornell", cornell_box(dev), CORNELL_VIEW, *r)
             for r in PATH_RUNS]
     runs.append(("lights1k", lights, lview, *LIGHTS_RUN))
+    runs += [("terrain100k", terrain, tview, *r) for r in TERRAIN_PATH_RUNS]
     launches = {}
     for scene_label, scene, view, label, integ, kw, frames in runs:
         cfg = path_cfg(WIDTH, HEIGHT, integ, view, **kw)
-        renderer, img, dt, qlog = timed_frames(scene, cfg, dev, frames)
+        warm = scene_label != "terrain100k"
+        if not warm:     # its frame of recorded queries is the warm-up
+            path_queries(scene, cfg, label, dev)
+        torch.cuda.reset_peak_memory_stats()
+        renderer, img, dt, qlog = timed_frames(scene, cfg, dev, frames, warm)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
         got = _launches()
         rays = sum(e["rays"] for e in qlog)
         rpp = rays / float(WIDTH * HEIGHT * frames)
@@ -1394,7 +1495,8 @@ def phase_integrators(dev, smi):
               f"{rays / dt / 1e6:.2f} Mrays/s ({smi}); traced rays/pixel "
               f"{rpp} (analytic {analytic}); query backends {backends}; "
               f"launches {got} (logged queries {want}); image mean "
-              f"{mean:.6f}, finite {finite}", flush=True)
+              f"{mean:.6f}, finite {finite}; peak memory {peak:.2f} GiB",
+              flush=True)
         tag = f"{scene_label} {label}"
         require(tuple(img.shape) == (HEIGHT, WIDTH, 3) and finite,
                 f"{tag}: wrong shape or non-finite values")
@@ -1424,6 +1526,110 @@ def phase_integrators(dev, smi):
     phase_strategy_means(dev)
     phase_path_cross_device()
     return launches
+
+
+@contextlib.contextmanager
+def all_packets(got):
+    """Wraps K5's and K6's wrappers for the block: (kind, packets) of
+    every call appended to got, in call order."""
+    from tpu_restir_torch.kernels import cluster_trace as ct
+    orig = {k: getattr(ct, f"{k}_packets") for k in ("closest", "any")}
+
+    def recorder(kind):
+        def call(*args):
+            got.append((kind, args[-1]))
+            return orig[kind](*args)
+        return call
+
+    for kind in orig:
+        setattr(ct, f"{kind}_packets", recorder(kind))
+    try:
+        yield got
+    finally:
+        for kind, fn in orig.items():
+            setattr(ct, f"{kind}_packets", fn)
+
+
+def path_queries(scene, cfg, label, dev):
+    """One path-tracer frame of cfg on a clustered scene, its packets
+    recorded (`all_packets`): the shortlist count of every query
+    (`Packets.count`, one entry a packet), by bounce and role
+    (QUERY_ROLES), as mean, p50, p95, p99 and max out of the C clusters;
+    then K5 and K6 held to their plain versions on the bounce-1 queries of
+    HELD_ROLES (`hold_trace`: 0 mismatches, t/u/v bit-identical; the
+    whole query where the plain version's time, estimated from every
+    ESTIMATE_STRIDE-th packet, is within HOLD_BUDGET_S, else every
+    HOLD_STRIDE-th packet, printed)."""
+    import numpy as np
+    import torch
+
+    from tpu_restir_torch.kernels import cluster_trace as ct
+    from tpu_restir_torch.render import intersect
+    roles = QUERY_ROLES[label]
+    chunk = cfg.intersector.ptrace_chunk
+    calls = []
+    intersect.QUERY_LOG = qlog = []
+    try:
+        with all_packets(calls):
+            _path_frame(scene, cfg, dev, 1)
+    finally:
+        intersect.QUERY_LOG = None
+    c = scene.cluster_tris.shape[0]
+    require(len(calls) == sum(-(-e["rays"] // chunk) for e in qlog)
+            and len(qlog) % len(roles) == 0,
+            f"{label}: {len(calls)} packet calls for {len(qlog)} queries")
+    held, at = {}, 0
+    for i, e in enumerate(qlog):
+        n_calls = -(-e["rays"] // chunk)
+        part = calls[at:at + n_calls]
+        at += n_calls
+        bounce, role = divmod(i, len(roles))
+        role = roles[role]
+        require(all(k == e["kind"] for k, _pk in part),
+                f"{label}: query {i} is {e['kind']}, its packets are not")
+        cnt = torch.cat([pk.count for _k, pk in part]).cpu().numpy()
+        print(f"[integrators] terrain100k {label} bounce {bounce} {role} "
+              f"({e['kind']}, {e['rays']} rays in {cnt.size} packets, "
+              f"factor {part[0][1].factor}): shortlist mean "
+              f"{cnt.mean():.1f}, p50 {np.percentile(cnt, 50):.0f}, p95 "
+              f"{np.percentile(cnt, 95):.0f}, p99 {np.percentile(cnt, 99):.0f}"
+              f", max {cnt.max()} of C = {c}", flush=True)
+        if bounce == 1 and role in HELD_ROLES[label]:
+            held[role] = part[0][1]
+    del calls
+    require(set(held) == set(HELD_ROLES[label]),
+            f"{label}: bounce-1 queries to hold {sorted(held)}")
+    results = {}
+    for role, pk in held.items():
+        kind = "trace_closest" if role == "path" else "trace_any"
+        kernel, plain = _trace_fns(kind, scene)
+        n = pk.count.shape[0]
+        # the split of the whole query: phase 1 (`pack`) and the kernel
+        rays = (pk.o[:pk.n_rays], pk.d[:pk.n_rays], pk.tnear[:pk.n_rays],
+                pk.tfar[:pk.n_rays])
+        p1_ms = cuda_ms(lambda: ct.pack(scene.cluster_min, scene.cluster_max,
+                                        *rays, pk.factor), 1, windows=1)
+        k_ms = cuda_ms(lambda: kernel(pk), 1, windows=1)
+        print(f"[integrators] terrain100k {label} bounce 1 {role}, the "
+              f"whole query ({pk.n_rays} rays): phase 1 {p1_ms:.3f} ms, "
+              f"{kind} {k_ms:.3f} ms ({k_ms / (p1_ms + k_ms):.1%} of the "
+              f"two)", flush=True)
+        sub = torch.arange(0, n, ESTIMATE_STRIDE, device=pk.count.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain(pk.take(sub))
+        torch.cuda.synchronize()
+        estimate = (time.perf_counter() - t0) * n / len(sub)
+        what = f"bounce-1 {role} query of {label}"
+        if estimate > HOLD_BUDGET_S:
+            sub = torch.arange(0, n, HOLD_STRIDE, device=pk.count.device)
+            what += (f", packets 0, {HOLD_STRIDE}, {2 * HOLD_STRIDE}, ... "
+                     f"({len(sub)} of {n}; the plain version's estimate "
+                     f"for the whole query {estimate:.0f} s)")
+            pk = pk.take(sub)
+        else:
+            what += f" (whole; plain estimate {estimate:.1f} s)"
+        hold_trace("terrain100k", scene, kind, what, pk, results)
 
 
 def phase_strategy_means(dev):
@@ -1464,14 +1670,21 @@ def phase_strategy_means(dev):
 
 def phase_path_cross_device():
     """64x32 naive and NEE-MIS frames (default bounces) on cuda and on cpu
-    (the plain versions of K1/K2): allclose at PATH_TOL on at least
-    PATH_MIN_SHARE of the pixels."""
+    (the plain versions of K1/K2), and a NEE-MIS frame of the clustered
+    terrain_scene(5_000) (79 clusters: K5, and K6 in cull mode 5, against
+    their plain versions) from the terrain camera: allclose at PATH_TOL on
+    at least PATH_MIN_SHARE of the pixels."""
     import torch
 
     from tpu_restir_torch import cornell_box
-    for integ in ("naive", "nee"):
-        cfg = path_cfg(SMALL_W, SMALL_H, integ)
-        imgs = [_path_frame(cornell_box(torch.device(d)), cfg,
+    from tpu_restir_torch.scene.procedural import terrain_scene
+    runs = [(integ, cornell_box, path_cfg(SMALL_W, SMALL_H, integ))
+            for integ in ("naive", "nee")]
+    runs.append(("nee terrain_scene(5_000)",
+                 lambda dev: terrain_scene(dev, 5_000),
+                 path_cfg(SMALL_W, SMALL_H, "nee", TERRAIN_VIEW)))
+    for integ, build, cfg in runs:
+        imgs = [_path_frame(build(torch.device(d)), cfg,
                             torch.device(d), 3).cpu()
                 for d in ("cuda", "cpu")]
         close = torch.isclose(imgs[0], imgs[1], **PATH_TOL).all(-1)
@@ -2862,6 +3075,63 @@ def phase_backends(dev, smi):
     print(f"[backends] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+TOOLS_RANKS = 2       # scaling_bench's ranks, sharing cuda:0 under gloo
+TOOLS_RADIUS = 4.0    # scaling_bench's spatial radius (the JAX tool's)
+TOOLS_FRAMES = 4      # scaling_bench's chained frames a window (3 windows)
+
+
+def phase_tools(dev, smi):
+    """[tools]: the JAX system's profiling and scaling tools, as the port
+    has them, at 1920x1080: `tools.profile_ptrace` and
+    `tools.profile_phase1` on terrain100k's primary-ray query (the phase
+    split of a clustered closest query, K5 launched; phase 1's
+    alternatives, the full sort's slots equal to `build_shortlists`, top-k
+    differing only on equal-key ties, the compaction listing the same
+    clusters where it holds them all), then `tools.scaling_bench` with
+    TOOLS_RANKS ranks sharing the card (its halo width the port's
+    `halo_width`, bytes sent and staged). Each tool's lines and its JSON
+    line are printed."""
+    from tpu_restir_torch.dist.halo import halo_width
+    from tpu_restir_torch.kernels import cluster_trace as ct
+    from tpu_restir_torch.tools import (profile_phase1, profile_ptrace,
+                                        scaling_bench)
+    t0 = time.perf_counter()
+    scene, _view = large_scene("terrain100k", dev)
+    for tool in (profile_ptrace, profile_phase1):
+        name = tool.__name__.rsplit(".", 1)[1]
+        before = ct.LAUNCHES["trace_closest"]
+        r = tool.measure(dev, width=WIDTH, height=HEIGHT, scene=scene)
+        for line in tool.report(r).splitlines():
+            print(f"[tools] {name} terrain100k {WIDTH}x{HEIGHT}: {line}",
+                  flush=True)
+        print(f"[tools] {name} {json.dumps(r)} ({smi})", flush=True)
+        if tool is profile_ptrace:
+            require(ct.LAUNCHES["trace_closest"] > before
+                    and r["count"]["max"] > 0,
+                    "profile_ptrace: K5 not launched, or empty shortlists")
+        else:
+            require(r["full_sort_mismatches"] == 0,
+                    "profile_phase1: the full sort differs from phase 1")
+            require(all(r[f"topk{k}"]["mismatches"]
+                        == r[f"topk{k}"]["tie_mismatches"]
+                        for k in profile_phase1.TOPK),
+                    "profile_phase1: top-k differs beyond equal-key ties")
+            e = r[f"compact{profile_phase1.COMPACT}"]
+            require(e["set_equal"] == e["packets_within"],
+                    "profile_phase1: the compaction lists other clusters")
+    r = scaling_bench.measure(res=HEIGHT, width=WIDTH, frames=TOOLS_FRAMES,
+                              n_devices=TOOLS_RANKS, radius=TOOLS_RADIUS,
+                              device=dev, reps=3)
+    print(f"[tools] scaling_bench ({TOOLS_RANKS} ranks sharing one card "
+          f"under gloo: what sharding adds, not a speed-up) {json.dumps(r)} "
+          f"({smi})", flush=True)
+    require(r["halo_rows"] == halo_width(TOOLS_RADIUS)
+            and r["halo_bytes_measured_per_frame_per_device"] > 0
+            and r["staged_bytes_per_frame_per_device"] > 0,
+            f"scaling_bench: halo or bytes wrong: {r}")
+    print(f"[tools] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 # the [bench] phase: the labels of the bench line's secondary entries and
 # the kernels of the bench's path (K1-K6; ptrace_mxu is off in the bench)
 BENCH_ENTRIES = ("lights1k", "terrain100k", "terrain1M")
@@ -3326,6 +3596,7 @@ def main():
 
     import tpu_restir_torch  # noqa: F401  (fails outside the repository)
 
+    t_start = time.perf_counter()
     dev, name, smi = phase_device()
     phase_build()
     results = phase_kernels(dev)
@@ -3355,6 +3626,7 @@ def main():
     phase_denoise_cost(dev, smi)
     dist = phase_dist(dev, name, smi)
     phase_backends(dev, smi)
+    phase_tools(dev, smi)
     bench_launches = phase_bench(dev, smi, results)
     profile = [a.split("=", 1)[1] for a in sys.argv[1:]
                if a.startswith("--profile=")]
@@ -3398,6 +3670,7 @@ def main():
                 **({"dist_ms": dist["k3"]["ms"]}
                    if k == "gather_local" else {})}
                for k, (src, rep) in meta.items()]
+    print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

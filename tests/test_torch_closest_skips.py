@@ -166,7 +166,8 @@ def test_closest_bound_counts_per_ray():
     scene = terrain_scene("cpu", 2_000)
     pk = _terrain_packets(scene)
     t = ct.trace_closest_ref(scene.cluster_tris, pk)[0]
-    per_ray, per_packet = chip_smoke.closest_pairs(pk, t)
+    per_ray, per_packet = chip_smoke.closest_pairs(
+        pk, t, scene.cluster_tris.shape[0])
     want = 0
     for p in range(pk.count.shape[0]):
         ent = pk.entry[p, :int(pk.count[p])].numpy()

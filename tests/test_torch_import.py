@@ -10,7 +10,8 @@ roughness and texel gradients, runs the row-sharded step and
 value_and_grad of `dist` on a one-rank mesh, reads a Radiance .hdr sky,
 runs the bench's functions at 16x16 on small scenes and imports its
 terrain1M child and the whole-frame roofline (`tpu_restir_torch.tools`),
-and neither JAX nor the JAX package
+runs the ptrace and phase-1 profilers on the terrain and builds the
+scaling bench's configuration, and neither JAX nor the JAX package
 (`tpu_restir`) may be loaded, nor an imaging package (PIL, imageio). It runs in a subprocess because the test
 session itself has JAX loaded (the root conftest configures it).
 
@@ -136,6 +137,12 @@ line, _rep = bench.run_bench(
 assert "failed:" not in line["unit"] and "rpp 28.0 traced/28" in line["unit"]
 assert bench_terrain1m.scene_info(terrain)["factor"] == 1
 assert roofline_frame.INNER == 4
+from tpu_restir_torch.tools import profile_phase1, profile_ptrace, scaling_bench
+assert profile_ptrace.measure("cpu", scene=terrain, width=32, height=8,
+                              reps=1)["rays"] == 256
+assert profile_phase1.measure("cpu", scene=terrain, width=32, height=8,
+                              reps=1)["full_sort_mismatches"] == 0
+assert scaling_bench.scaling_cfg(16, 16, 4.0).restir.spatial_mis == "pairwise"
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "tpu_restir"))
 print("LOADED", bad)

@@ -124,6 +124,33 @@ def _interval_pass_entry(omin, omax, dmin, dmax, tnmin, tfmax, cmin, cmax):
     return passes, entry_lo
 
 
+def box_overlap(emin, emax, cmin, cmax):
+    """The swept sub-box cull: (Rp, C) bool, whether a cluster box
+    overlaps one of the packet's t-sliced hull boxes emin, emax (Rp, S, 3)
+    (one slice at a time: (Rp, C, 3), not (Rp, C, S, 3))."""
+    box_ok = torch.zeros((emin.shape[0], cmin.shape[0]), dtype=torch.bool,
+                         device=emin.device)
+    for s in range(emin.shape[1]):
+        box_ok |= ((emin[:, None, s, :] <= cmax[None, :, :])
+                   & (emax[:, None, s, :] >= cmin[None, :, :])).all(-1)
+    return box_ok
+
+
+def shortlist_keys(o, d, tnear, tfar, cmin, cmax, p: int = P):
+    """Phase 1 before its sort: rays (R, 3), R a multiple of p -> the sort
+    key (Rp, C) float32 of each (packet, cluster) pair, its conservative
+    entry distance (at least the packet's least tnear) where the interval
+    pass and the swept sub-box cull pass it, +inf elsewhere, and the count
+    (Rp,) int32 of passing clusters."""
+    (omin, omax, dmin, dmax, tn, tf,
+     bounded, emin, emax) = _packet_bounds(o, d, tnear, tfar, p)
+    passes, entry = _interval_pass_entry(omin, omax, dmin, dmax, tn, tf,
+                                         cmin, cmax)
+    passes &= box_overlap(emin, emax, cmin, cmax) | ~bounded[:, None]
+    key = torch.where(passes, torch.maximum(entry, tn[:, None]), _INF)
+    return key, passes.sum(1, dtype=torch.int32)
+
+
 def build_shortlists(o, d, tnear, tfar, cmin, cmax, p: int = P):
     """Rays (R, 3), R a multiple of p -> per-packet front-to-back cluster
     shortlists (cluster_trace.py:191-221): count (Rp,) int32, shortlist
@@ -131,20 +158,8 @@ def build_shortlists(o, d, tnear, tfar, cmin, cmax, p: int = P):
     Conservative: every cluster that a ray of the packet could hit within
     [tnear, tfar] is listed. Equal entries keep cluster order (a stable
     sort, as lax.sort with one key), which decides ties between hits."""
-    (omin, omax, dmin, dmax, tn, tf,
-     bounded, emin, emax) = _packet_bounds(o, d, tnear, tfar, p)
-    passes, entry = _interval_pass_entry(omin, omax, dmin, dmax, tn, tf,
-                                         cmin, cmax)
-    # swept sub-box cull: the cluster must overlap one of the packet's
-    # t-sliced hull boxes (one slice at a time: (Rp, C, 3), not (Rp, C, 8, 3))
-    box_ok = torch.zeros_like(passes)
-    for s in range(emin.shape[1]):
-        box_ok |= ((emin[:, None, s, :] <= cmax[None, :, :])
-                   & (emax[:, None, s, :] >= cmin[None, :, :])).all(-1)
-    passes &= box_ok | ~bounded[:, None]
-    key = torch.where(passes, torch.maximum(entry, tn[:, None]), _INF)
+    key, count = shortlist_keys(o, d, tnear, tfar, cmin, cmax, p)
     ent_sorted, sl = torch.sort(key, dim=1, stable=True)
-    count = passes.sum(1, dtype=torch.int32)
     return count, sl.to(torch.int32), ent_sorted
 
 
