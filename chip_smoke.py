@@ -151,7 +151,7 @@ line is not printed:
      of a 64x32 G-buffer query under brute (Cornell) and fcluster
      (lights1k), cuda against cpu within rtol 1e-4 + 1e-5 of the largest
      entry. Each run prints its ms (CUDA events after a synchronize), peak
-     memory, host syncs (accel.HOST_SYNCS) and the query census of
+     memory, host syncs (`sync.*` of tracing.COUNTS) and the query census of
      roofline.summarize_query_log; the collapse of terrain100k's wide BVH
      is timed on the host. Its kernel launches are not in the JSON line.
  14. [tools], the JAX system's profilers and scaling bench as the port
@@ -2359,24 +2359,18 @@ def phase_demo(dev, smi, results):
     return out
 
 
-def _counters():
-    from tpu_restir_torch.kernels import cluster_trace as ct
-    from tpu_restir_torch.kernels import local_gather as lg
-    from tpu_restir_torch.kernels import ray_tri
-    return ray_tri.LAUNCHES, lg.LAUNCHES, ct.LAUNCHES
-
-
 def _zero_launches():
-    for counts in _counters():
-        for key in counts:
-            counts[key] = 0
+    from tpu_restir_torch import tracing
+    for key in tracing.counted("launch."):
+        tracing.COUNTS[key] = 0
 
 
 def _launches():
-    out = {}
-    for counts in _counters():
-        out.update(counts)
-    return out
+    """Each kernel wrapper's launches (`launch.<wrapper>` of
+    tracing.COUNTS, 0 from its module's import), by wrapper."""
+    from tpu_restir_torch import tracing
+    return {k[len("launch."):]: v
+            for k, v in tracing.counted("launch.").items()}
 
 
 def bench_step(dev, width, height, label="cornell"):
@@ -2884,11 +2878,11 @@ def _backend_frame(scene, view, backend, dev, smi):
     closest and any queries (flat rays)."""
     import torch
 
-    from tpu_restir_torch import accel, metrics, roofline
+    from tpu_restir_torch import metrics, roofline, tracing
     from tpu_restir_torch.render import intersect
     cfg = _backend_cfg(view, backend)
     got = {}
-    syncs = dict(accel.HOST_SYNCS)
+    syncs = tracing.counted("sync.")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     a = torch.cuda.Event(enable_timing=True)
@@ -2905,8 +2899,9 @@ def _backend_frame(scene, view, backend, dev, smi):
     ms = a.elapsed_time(b)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     rpp = sum(e["rays"] for e in qlog) / float(WIDTH * HEIGHT)
-    synced = {k: v - syncs[k] for k, v in accel.HOST_SYNCS.items()
-              if v != syncs[k]}
+    synced = {k[len("sync."):]: v - syncs.get(k, 0)
+              for k, v in tracing.counted("sync.").items()
+              if v != syncs.get(k, 0)}
     backends = sorted({e["backend"] for e in qlog})
     print(f"[backends] {backend} frame, {scene.num_tris} tris, "
           f"{WIDTH}x{HEIGHT}: {ms:.1f} ms ({smi}), peak memory {peak:.2f} "
@@ -2929,8 +2924,8 @@ def _timed_query(fn, label):
     memory printed -> its result."""
     import torch
 
-    from tpu_restir_torch import accel
-    syncs = dict(accel.HOST_SYNCS)
+    from tpu_restir_torch import tracing
+    syncs = tracing.counted("sync.")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     a = torch.cuda.Event(enable_timing=True)
@@ -2939,8 +2934,9 @@ def _timed_query(fn, label):
     out = fn()
     b.record()
     torch.cuda.synchronize()
-    synced = {k: v - syncs[k] for k, v in accel.HOST_SYNCS.items()
-              if v != syncs[k]}
+    synced = {k[len("sync."):]: v - syncs.get(k, 0)
+              for k, v in tracing.counted("sync.").items()
+              if v != syncs.get(k, 0)}
     print(f"[backends] {label}: {a.elapsed_time(b):.1f} ms, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, host "
           f"syncs {synced}", flush=True)
@@ -3091,22 +3087,22 @@ def phase_tools(dev, smi):
     TOOLS_RANKS ranks sharing the card (its halo width the port's
     `halo_width`, bytes sent and staged). Each tool's lines and its JSON
     line are printed."""
+    from tpu_restir_torch import tracing
     from tpu_restir_torch.dist.halo import halo_width
-    from tpu_restir_torch.kernels import cluster_trace as ct
     from tpu_restir_torch.tools import (profile_phase1, profile_ptrace,
                                         scaling_bench)
     t0 = time.perf_counter()
     scene, _view = large_scene("terrain100k", dev)
     for tool in (profile_ptrace, profile_phase1):
         name = tool.__name__.rsplit(".", 1)[1]
-        before = ct.LAUNCHES["trace_closest"]
+        before = tracing.COUNTS["launch.trace_closest"]
         r = tool.measure(dev, width=WIDTH, height=HEIGHT, scene=scene)
         for line in tool.report(r).splitlines():
             print(f"[tools] {name} terrain100k {WIDTH}x{HEIGHT}: {line}",
                   flush=True)
         print(f"[tools] {name} {json.dumps(r)} ({smi})", flush=True)
         if tool is profile_ptrace:
-            require(ct.LAUNCHES["trace_closest"] > before
+            require(tracing.COUNTS["launch.trace_closest"] > before
                     and r["count"]["max"] > 0,
                     "profile_ptrace: K5 not launched, or empty shortlists")
         else:

@@ -42,7 +42,7 @@ from tpu_restir.scene.cornell import many_lights_scene as j_many_lights
 from tpu_restir.scene.materials import MaterialSpec as JMaterialSpec
 from tpu_restir.scene.procedural import triangle_soup as j_soup
 from tpu_restir.scene.scene import build_scene as j_build_scene
-from tpu_restir_torch import accel, convert
+from tpu_restir_torch import convert, tracing
 from tpu_restir_torch.accel import bvh as tbvh
 from tpu_restir_torch.accel import traverse as ttraverse
 from tpu_restir_torch.accel import wide as twide
@@ -472,9 +472,10 @@ def test_host_syncs_are_counted(scenes):
     """Each loop read on the host adds one to its counter."""
     _js, ts = scenes["lights200"]
     o, d = (torch.from_numpy(x) for x in _rays(9, n=64))
-    before = dict(accel.HOST_SYNCS)
+    before = tracing.COUNTS.copy()
     for backend in ("fcluster", "cluster", "bvh"):
         tintersect.intersect_closest(ts, o, d, 1e-3, 1e4,
                                      IntersectorConfig(backend=backend))
-    after = accel.HOST_SYNCS
-    assert all(after[k] > before[k] for k in ("fcluster", "cluster", "bvh8"))
+    after = tracing.COUNTS
+    assert all(after["sync." + k] > before["sync." + k]
+               for k in ("fcluster", "cluster", "bvh8"))

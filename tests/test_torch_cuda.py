@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_restir_torch import tracing
 from tpu_restir_torch.config import (CameraConfig, RenderConfig,
                                      RenderParams, RestirParams)
 from tpu_restir_torch.kernels import cluster_trace as ct
@@ -74,9 +75,9 @@ def test_closest_hit_kernel_matches_plain(cuda, n):
     scene = cornell_box(cuda)
     o, d, tn, _tf = _rays(cuda, n, n)
     tf = torch.full_like(tn, float("inf"))
-    before = ray_tri.LAUNCHES["closest_hit"]
+    before = tracing.COUNTS["launch.closest_hit"]
     got = ray_tri.closest_hit(scene, o, d, tn, tf)
-    assert ray_tri.LAUNCHES["closest_hit"] == before + 1
+    assert tracing.COUNTS["launch.closest_hit"] == before + 1
     want = ray_tri.closest_hit_ref(ray_tri.woop_rows(scene), o, d, tn, tf)
     torch.cuda.synchronize()
     assert got[3].dtype == torch.int32
@@ -135,9 +136,9 @@ def test_any_hit_kernel_tables(cuda, n, table):
     (one shared-memory tile) and 700 rows (two tiles)."""
     scene = _table(cuda, table)
     o, d, tn, tf = _rays(cuda, n, n + 1, dead_share=0.1)
-    before = ray_tri.LAUNCHES["any_hit"]
+    before = tracing.COUNTS["launch.any_hit"]
     got = ray_tri.any_hit(scene, o, d, tn, tf)
-    assert ray_tri.LAUNCHES["any_hit"] == before + 1
+    assert tracing.COUNTS["launch.any_hit"] == before + 1
     want = ray_tri.any_hit_ref(ray_tri.woop_rows(scene), o, d, tn, tf)
     assert torch.equal(got, want)
     if n == 100_003 and table != "random1":
@@ -289,9 +290,9 @@ def test_gather_local_kernel_matches_plain(cuda, h, w, c, k, top, aligned):
                         dtype=torch.int32)
     txs = torch.randint(0, w, (k, h, w), generator=g, device=cuda,
                         dtype=torch.int32)
-    before = lg.LAUNCHES["gather_local"]
+    before = tracing.COUNTS["launch.gather_local"]
     got = lg.gather_local(payload, tys, txs, 8, top=top)
-    assert lg.LAUNCHES["gather_local"] == before + 1
+    assert tracing.COUNTS["launch.gather_local"] == before + 1
     assert torch.equal(got, lg.gather_local_ref(payload, tys, txs))
 
 
@@ -369,9 +370,9 @@ def test_scatter_local_kernel_matches_plain(cuda, h, w, c, k, r, disk_r2):
     g.manual_seed(w)
     gi = torch.randint(-50, 51, (k, h, w, c), generator=g,
                        device=cuda).to(torch.float32)
-    before = lg.LAUNCHES["scatter_local"]
+    before = tracing.COUNTS["launch.scatter_local"]
     got = lg.scatter_local(gi, tys, txs, r, disk_r2)
-    assert lg.LAUNCHES["scatter_local"] == before + 1
+    assert tracing.COUNTS["launch.scatter_local"] == before + 1
     assert torch.equal(got, lg.scatter_local_ref(gi, tys, txs))
     gn = torch.randn((k, h, w, c), generator=g, device=cuda)
     torch.testing.assert_close(lg.scatter_local(gn, tys, txs, r, disk_r2),
@@ -437,11 +438,11 @@ def test_scatter_local_kernel_matches_ordered_sum(cuda, taps, h, w, c, k, r,
 def test_gather_local_backward_launches_k4(cuda):
     tys, txs = _disk_taps(cuda, 5, 24, 40, 5, 30, 3)
     payload = torch.randn((24, 40, 24), device=cuda, requires_grad=True)
-    before = lg.LAUNCHES["scatter_local"]
+    before = tracing.COUNTS["launch.scatter_local"]
     out = lg.gather_local(payload, tys, txs, 5, top=0, disk_r2=30)
     gi = torch.randint(-9, 10, out.shape, device=cuda).to(torch.float32)
     out.backward(gi)
-    assert lg.LAUNCHES["scatter_local"] == before + 1
+    assert tracing.COUNTS["launch.scatter_local"] == before + 1
     assert torch.equal(payload.grad, lg.scatter_local_ref(gi, tys, txs))
 
 
@@ -494,12 +495,12 @@ def test_gather_local_at_top_halo_on_a_sharded_spatial_payload(cuda):
 
     lg.gather_local = spy
     try:
-        before = lg.LAUNCHES["gather_local"]
+        before = tracing.COUNTS["launch.gather_local"]
         got = spatial_pass(seed, 0, scene, rows(gb, own), rows(res, own),
                            cfg, ys[own], xs[own], gb_ext=rows(gb, ext),
                            res_ext=rows(res, ext), ext_row0=row0 - halo,
                            ext_top=halo)
-        assert lg.LAUNCHES["gather_local"] == before + 1
+        assert tracing.COUNTS["launch.gather_local"] == before + 1
     finally:
         lg.gather_local = orig
     got_t, want_t = [], []
@@ -624,10 +625,10 @@ def test_trace_closest_kernel_matches_plain(cuda, name, n):
     scene = terrain_scene(cuda, 5_000) if name == "terrain5k" \
         else many_lights_scene(cuda, 500)
     pk = _packets(scene, _cluster_rays(cuda, n, n, 4.0, 1e4, 0.1))
-    before = ct.LAUNCHES["trace_closest"]
+    before = tracing.COUNTS["launch.trace_closest"]
     got = ct.closest_packets(scene.cluster_tris, scene.cluster_min,
                              scene.cluster_max, pk)
-    assert ct.LAUNCHES["trace_closest"] == before + 1
+    assert tracing.COUNTS["launch.trace_closest"] == before + 1
     want = ct.trace_closest_ref(scene.cluster_tris, pk)
     torch.cuda.synchronize()
     assert got[3].dtype == torch.int32
@@ -687,10 +688,10 @@ def test_trace_any_kernel_matches_plain(cuda, name):
         else many_lights_scene(cuda, 500)
     rays = _cluster_rays(cuda, 100_003, 3, 4.0, 2.0, 0.1)
     pk = _packets(scene, rays)
-    before = ct.LAUNCHES["trace_any"]
+    before = tracing.COUNTS["launch.trace_any"]
     got = ct.any_packets(scene.cluster_tris, scene.cluster_min,
                          scene.cluster_max, pk)
-    assert ct.LAUNCHES["trace_any"] == before + 1
+    assert tracing.COUNTS["launch.trace_any"] == before + 1
     want = ct.trace_any_ref(scene.cluster_tris, pk)
     assert got.dtype == torch.bool and torch.equal(got, want)
     assert 0 < int(got.sum()) < got.numel()
@@ -884,9 +885,9 @@ def test_trace_closest_mxu_kernel_matches_plain(cuda, n):
     cluster size 128: 40 clusters)."""
     scene = _woop_terrain(cuda, 5_000)
     pk = _packets(scene, _cluster_rays(cuda, n, n, 4.0, 1e4, 0.1))
-    before = ct.LAUNCHES["trace_closest_mxu"]
+    before = tracing.COUNTS["launch.trace_closest_mxu"]
     got = ct.closest_packets_mxu(scene.cluster_woop, pk)
-    assert ct.LAUNCHES["trace_closest_mxu"] == before + 1
+    assert tracing.COUNTS["launch.trace_closest_mxu"] == before + 1
     want = ct.trace_closest_mxu_ref(scene.cluster_woop, pk)
     torch.cuda.synchronize()
     assert got[3].dtype == torch.int32
@@ -901,10 +902,10 @@ def test_trace_any_mxu_kernel_matches_plain(cuda):
     scene = _woop_terrain(cuda, 5_000)
     rays = _cluster_rays(cuda, 100_003, 3, 4.0, 2.0, 0.1)
     pk = _packets(scene, rays)
-    before = ct.LAUNCHES["trace_any_mxu"]
+    before = tracing.COUNTS["launch.trace_any_mxu"]
     got = ct.any_packets_mxu(scene.cluster_woop, scene.cluster_min,
                              scene.cluster_max, pk)
-    assert ct.LAUNCHES["trace_any_mxu"] == before + 1
+    assert tracing.COUNTS["launch.trace_any_mxu"] == before + 1
     want = ct.trace_any_mxu_ref(scene.cluster_woop, pk)
     assert got.dtype == torch.bool and torch.equal(got, want)
     assert 0 < int(got.sum()) < got.numel()
@@ -990,12 +991,14 @@ def test_ptrace_mxu_selects_k7_k8(cuda):
     o, d, tn, tf = _cluster_rays(cuda, 20_000, 9, 4.0, 1e4)
     cfg = IntersectorConfig(backend="ptrace", ptrace_mxu=True,
                             ptrace_chunk=8192)
-    before = dict(ct.LAUNCHES)
+    before = tracing.COUNTS.copy()
     h = intersect.intersect_closest(scene, o, d, tn, tf, cfg)
     occ = intersect.intersect_any(scene, o, d, tn, torch.full_like(tf, 2.0),
                                   cfg)
     torch.cuda.synchronize()
-    grew = {k: ct.LAUNCHES[k] - before[k] for k in before}
+    grew = {k: tracing.COUNTS["launch." + k] - before["launch." + k]
+            for k in ("trace_closest", "trace_any", "trace_closest_mxu",
+                      "trace_any_mxu")}
     assert grew == {"trace_closest": 0, "trace_any": 0,
                     "trace_closest_mxu": 3, "trace_any_mxu": 3}
     assert 0 < int(h.hit.sum()) < 20_000 and 0 < int(occ.sum()) < 20_000
@@ -1034,11 +1037,11 @@ def test_path_frame_cuda_matches_cpu(cuda, integrator, kw):
         params=RenderParams(use_skybox=False), integrator=integrator, **kw)
     imgs = []
     for dev in (cuda, torch.device("cpu")):
-        before = ray_tri.LAUNCHES["closest_hit"]
+        before = tracing.COUNTS["launch.closest_hit"]
         imgs.append(_render_frame(cornell_box(dev),
                                   cam_mod.make_camera(cfg.camera, dev), cfg,
                                   rng.frame_key(0, 3)).cpu())
-        launched = ray_tri.LAUNCHES["closest_hit"] - before
+        launched = tracing.COUNTS["launch.closest_hit"] - before
         # one closest-hit query a vertex, NEE-MIS one more for its BRDF
         # sample, each one launch on the card
         want = {"naive": 6, "nee": 12}[integrator]
@@ -1064,12 +1067,12 @@ def test_demo_frame_and_texel_gradient_cuda_match_cpu(cuda):
         scene = chip_smoke.demo_scene(dev)
         assert scene.textures.data.device.type == dev.type
         assert scene.envmap.device.type == dev.type
-        before = ray_tri.LAUNCHES["closest_hit"]
+        before = tracing.COUNTS["launch.closest_hit"]
         vg = make_value_and_grad(scene, cam_mod.make_camera(cfg.camera, dev),
                                  cfg, (1,), torch.zeros((32, 64, 3),
                                                         device=dev))
         loss, grads = vg(extract_params(scene, ("tex_data",)))
-        launched = ray_tri.LAUNCHES["closest_hit"] - before
+        launched = tracing.COUNTS["launch.closest_hit"] - before
         assert (launched > 0) == (dev.type == "cuda"), launched
         out[dev.type] = (float(loss), grads["tex_data"].cpu())
     (lc, gc), (lp, gp) = out["cuda"], out["cpu"]
@@ -1105,14 +1108,14 @@ def test_backend_query_cuda_matches_cpu(cuda, name, backend, kind):
     out = {}
     for dev in (cuda, torch.device("cpu")):
         scene = BACKEND_SCENES[name](dev)
-        before = {**ray_tri.LAUNCHES, **ct.LAUNCHES}
+        before = tracing.counted("launch.")
         args = (o.to(dev), d.to(dev), tn.to(dev), tf.to(dev), cfg)
         if kind == "closest":
             h = intersect.intersect_closest(scene, *args)
             out[dev.type] = [x.cpu() for x in (h.tri, h.t, h.u, h.v)]
         else:
             out[dev.type] = [intersect.intersect_any(scene, *args).cpu()]
-        assert {**ray_tri.LAUNCHES, **ct.LAUNCHES} == before
+        assert tracing.counted("launch.") == before
     for a, b in zip(out["cuda"], out["cpu"]):
         assert torch.equal(a, b)
     hit = out["cpu"][0] >= 0 if kind == "closest" else out["cpu"][0]

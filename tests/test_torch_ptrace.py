@@ -50,7 +50,7 @@ from tpu_restir.scene.materials import MatType as JMatType
 from tpu_restir.scene.procedural import terrain_scene as j_terrain
 from tpu_restir.scene.procedural import triangle_soup as j_soup
 from tpu_restir.scene.scene import build_scene as j_build_scene
-from tpu_restir_torch import convert
+from tpu_restir_torch import convert, tracing
 from tpu_restir_torch.config import IntersectorConfig
 from tpu_restir_torch.kernels import cluster_trace as tct
 from tpu_restir_torch.render import intersect as tintersect
@@ -256,11 +256,11 @@ def test_trace_closest_plain_matches_jax(case):
     want = [np.asarray(x) for x in jct.trace_closest(
         js.cluster_tris, js.cluster_min, js.cluster_max, *_j(o, d, tn, tf),
         factor=factor)]
-    before = dict(tct.LAUNCHES)
+    before = tracing.counted("launch.")
     got = [x.numpy() for x in tct.trace_closest(
         ts.cluster_tris, ts.cluster_min, ts.cluster_max, *_t(o, d, tn, tf),
         factor=factor)]
-    assert tct.LAUNCHES == before          # the plain version launches none
+    assert tracing.counted("launch.") == before          # the plain version launches none
     assert got[3].dtype == np.int32 and got[0].shape == (o.shape[0],)
     hit = _check_closest(ts, got, want, o, d, tn, tf, case)
     assert hit.sum() > 20

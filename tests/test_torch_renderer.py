@@ -5,9 +5,9 @@ atol 1e-6 (float32 pow); the traced ray count per pixel must equal the
 bench's analytic count exactly. The denoised display against the JAX
 Renderer's, fed the same accumulator, moment, history and G-buffer, with
 the JAX side run op by op (jax.disable_jit(); tests/test_torch_denoise.py
-gives the reason): rtol 1e-5, atol 1e-6. Prefix-timed frames
-(profile_passes) equal the fused ones exactly (the same operations on the
-same inputs). The sidecar equals the JAX exporter's text but for the
+gives the reason): rtol 1e-5, atol 1e-6. Frames with the per-pass timers
+on (profile_passes) equal the plain ones exactly (the same operations on
+the same inputs). The sidecar equals the JAX exporter's text but for the
 render time (a wall clock); checkpoints of either package resume in the
 other with equal arrays.
 """
@@ -107,8 +107,9 @@ def test_renderer_profiles_and_denoises(scene, kw):
 
 
 def test_profile_passes_matches_fused_step(scene):
-    """The prefix-timed step gives the fused step's frames (JAX
-    tests/test_features.py:77), exactly: the last prefix is the frame."""
+    """The step timed by its pass spans gives the plain step's frames
+    (JAX tests/test_features.py:77), exactly: the frame runs once, and
+    the spans only read the clock (an event pair on a CUDA device)."""
     cfg = _cfg()
     fused = Renderer(scene, cfg, device="cpu")
     fused.run(3)

@@ -2,9 +2,8 @@
 (`wide`), the BVH2 walk (`traverse`) and the packet-cluster backend
 (`fcluster`).
 
-HOST_SYNCS counts the loop conditions that the plain-tensor backends
-read on the host: one a round of `fcluster`, a lockstep step of the wide
-BVH (`bvh8`) and of the BVH2 walk (`bvh2`), and a cluster the `cluster`
-backend may skip (`render/intersect.py`)."""
-
-HOST_SYNCS = {"fcluster": 0, "bvh8": 0, "bvh2": 0, "cluster": 0}
+The loop conditions that the plain-tensor backends read on the host are
+counted in `tpu_restir_torch.tracing.COUNTS`, always: `sync.fcluster` one
+a round of `fcluster`, `sync.bvh8` and `sync.bvh2` one a lockstep step
+of the wide BVH and of the BVH2 walk, and `sync.cluster` one a cluster
+the `cluster` backend may skip (`render/intersect.py`)."""

@@ -17,14 +17,14 @@
 clustered traversal K5-K8 (`kernels/cluster_trace.py`). Every function
 keeps the JAX module's operation order, except the clamp's repaired exit
 on clamped axes. Each round's loop condition is read on the host: one
-sync a round (`accel.HOST_SYNCS["fcluster"]`).
+sync a round (`sync.fcluster`, `tracing.count`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpu_restir_torch import accel
+from tpu_restir_torch import tracing
 
 _INF = float("inf")
 _BIG = 3.0e38
@@ -379,5 +379,5 @@ def fcluster_any(o, d, tnear, tfar, v0b, e1b, e2b, cmin, cmax,
 
 def _more(n_pass, done) -> bool:
     """The round loop's condition, read on the host."""
-    accel.HOST_SYNCS["fcluster"] += 1
+    tracing.count("sync.fcluster", 1)
     return bool((n_pass > done).any())

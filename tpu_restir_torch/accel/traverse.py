@@ -7,7 +7,7 @@ batch step together, each on its own stack, and a ray whose stack is
 empty (or, for any hit, that is occluded) keeps its state, as the vmapped
 loop keeps it, so every ray visits its nodes in the JAX order and keeps
 the same winner. The loop's condition is read on the host, one sync a
-step (`accel.HOST_SYNCS["bvh2"]`). The box test is the wide BVH's
+step (`sync.bvh2`, `tracing.count`). The box test is the wide BVH's
 (`accel.wide.slab`), with the exit rule that keeps a ray lying in a box's
 max-face plane.
 """
@@ -18,7 +18,7 @@ import dataclasses
 
 import torch
 
-from tpu_restir_torch import accel
+from tpu_restir_torch import tracing
 from tpu_restir_torch.accel.wide import safe_inv, slab
 
 _INF = float("inf")
@@ -73,7 +73,7 @@ def _traverse(o, d, tnear, tfar, bvh: BVHArrays, v0, e1, e2, any_hit: bool):
         live = sp > 0
         if any_hit:
             live &= btri < 0
-        accel.HOST_SYNCS["bvh2"] += 1
+        tracing.count("sync.bvh2", 1)
         if not bool(live.any()):
             break
         spd = torch.where(live, sp - 1, sp)

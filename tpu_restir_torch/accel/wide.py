@@ -10,7 +10,7 @@ count.
 
 The traversal runs all rays of a chunk in lockstep, as the JAX package's
 `while_loop` does; its condition is read on the host, one sync a step
-(`accel.HOST_SYNCS["bvh8"]`). The child test gives a clamped direction
+(`sync.bvh8`, `tracing.count`). The child test gives a clamped direction
 component the exit rule of the clustered kernels (`slab_exit`): the JAX
 package's test culls a box whose max-face plane the ray lies in.
 """
@@ -22,7 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpu_restir_torch import accel
+from tpu_restir_torch import tracing
 
 _INF = float("inf")
 
@@ -187,7 +187,7 @@ def _traverse8(o, d, tnear, tfar, bvh: BVH8Arrays, v0, e1, e2,
         live = sp > 0
         if any_hit:
             live &= btri < 0
-        accel.HOST_SYNCS["bvh8"] += 1
+        tracing.count("sync.bvh8", 1)
         if not bool(live.any()):
             break
         top = torch.clamp(sp - 1, min=0).long()

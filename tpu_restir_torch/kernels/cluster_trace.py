@@ -10,7 +10,10 @@ tile after `render.intersect`'s swizzle).
   packet's interval hull is slab-tested against every (super)cluster AABB,
   with a conservative entry distance per passing pair, and one stable
   sort per packet orders the passing clusters front to back: a shortlist
-  and a count per packet (`build_shortlists`).
+  and a count per packet (`build_shortlists`). The interval pass, the
+  swept sub-box cull and the sort are spans of their own (`phase1.*`,
+  `tracing.span`); `pack` counts the packets, the pairs tested and the
+  pairs listed (`tracing.count`).
 
   Phase 2 (the kernels of `csrc/cluster_trace.cu` on CUDA tensors, the
   plain versions `trace_closest_ref` / `trace_any_ref` on CPU tensors):
@@ -22,7 +25,8 @@ tile after `render.intersect`'s swizzle).
   every live ray is occluded) and, above SMALL_C clusters, skip a slot
   that no ray's own slab test can reach (mode 5); the plain versions test
   every listed slot, so they are the exact definition the kernels must
-  reproduce bit for bit.
+  reproduce bit for bit. Each kernel launch counts `launch.<wrapper>`
+  (`launch.trace_closest`, ..., `tracing.count`).
 
 Scenes above SUPER_MAX clusters group F = pick_factor(C) consecutive
 leaf-order clusters into one supercluster for phase 1; shortlist slot s
@@ -51,6 +55,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpu_restir_torch import tracing
 from tpu_restir_torch.accel.fcluster import _clamp_tfar_bbox, _packet_bounds
 from tpu_restir_torch.kernels import build
 
@@ -65,16 +70,15 @@ WOOP_BLOCK = 128   # triangles per cluster of the Woop variant (one lane tile)
 WOOP_BOX_REL = 4e-5
 WOOP_BOX_ABS = 4e-6
 
-# kernel launches per wrapper (the plain versions do not count)
-LAUNCHES = {"trace_closest": 0, "trace_any": 0, "trace_closest_mxu": 0,
-            "trace_any_mxu": 0}
-
 _INF = float("inf")
 _BARY_EPS = 1e-5   # the Woop test's watertight slack, as kernels/ray_tri.py
 _BIG = 3.0e38
 _REF_PACKETS = 256   # packets per broadcast in the plain versions
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+tracing.COUNTS.update(dict.fromkeys(
+    ("launch.trace_closest", "launch.trace_any", "launch.trace_closest_mxu",
+     "launch.trace_any_mxu"), 0))
 
 
 # ---------------------------------------------------------------------------
@@ -144,9 +148,11 @@ def shortlist_keys(o, d, tnear, tfar, cmin, cmax, p: int = P):
     (Rp,) int32 of passing clusters."""
     (omin, omax, dmin, dmax, tn, tf,
      bounded, emin, emax) = _packet_bounds(o, d, tnear, tfar, p)
-    passes, entry = _interval_pass_entry(omin, omax, dmin, dmax, tn, tf,
-                                         cmin, cmax)
-    passes &= box_overlap(emin, emax, cmin, cmax) | ~bounded[:, None]
+    with tracing.span("phase1.interval"):
+        passes, entry = _interval_pass_entry(omin, omax, dmin, dmax, tn, tf,
+                                             cmin, cmax)
+    with tracing.span("phase1.boxcull"):
+        passes &= box_overlap(emin, emax, cmin, cmax) | ~bounded[:, None]
     key = torch.where(passes, torch.maximum(entry, tn[:, None]), _INF)
     return key, passes.sum(1, dtype=torch.int32)
 
@@ -159,7 +165,8 @@ def build_shortlists(o, d, tnear, tfar, cmin, cmax, p: int = P):
     [tnear, tfar] is listed. Equal entries keep cluster order (a stable
     sort, as lax.sort with one key), which decides ties between hits."""
     key, count = shortlist_keys(o, d, tnear, tfar, cmin, cmax, p)
-    ent_sorted, sl = torch.sort(key, dim=1, stable=True)
+    with tracing.span("phase1.sort"):
+        ent_sorted, sl = torch.sort(key, dim=1, stable=True)
     return count, sl.to(torch.int32), ent_sorted
 
 
@@ -244,6 +251,10 @@ def pack(cmin, cmax, o, d, tnear, tfar, factor: int) -> Packets:
         tnear = torch.cat([tnear, tnear.new_zeros((pad,))])
         tfar = torch.cat([tfar, tfar.new_full((pad,), -1.0)])
     cnt, sl, ent = build_shortlists(o, d, tnear, tfar, scmin, scmax, P)
+    rp = cnt.shape[0]
+    tracing.count("phase1.listed", cnt)
+    tracing.count("phase1.packets", rp)
+    tracing.count("phase1.pairs", rp * scmin.shape[0])
     return Packets(o=o.contiguous(), d=d.contiguous(),
                    tnear=tnear.contiguous(), tfar=tfar.contiguous(),
                    count=cnt, shortlist=sl.contiguous(),
@@ -562,7 +573,7 @@ def _launch(kind, blocks, pk: Packets, outs, cmin=None, cmax=None):
     if err:
         raise RuntimeError(f"cluster_trace {kind}: launch failed: "
                            f"{lib.cluster_trace_error_string(err).decode()}")
-    LAUNCHES[kind] += 1
+    tracing.count("launch." + kind, 1)
 
 
 def _on_cuda(x) -> bool:

@@ -10,7 +10,8 @@ a same-shape payload (top == 0) takes `scatter_local`, the windowed
 transpose of `csrc/local_scatter.cu` on CUDA tensors and its plain version
 `scatter_local_ref` (index_add_) on CPU tensors; a halo-extended payload
 (top != 0, the sharded case) takes index_add_ on both, as the JAX package
-takes XLA's scatter-add there.
+takes XLA's scatter-add there. Each kernel launch counts
+`launch.gather_local` or `launch.scatter_local` (`tracing.count`).
 """
 
 from __future__ import annotations
@@ -19,12 +20,12 @@ import ctypes
 
 import torch
 
+from tpu_restir_torch import tracing
 from tpu_restir_torch.kernels import build
 
 PAD = 8   # the JAX kernel's window bound on tap offsets
-
-# kernel launches (the plain version does not count)
-LAUNCHES = {"gather_local": 0, "scatter_local": 0}
+tracing.COUNTS.update(dict.fromkeys(("launch.gather_local",
+                                     "launch.scatter_local"), 0))
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -72,7 +73,7 @@ def _gather_cuda(payload, tys, txs):
     if err:
         raise RuntimeError("gather_local: launch failed: "
                            f"{lib.local_gather_error_string(err).decode()}")
-    LAUNCHES["gather_local"] += 1
+    tracing.count("launch.gather_local", 1)
     return out
 
 
@@ -143,7 +144,7 @@ def _scatter_cuda(g, tys, txs, r, disk_r2):
     if err:
         raise RuntimeError("scatter_local: launch failed: "
                            f"{lib.local_scatter_error_string(err).decode()}")
-    LAUNCHES["scatter_local"] += 1
+    tracing.count("launch.scatter_local", 1)
     return out
 
 

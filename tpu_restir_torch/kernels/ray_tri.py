@@ -5,7 +5,8 @@ Every ray is tested against every triangle by the Woop affine test
 (`kernels/woop.py`). On CUDA tensors the wrappers launch the kernels of
 `csrc/ray_tri.cu`; on CPU tensors they take the plain PyTorch versions
 `closest_hit_ref` / `any_hit_ref` below, which compute the same test in
-the same operation order.
+the same operation order. Each launch counts `launch.closest_hit` or
+`launch.any_hit` (`tracing.count`); the plain versions count nothing.
 
 `closest_hit` is differentiable in the ray origins and directions by the
 analytic derivative of the winning triangle's Woop map
@@ -22,14 +23,14 @@ import functools
 
 import torch
 
+from tpu_restir_torch import tracing
 from tpu_restir_torch.kernels import build
-
-# kernel launches per wrapper (the plain versions do not count)
-LAUNCHES = {"closest_hit": 0, "any_hit": 0}
 
 _BARY_EPS = 1e-5
 _REF_CHUNK = 1 << 14   # rays per (rays, tris) broadcast in the plain versions
 _P = ctypes.c_void_p
+tracing.COUNTS.update(dict.fromkeys(("launch.closest_hit", "launch.any_hit"),
+                                    0))
 
 
 def woop_rows(scene):
@@ -142,7 +143,7 @@ def _launch(kind, w, o, d, tnear, tfar, outs):
     if err:
         raise RuntimeError(f"ray_tri {kind}: launch failed: "
                            f"{lib.ray_tri_error_string(err).decode()}")
-    LAUNCHES[kind] += 1
+    tracing.count("launch." + kind, 1)
 
 
 def _on_cuda(o) -> bool:

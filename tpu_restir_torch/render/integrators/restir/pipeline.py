@@ -1,7 +1,8 @@
 """The ReSTIR frame: pass schedule with explicit state (counterpart of
 `tpu_restir.render.integrators.restir.pipeline`; reference produceRestir,
 pg/simpleguidx11.cpp:359-487). Pass order: G-buffer fill -> initial
-candidates -> [visibility] -> [temporal] -> [spatial x N] -> shade. The
+candidates -> [visibility] -> [temporal] -> [spatial x N] -> shade, each
+pass in a span of its own (`tracing.span("restir.<pass>")`). The
 inter-frame state (last frame's reservoirs and G-buffer) is a RestirState
 returned from each step.
 
@@ -19,7 +20,7 @@ import dataclasses
 
 import torch
 
-from tpu_restir_torch import rng
+from tpu_restir_torch import rng, tracing
 from tpu_restir_torch.dist import halo as halo_mod
 from tpu_restir_torch.render.integrators.restir import gbuffer as gb_mod
 from tpu_restir_torch.render.integrators.restir import reservoir as rsv
@@ -131,14 +132,17 @@ def restir_step(scene, cam, cfg, frame_seed, state: RestirState,
                 RestirState(res_prev=res_now, gb_prev=gb_now))
 
     stop = cfg.profile_stop_after
-    gb = gb_mod.gbuffer_fill(scene, cam, cfg, frame_seed, ys, xs)
+    with tracing.span("restir.gbuffer"):
+        gb = gb_mod.gbuffer_fill(scene, cam, cfg, frame_seed, ys, xs)
     if stop == "gbuffer":
         return early(rsv.empty_reservoir(gb.depth.shape, dev), gb)
-    res = initial_pass(frame_seed, scene, gb, cfg, ys, xs)
+    with tracing.span("restir.initial"):
+        res = initial_pass(frame_seed, scene, gb, cfg, ys, xs)
     if stop == "initial":
         return early(res, gb)
     if r.do_visibility_pass:
-        res = visibility_pass(scene, gb, res, cfg)
+        with tracing.span("restir.visibility"):
+            res = visibility_pass(scene, gb, res, cfg)
     if stop == "visibility":
         return early(res, gb)
 
@@ -146,11 +150,12 @@ def restir_step(scene, cam, cfg, frame_seed, state: RestirState,
         else gb
     reasons = None
     if r.do_temporal_reuse:
-        res_t = temporal_pass(frame_seed, scene, gb, state.gb_prev, res,
-                              state.res_prev, cfg, ys, xs, gb_ext=gb_ext,
-                              gb_prev_ext=extend(state.gb_prev),
-                              ext_row0=ext_row0,
-                              return_reasons=r.debug_reprojection)
+        with tracing.span("restir.temporal"):
+            res_t = temporal_pass(frame_seed, scene, gb, state.gb_prev, res,
+                                  state.res_prev, cfg, ys, xs, gb_ext=gb_ext,
+                                  gb_prev_ext=extend(state.gb_prev),
+                                  ext_row0=ext_row0,
+                                  return_reasons=r.debug_reprojection)
         if r.debug_reprojection:
             res_t, reasons = res_t
         # no temporal reuse on the very first frame (frameCtr > 0 gate,
@@ -165,13 +170,15 @@ def restir_step(scene, cam, cfg, frame_seed, state: RestirState,
         # halo-extended strip, row0 in all-gathered rows
         ext_top = row0 if use_gather else halo
         for i in range(r.spatial_pass_count):
-            res = spatial_pass(frame_seed, i, scene, gb, res, cfg, ys, xs,
-                               gb_ext=gb_ext, res_ext=extend(res),
-                               ext_row0=ext_row0, ext_top=ext_top)
+            with tracing.span("restir.spatial"):
+                res = spatial_pass(frame_seed, i, scene, gb, res, cfg, ys,
+                                   xs, gb_ext=gb_ext, res_ext=extend(res),
+                                   ext_row0=ext_row0, ext_top=ext_top)
     if stop == "spatial":
         return early(res, gb)
 
-    frame = shade_pass(scene, gb, res, cfg)
+    with tracing.span("restir.shade"):
+        frame = shade_pass(scene, gb, res, cfg)
     if reasons is not None and frame_ctr > 0:
         # reason 4 is painted at the current pixel, not the reference's
         # scattered reprojected pixel

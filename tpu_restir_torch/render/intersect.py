@@ -44,7 +44,7 @@ import functools
 import numpy as np
 import torch
 
-from tpu_restir_torch import accel, mathx
+from tpu_restir_torch import mathx, tracing
 from tpu_restir_torch.accel import fcluster, wide
 from tpu_restir_torch.config import IntersectorConfig
 from tpu_restir_torch.kernels import cluster_trace, ray_tri, woop
@@ -393,7 +393,7 @@ def _aabb_hits(o, d, tnear, tfar, cmin, cmax):
 def _visited(o, d, tnear, tfar, scene):
     """The clusters that some ray of the chunk reaches, on the host (one
     sync a chunk)."""
-    accel.HOST_SYNCS["cluster"] += 1
+    tracing.count("sync.cluster", 1)
     hits = _aabb_hits(o, d, tnear, tfar, scene.cluster_min,
                       scene.cluster_max)
     return hits.any(0).tolist()
@@ -426,7 +426,7 @@ def _any_chunk_cluster(o, d, tnear, tfar, scene, wb):
     for i, visit in enumerate(_visited(o, d, tnear, tfar, scene)):
         if not visit:
             continue
-        accel.HOST_SYNCS["cluster"] += 1
+        tracing.count("sync.cluster", 1)
         if bool(occ.all()):
             continue
         occ = occ | woop.intersect_block(o, d, wb[i], tnear, tfar)[3].any(1)

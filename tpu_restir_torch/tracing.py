@@ -1,0 +1,75 @@
+"""The port's spans and counters, in one place.
+
+`span(name)` marks a part of the work: the frame (`frame`, the body of
+`Renderer.step`), each ReSTIR pass (`restir.*`, `restir_step`) and the
+parts of the clustered traversal's phase 1 (`phase1.*`,
+`kernels/cluster_trace.py`). While torch.profiler records, a span is a
+`record_function` range, so it lands in the profiler's trace on the clock
+of its kernel and runtime records; while a pass collector is active
+(`collecting`, the per-pass timers of `profile_passes`), the collector
+sees it too. Otherwise it is a shared null context, after two flag reads.
+
+`count(name, value)` is the one counter registry, `COUNTS`: kernel
+launches of the CUDA wrappers (`launch.*`, each read 0 from the import
+of its module), host reads of the plain backends' loop conditions
+(`sync.*`) and phase 1's shortlists (`phase1.*`). An int value is always
+added. A tensor value, a count that lives on the device, is never
+touched here, so it launches nothing and waits for nothing: callers look
+`count` up on this module at each call, so a wrapper put in its place
+sees every call and may sum it.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+
+import torch
+from torch.autograd import profiler as _profiler
+
+COUNTS: collections.Counter = collections.Counter()
+
+_NULL = contextlib.nullcontext()
+_collector = None   # callable(name) -> context manager, or None
+
+
+def span(name: str):
+    """A context manager around one part of the work (see the module's
+    text)."""
+    if _collector is None and not _profiler._is_profiler_enabled:
+        return _NULL
+    return _recorded(name)
+
+
+@contextlib.contextmanager
+def _recorded(name: str):
+    with contextlib.ExitStack() as stack:
+        if _profiler._is_profiler_enabled:
+            stack.enter_context(torch.profiler.record_function(name))
+        if _collector is not None:
+            stack.enter_context(_collector(name))
+        yield
+
+
+def count(name: str, value) -> None:
+    """Add an int value to COUNTS[name]; leave a tensor value untouched
+    (see the module's text)."""
+    if isinstance(value, int):
+        COUNTS[name] += value
+
+
+def counted(prefix: str) -> dict:
+    """The counts whose names start with prefix, as a dict."""
+    return {k: v for k, v in COUNTS.items() if k.startswith(prefix)}
+
+
+@contextlib.contextmanager
+def collecting(collector):
+    """Make collector(name), a context manager, enter every span opened
+    inside this block."""
+    global _collector
+    prev, _collector = _collector, collector
+    try:
+        yield
+    finally:
+        _collector = prev
