@@ -21,7 +21,12 @@ line is not printed:
      of a terrain100k and a lights1k bench frame, each any-hit kernel
      held on each scene to a query with occluded and visible rays;
      factor 4 (superclusters) must equal factor 1 on
-     terrain_scene(20_000). K7/K8 (the Woop variant) likewise on a
+     terrain_scene(20_000). K9, phase 1's keys, against its plain version
+     `shortlist_keys` (keys as int32 bits, counts; `hold_keys`) on the
+     G-buffer and shadow packets of each of those scenes, and later on
+     terrain100k's NEE-MIS bounce-1 queries and terrain1M's at factor 4,
+     timed beside the eager key build, with its bound from the operations
+     its early exits leave (`key_work`). K7/K8 (the Woop variant) likewise on a
      terrain100k-128 bench frame under ptrace_mxu (terrain100k rebuilt at
      cluster size 128), with K5/K6 timed on the same scene and queries
      beside them. t/u/v of K1, K5 and K7 bit-identical. The bounds of
@@ -230,8 +235,9 @@ from tpu_restir_torch.bench import (  # noqa: E402
 # data sheet at 700 W; the unfused float32 rate, as the ray/triangle
 # kernels build with --fmad=false): one place, tpu_restir_torch/roofline.py
 from tpu_restir_torch.roofline import (  # noqa: E402
-    MT_OPS, MT_U_OPS, RAY_BYTES, SAFE_INV_OPS, SLAB_OPS, WOOP_OPS, WOOP_T_OPS,
-    WOOP_TU_OPS, KernelSpec)
+    BOX_BYTES, KEY_AXIS_OPS, KEY_BYTES, KEY_PAIR_OPS, KEY_RAY_OPS,
+    KEY_SLICE_OPS, KEY_SPAN0_AXIS_OPS, MT_OPS, MT_U_OPS, RAY_BYTES,
+    SAFE_INV_OPS, SLAB_OPS, WOOP_OPS, WOOP_T_OPS, WOOP_TU_OPS, KernelSpec)
 
 BARY_EPS = 1e-5   # the Woop test's slack (kernels/ray_tri.py)
 
@@ -1108,6 +1114,99 @@ def hold_trace(name, scene, kind, label, pk, results):
     return None
 
 
+def key_work(o, d, tnear, tfar, cmin, cmax):
+    """K9's run emulated on plain tensors, packed rays o, d (Rp*P, 3),
+    tnear, tfar against the boxes cmin, cmax (C, 3): the interval test
+    axis by axis up to the first axis after which a pair fails, the slice
+    boxes only for a passing pair of a bounded packet and up to the first
+    that overlaps -> (key (Rp, C), count (Rp,) int32, operations (Rp,)
+    int64 a packet: KEY_AXIS_OPS or KEY_SPAN0_AXIS_OPS an axis tested,
+    KEY_SLICE_OPS a slice box tested, KEY_PAIR_OPS a key, KEY_RAY_OPS a
+    live ray). Key and count equal `shortlist_keys`' bit for bit
+    (tests/test_torch_roofline.py), so the early exits are exact."""
+    import torch
+
+    from tpu_restir_torch.accel.fcluster import _packet_bounds
+    from tpu_restir_torch.kernels import cluster_trace as ct
+    (omin, omax, dmin, dmax, tn, tf, bounded, emin,
+     emax) = _packet_bounds(o, d, tnear, tfar, ct.P)
+    rp, c = omin.shape[0], cmin.shape[0]
+    dev = o.device
+    entry = torch.full((rp, c), -ct._BIG, device=dev)
+    exit_ = torch.full((rp, c), ct._BIG, device=dev)
+    alive = torch.ones((rp, c), dtype=torch.bool, device=dev)
+    ops = torch.full((rp, c), KEY_PAIR_OPS, dtype=torch.int64, device=dev)
+    for a in range(3):
+        spans0, a_entry, a_exit = ct._interval_axis(a, omin, omax, dmin,
+                                                    dmax, cmin, cmax)
+        ops += torch.where(alive, torch.where(spans0, KEY_SPAN0_AXIS_OPS,
+                                              KEY_AXIS_OPS), 0)
+        entry = torch.where(alive, torch.maximum(entry, a_entry), entry)
+        exit_ = torch.where(alive, torch.minimum(exit_, a_exit), exit_)
+        alive &= (entry <= exit_) & (exit_ >= tn[:, None]) \
+            & (entry <= tf[:, None])
+    boxed = alive & bounded[:, None]
+    found = torch.zeros_like(boxed)
+    for s in range(emin.shape[1]):
+        ops += torch.where(boxed & ~found, KEY_SLICE_OPS, 0)
+        found |= ((emin[:, None, s, :] <= cmax[None]) &
+                  (emax[:, None, s, :] >= cmin[None])).all(-1)
+    passes = alive & (found | ~bounded[:, None])
+    key = torch.where(passes, torch.maximum(entry, tn[:, None]), math.inf)
+    live = ((tfar >= tnear) & torch.isfinite(o).all(-1)
+            & torch.isfinite(d).all(-1)).reshape(rp, ct.P)
+    return (key, passes.sum(1, dtype=torch.int32),
+            ops.sum(1) + KEY_RAY_OPS * live.sum(1))
+
+
+def hold_keys(name, scene, label, pk, results):
+    """K9 on the rays of one clustered query (packets pk of scene, against
+    its (super)cluster boxes) and its plain version `shortlist_keys` on the
+    same CUDA tensors: keys equal as int32 bits, counts equal (raises
+    otherwise); the kernel's ms, the eager key build's, and the bound from
+    what the query's data needs: the operations `key_work` counts, the
+    rays and boxes read once, the keys and counts written once. Adds the
+    kernel's JSON entry to results on its first check."""
+    import torch
+
+    from tpu_restir_torch.kernels import cluster_trace as ct
+    scmin, scmax = (x.contiguous() for x in ct._super_boxes(
+        scene.cluster_min, scene.cluster_max, pk.factor))
+    args = (pk.o, pk.d, pk.tnear, pk.tfar, scmin, scmax)
+    key, cnt = ct.packet_keys(*args)
+    want_key, want_cnt = ct.shortlist_keys(*args)
+    torch.cuda.synchronize()
+    key_mis = int((key.view(torch.int32) != want_key.view(torch.int32))
+                  .sum())
+    cnt_mis = int((cnt != want_cnt).sum())
+    ms = cuda_ms(lambda: ct.packet_keys(*args), 5)
+    plain_ms = cuda_ms(lambda: ct.shortlist_keys(*args), 1)
+    ops = key_work(*args)[2]
+    rp, c = key.shape
+    n_ops = int(ops.sum())
+    n_bytes = (pk.o.shape[0] * RAY_BYTES + rp * c * KEY_BYTES + rp * 4
+               + c * BOX_BYTES)
+    bnd = bound(n_bytes, n_ops)
+    listed = int(want_cnt.sum())
+    print(f"[K9 shortlist_keys] {name} {label}: {pk.n_rays} rays in {rp} "
+          f"packets x C={c} boxes (factor {pk.factor}); against the plain "
+          f"version: keys {key_mis} mismatches as int32 bits, counts "
+          f"{cnt_mis} (must be 0 and 0); passing pairs {listed} "
+          f"({listed / max(rp * c, 1):.4f}); kernel {ms:.3f} ms, the eager "
+          f"key build {plain_ms:.3f} ms; {n_ops} operations "
+          f"({n_ops / max(rp * c, 1):.1f} a pair: the interval test to the "
+          f"first failing axis, the slice boxes to the first overlap, "
+          f"{KEY_RAY_OPS} a live ray) and {n_bytes} bytes: bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}), bound/kernel {bnd[0] / ms:.3f}",
+          flush=True)
+    require(key_mis == 0 and cnt_mis == 0,
+            f"shortlist_keys {name} {label}: kernel and plain version "
+            f"differ on {key_mis} keys and {cnt_mis} counts")
+    results.setdefault("shortlist_keys", {
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None})
+
+
 def phase_ptrace_kernels(dev, results,
                          scenes=("terrain100k", "lights1k", "terrain100k-128")):
     """K5-K8 against their plain versions on the card, both on the whole
@@ -1139,6 +1238,8 @@ def phase_ptrace_kernels(dev, results,
                     "G-buffer primary rays", closest_pk),
                    (name, scene, "trace_any" + sfx,
                     "area-candidate shadow rays", any_pk)]
+        hold_keys(name, scene, "G-buffer primary rays", closest_pk, results)
+        hold_keys(name, scene, "area-candidate shadow rays", any_pk, results)
         if name.startswith("terrain100k"):
             checks.append((name, scene, "trace_any" + sfx,
                            "G-buffer rays as occlusion rays", closest_pk))
@@ -1263,8 +1364,10 @@ def phase_main_path(dev, small_mean, small_se, smi):
     cfg = bench_cfg(WIDTH, HEIGHT)
     renderer, img, dt, qlog = timed_frames(cornell_box(dev), cfg, dev,
                                            N_FRAMES)
-    launches = {k: v for k, v in _launches().items()
-                if k != "scatter_local" and not k.startswith("trace_")}
+    every = _launches()
+    launches = {k: v for k, v in every.items()
+                if k not in ("scatter_local", "shortlist_keys")
+                and not k.startswith("trace_")}
     # (the forward has no backward; a 36-triangle scene no clusters)
     rays = sum(e["rays"] for e in qlog)
     traced_rpp = rays / float(WIDTH * HEIGHT * N_FRAMES)
@@ -1284,6 +1387,8 @@ def phase_main_path(dev, small_mean, small_se, smi):
             f"traced {traced_rpp} rays/pixel, analytic {analytic}")
     require(all(v > 0 for v in launches.values()),
             f"a kernel of the path never launched: {launches}")
+    require(every["shortlist_keys"] == 0,
+            f"phase 1's K9 ran on the Cornell box: {every}")
     require(abs(mean - small_mean) <= 4 * small_se,
             f"1080p mean {mean} outside the small run's "
             f"{small_mean} +- 4 x {small_se}")
@@ -1367,6 +1472,9 @@ def phase_large_path(dev, label, smi, small_mean):
             f"{label}: K1 must serve the emissive subset and K2 nothing: "
             f"{launches}")
     require(launches["gather_local"] > 0, f"{label}: K3 never launched")
+    require(launches["shortlist_keys"] == sum(chunks.values()),
+            f"{label}: K9 launched {launches['shortlist_keys']} times, not "
+            f"once a clustered query's chunk {chunks}")
     require(0.25 * small_mean < mean < 4.0 * small_mean,
             f"{label}: implausible image mean {mean} (64x32: {small_mean})")
     if mxu:
@@ -1487,6 +1595,8 @@ def phase_integrators(dev, smi):
             want = {f"trace_{k}": sum(-(-e["rays"] // chunk) for e in qlog
                                       if e["kind"] == k)
                     for k in ("closest", "any")}
+            # phase 1's K9: once a clustered chunk
+            want["shortlist_keys"] = sum(want.values())
         others = {k: v for k, v in got.items() if k not in want and v}
         finite = bool(torch.isfinite(img).all())
         mean = renderer.stats()[0]
@@ -1621,6 +1731,7 @@ def path_queries(scene, cfg, label, dev):
         torch.cuda.synchronize()
         estimate = (time.perf_counter() - t0) * n / len(sub)
         what = f"bounce-1 {role} query of {label}"
+        hold_keys("terrain100k", scene, what + " (whole)", pk, results)
         if estimate > HOLD_BUDGET_S:
             sub = torch.arange(0, n, HOLD_STRIDE, device=pk.count.device)
             what += (f", packets 0, {HOLD_STRIDE}, {2 * HOLD_STRIDE}, ... "
@@ -2405,7 +2516,7 @@ def phase_fwd_bwd(dev, smi):
         times.append(time.perf_counter() - t0)
     intersect.QUERY_LOG = None
     launches = {k: v for k, v in _launches().items()
-                if not k.startswith("trace_")}
+                if k != "shortlist_keys" and not k.startswith("trace_")}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     rays = sum(e["rays"] for e in qlog)
     rpp = rays / float(WIDTH * HEIGHT)
@@ -3108,6 +3219,8 @@ def phase_tools(dev, smi):
         else:
             require(r["full_sort_mismatches"] == 0,
                     "profile_phase1: the full sort differs from phase 1")
+            require(r["key_build_k9_mismatches"] == 0,
+                    "profile_phase1: K9's keys differ from the plain ones")
             require(all(r[f"topk{k}"]["mismatches"]
                         == r[f"topk{k}"]["tie_mismatches"]
                         for k in profile_phase1.TOPK),
@@ -3226,6 +3339,10 @@ def phase_bench(dev, smi, results):
                                                           view), dev)
     require(closest_pk.factor == any_pk.factor == 4,
             f"terrain1M packets at factor {closest_pk.factor}")
+    hold_keys("terrain1M", scene, "G-buffer primary rays", closest_pk,
+              results)
+    hold_keys("terrain1M", scene, "area-candidate shadow rays", any_pk,
+              results)
     sides = [hold_trace("terrain1M", scene, kind, label, pk, results)
              for kind, label, pk in (
                  ("trace_closest", "G-buffer primary rays", closest_pk),
@@ -3569,9 +3686,13 @@ def phase_dist(dev, name, smi):
         for key in ("closest_hit", "any_hit", "gather_local"):
             require(r["launches"][key] > 0,
                     f"[dist] rank {r['rank']} never launched {key}")
-        require(r["lights_launches"]["trace_closest"] > 0
-                and r["lights_launches"]["trace_any"] > 0,
+        lights = r["lights_launches"]
+        require(lights["trace_closest"] > 0 and lights["trace_any"] > 0,
                 f"[dist] rank {r['rank']}: lights1k bypassed K5/K6")
+        require(lights["shortlist_keys"] == lights["trace_closest"]
+                + lights["trace_any"],
+                f"[dist] rank {r['rank']}: K9 not once a K5/K6 launch: "
+                f"{lights}")
     if torch.cuda.device_count() >= 2:
         with tempfile.TemporaryDirectory() as tmp:
             cli_main(["--devices", "2", "--size", "64x32", "--temporal",
@@ -3606,11 +3727,11 @@ def main():
     phase_grad_small()
     phase_optimize(dev)
     # the clustered scenes: K5/K6 launches are those of their two paths
-    launches.update(trace_closest=0, trace_any=0)
+    launches.update(trace_closest=0, trace_any=0, shortlist_keys=0)
     for label in ("terrain100k", "lights1k"):
         small_mean, _se = phase_small(label, CLUSTER_SMALL_FRAMES)
         got = phase_large_path(dev, label, smi, small_mean)
-        for key in ("trace_closest", "trace_any"):
+        for key in ("trace_closest", "trace_any", "shortlist_keys"):
             launches[key] += got[key]
     phase_grad_small("terrain100k")
     # the Woop variant: K7/K8 launches are those of its path
@@ -3618,6 +3739,7 @@ def main():
     got = phase_large_path(dev, "terrain100k-128", smi, small_mean)
     for key in ("trace_closest_mxu", "trace_any_mxu"):
         launches[key] = got[key]
+    launches["shortlist_keys"] += got["shortlist_keys"]
     phase_cli(dev, smi)
     phase_denoise_cost(dev, smi)
     dist = phase_dist(dev, name, smi)
@@ -3652,6 +3774,8 @@ def main():
                               "tpu_restir/kernels/cluster_trace.py:795"),
         "trace_any_mxu": ("tpu_restir_torch/csrc/cluster_trace.cu",
                           "tpu_restir/kernels/cluster_trace.py:888"),
+        # phase 1's keys: XLA code in the JAX package, no Pallas kernel
+        "shortlist_keys": ("tpu_restir_torch/csrc/cluster_trace.cu", None),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3661,7 +3785,7 @@ def main():
                 **{key: results[k][key] for key in ("slab_live_share",)
                    if key in results[k]},
                 **({"demo_launches": demo[k]} if k in demo else {}),
-                "dist_launches": dist["launches"][k],
+                "dist_launches": dist["launches"].get(k, 0),
                 "bench_launches": bench_launches[k],
                 **({"dist_ms": dist["k3"]["ms"]}
                    if k == "gather_local" else {})}

@@ -42,6 +42,8 @@ from tpu_restir_torch.render.integrators.restir.pipeline import (
 from tpu_restir_torch.scene.cornell import cornell_box, many_lights_scene
 from tpu_restir_torch.scene.procedural import TERRAIN_SPECS, terrain_scene
 from tpu_restir_torch.scene.scene import build_scene
+from torch_phase1_cases import (K9_CASES, box_rays, max_face_rays,
+                                patches_scene, phase1_case)
 from torch_ray_families import ANY_FAMILIES, family
 
 pytestmark = pytest.mark.gpu
@@ -767,52 +769,14 @@ def test_trace_any_kernel_warp_patterns(cuda, name, pattern):
     assert 0 < int(want.sum()) < int(live.sum())
 
 
-def _patches_scene(dev, n=80, block=64):
-    """n flat 1 x 2 patches of `block` triangles each (4 x block / 8 cells
-    with edges along x and y), 0.5 apart along x, and a 2-triangle light,
-    built at cluster size `block`: 81 clusters (cull mode 5), and no
-    triangle beyond a patch's max-x face."""
-    tris = []
-    ny = block // 8
-    for i in range(n):
-        xs = np.linspace(1.5 * i, 1.5 * i + 1.0, 5)
-        ys = np.linspace(0.0, 2.0, ny + 1)
-        for a in range(4):
-            for b in range(ny):
-                p00, p10 = [xs[a], ys[b], 0.0], [xs[a + 1], ys[b], 0.0]
-                p11, p01 = [xs[a + 1], ys[b + 1], 0.0], [xs[a], ys[b + 1], 0.0]
-                tris += [[p00, p10, p11], [p00, p11, p01]]
-    panel = [[[0, 0, 5.0], [1, 1, 5.0], [1, 0, 5.0]],
-             [[0, 0, 5.0], [0, 1, 5.0], [1, 1, 5.0]]]
-    mats = np.concatenate([np.zeros(len(tris), np.int32),
-                           np.ones(2, np.int32)])
-    return build_scene(np.array(tris + panel, np.float32), mats,
-                       TERRAIN_SPECS, dev, cluster_size=block)
-
-
-def _max_face_rays(dev, n=16 * ct.P):
-    """Rays lying in the plane x = 1.5 i + 1 of patch i's max-x face (d_x
-    = 0), from above onto its edge there."""
-    g = torch.Generator().manual_seed(3)
-    x = 1.5 * (torch.arange(n) // ct.P % 79) + 1.0
-    o = torch.stack([x, 0.1 + 1.8 * torch.rand((n,), generator=g),
-                     torch.ones(n)], 1)
-    d = torch.stack([torch.zeros(n),
-                     (torch.rand((n,), generator=g) - 0.5) * 0.2,
-                     -torch.ones(n)], 1)
-    d = d / d.norm(dim=-1, keepdim=True)
-    return tuple(v.to(dev).contiguous() for v in
-                 (o, d, torch.full((n,), 1e-3), torch.full((n,), 1e4)))
-
-
 def test_trace_any_kernel_max_face_plane(cuda):
     """Rays lying in the plane of a patch's max-x face (d_x = 0), from
     above onto its edge there: the plain test finds the hits, and K6 with
     cull mode 5 must too. The JAX kernel's slab test sends such rays out
     of the box at t = 0, so a cull on it misses them (most of them in a
     block vote; tests/test_torch_any_skips.py)."""
-    scene = _patches_scene(cuda)
-    pk = _packets(scene, _max_face_rays(cuda))
+    scene = patches_scene(cuda)
+    pk = _packets(scene, max_face_rays(cuda))
     got = ct.any_packets(scene.cluster_tris, scene.cluster_min,
                          scene.cluster_max, pk)
     want = ct.trace_any_ref(scene.cluster_tris, pk)
@@ -868,6 +832,82 @@ def test_ptrace_gradient_cuda_matches_cpu(cuda):
     assert float(grads["cpu"][0].abs().max()) > 0.0
     for a, b in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+# --- K9, phase 1's keys ------------------------------------------------------
+
+def _plain_pack(*args):
+    """`pack` with the plain key build in place of K9."""
+    keep = ct.packet_keys
+    ct.packet_keys = ct.shortlist_keys
+    try:
+        return ct.pack(*args)
+    finally:
+        ct.packet_keys = keep
+
+
+@pytest.mark.parametrize("case", K9_CASES)
+def test_shortlist_keys_kernel_matches_plain(cuda, case):
+    """K9 against `shortlist_keys` on the same CUDA tensors: keys equal as
+    int32 bits, counts equal; through `pack`, count, shortlist and entry
+    equal the plain key build's, with one K9 launch a pack of rays."""
+    cmin, cmax, rays, factor, packed = phase1_case(cuda, case)
+    if packed:
+        before = tracing.COUNTS["launch.shortlist_keys"]
+        pk = ct.pack(cmin, cmax, *rays, factor)
+        launched = tracing.COUNTS["launch.shortlist_keys"] - before
+        assert launched == (1 if pk.count.shape[0] else 0)
+        want = _plain_pack(cmin, cmax, *rays, factor)
+        for name in ("count", "shortlist", "entry", "tfar"):
+            a, b = getattr(pk, name), getattr(want, name)
+            assert a.dtype == b.dtype and torch.equal(
+                a.view(torch.int32), b.view(torch.int32)), name
+        smin, smax = ct._super_boxes(cmin, cmax, factor)
+        args = (pk.o, pk.d, pk.tnear, pk.tfar, smin.contiguous(),
+                smax.contiguous())
+    else:
+        args = (*rays, cmin, cmax)
+    key, count = ct.packet_keys(*args)
+    want_key, want_count = ct.shortlist_keys(*args)
+    torch.cuda.synchronize()
+    assert key.dtype == torch.float32 and count.dtype == torch.int32
+    assert key.shape == want_key.shape and count.shape == want_count.shape
+    assert int((key.view(torch.int32) != want_key.view(torch.int32))
+               .sum()) == 0
+    assert torch.equal(count, want_count)
+    if case not in ("Rp0", "nan_inf"):
+        assert int(count.sum()) > 0
+    if case == "signed_zero_planes":
+        assert bool((key == 0.0).any())
+
+
+def test_pack_on_cuda_opens_the_keys_span_and_launches_k9_once(cuda):
+    """On CUDA tensors phase 1's keys are one K9 launch inside the span
+    `phase1.keys` (the plain version's `phase1.interval` and
+    `phase1.boxcull` stay shut), then the sort's span, each once a pack."""
+    from torch.profiler import ProfilerActivity, profile
+    lo, hi, *rays = box_rays(cuda, 300, 3 * ct.P + 5, 9)
+    before = tracing.COUNTS["launch.shortlist_keys"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ct.pack(lo, hi, *rays, 1)
+        ct.pack(lo, hi, *(x[:300] for x in rays), 1)
+    assert tracing.COUNTS["launch.shortlist_keys"] == before + 2
+    spans = [e.name for e in sorted(prof.events(),
+                                    key=lambda e: e.time_range.start)
+             if e.name.startswith("phase1.")]
+    assert spans == ["phase1.keys", "phase1.sort"] * 2
+
+
+def test_shortlist_keys_kernel_refuses_bad_inputs(cuda):
+    lo, hi, o, d, tn, tf = box_rays(cuda, 10, 2 * ct.P, 10)
+    bad = [(o[:300], d[:300], tn[:300], tf[:300], lo, hi),
+           (o, d, tn.double(), tf, lo, hi),
+           (o, d.t().contiguous().t(), tn, tf, lo, hi),
+           (o, d, tn, tf, lo[:, :2].contiguous(), hi),
+           (o, d, tn, tf, lo.cpu(), hi.cpu())]
+    for args in bad:
+        with pytest.raises(ValueError):
+            ct.packet_keys(*args)
 
 
 def _woop_terrain(dev, n):
@@ -968,13 +1008,13 @@ def test_trace_any_mxu_kernel_max_face_plane(cuda):
     """The rays of test_trace_any_kernel_max_face_plane on the patches at
     cluster size 128 (81 clusters: K8 culls, mode 5): the plain Woop test
     finds the hits, and K8 must too."""
-    scene = _patches_scene(cuda, block=128)
+    scene = patches_scene(cuda, block=128)
     c = scene.cluster_woop.shape[0]
     assert ct._skip_for("any", c) == 5
     # most of the rays' planes are a cluster box's max-x face
     faces = set(scene.cluster_max[:, 0].tolist())
     assert sum(1.5 * i + 1.0 in faces for i in range(79)) > 60
-    pk = _packets(scene, _max_face_rays(cuda))
+    pk = _packets(scene, max_face_rays(cuda))
     got = ct.any_packets_mxu(scene.cluster_woop, scene.cluster_min,
                              scene.cluster_max, pk)
     want = ct.trace_any_mxu_ref(scene.cluster_woop, pk)

@@ -10,10 +10,13 @@ import ast
 import inspect
 
 import pytest
+import torch
 
 import chip_smoke
+from torch_phase1_cases import K9_CASES, phase1_case
 from tpu_restir import roofline as jroofline
 from tpu_restir_torch import roofline
+from tpu_restir_torch.kernels import cluster_trace as ct
 
 
 def _public(mod):
@@ -265,3 +268,39 @@ def test_repeated_slots_are_not_counted(factor):
     assert sorted(pairs) == sorted(
         (p, cl) for p in range(rp) for cl, _e in _distinct(pk, p, c))
     assert int(chip_smoke.listed_clusters(pk, c).sum()) == len(pairs)
+
+
+@pytest.mark.parametrize("case", K9_CASES)
+def test_key_work_emulates_the_keys_kernel(case):
+    """chip_smoke.key_work runs phase 1's keys as K9 does, the interval
+    test up to the first axis after which a pair fails and the slice
+    boxes up to the first overlap: its keys (as int32 bits) and counts
+    equal `shortlist_keys`', so those early exits are exact; its
+    operations lie between every pair's first axis and every pair's
+    whole test, beside KEY_RAY_OPS a live ray."""
+    cmin, cmax, rays, factor, packed = phase1_case(torch.device("cpu"),
+                                                   case)
+    if packed:
+        pk = ct.pack(cmin, cmax, *rays, factor)
+        smin, smax = ct._super_boxes(cmin, cmax, factor)
+        args = (pk.o, pk.d, pk.tnear, pk.tfar, smin.contiguous(),
+                smax.contiguous())
+    else:
+        args = (*rays, cmin, cmax)
+    key, count, ops = chip_smoke.key_work(*args)
+    want_key, want_count = ct.shortlist_keys(*args)
+    assert torch.equal(key.view(torch.int32), want_key.view(torch.int32))
+    assert torch.equal(count, want_count)
+    o, d, tn, tf = args[:4]
+    rp, c = key.shape
+    live = ((tf >= tn) & torch.isfinite(o).all(-1)
+            & torch.isfinite(d).all(-1)).reshape(rp, ct.P).sum(1)
+    rows = ops - roofline.KEY_RAY_OPS * live
+    least = roofline.KEY_PAIR_OPS + roofline.KEY_SPAN0_AXIS_OPS
+    most = roofline.KEY_PAIR_OPS + 3 * roofline.KEY_AXIS_OPS \
+        + 8 * roofline.KEY_SLICE_OPS
+    assert ops.dtype == torch.int64 and ops.shape == (rp,)
+    assert bool((rows >= least * c).all()) and bool((rows <= most * c).all())
+    # a listed pair ran all three axes
+    assert bool((rows >= least * c + count * 2 * roofline.KEY_SPAN0_AXIS_OPS)
+                .all())

@@ -78,11 +78,12 @@ def test_profile_phase1_alternatives_agree_with_the_shortlists(capsys):
     r, lines = _run(profile_phase1, ["--device", "cpu", "--tris", "5000",
                                      "--size", "x".join(SIZE), "--reps", "1"],
                     capsys)
-    for head in ("key build", "full sort (8x79)", "top_k(32)", "top_k(64)",
-                 "reduction compact (32)", "interval pass alone",
-                 "box_ok alone", "bounds alone"):
+    for head in ("key build", "key build by K9", "full sort (8x79)",
+                 "top_k(32)", "top_k(64)", "reduction compact (32)",
+                 "interval pass alone", "box_ok alone", "bounds alone"):
         assert any(ln.startswith(head) for ln in lines), head
     assert r["full_sort_mismatches"] == 0
+    assert r["key_build_k9_mismatches"] == 0
     for k in (32, 64):
         e = r[f"topk{k}"]
         assert e["slots"] > 0 and e["mismatches"] == e["tie_mismatches"]

@@ -194,12 +194,12 @@ def test_pass_timers_resolve_when_read():
 
 # --- the benchmark's readers ----------------------------------------------
 
-def _chrome(with_spans=True):
+def _chrome(with_spans=True, names=None):
     """Two units of 10 ms: each a frame (2 ms) holding restir.initial,
-    restir.temporal, restir.shade and the phase-1 spans, 90 us each and
-    100 us apart; span k launches kernels of 10 * (k + 1) us in all (the
-    temporal span two of 10 us, 40 us apart), and one kernel of 7 us is
-    launched in the frame outside the spans."""
+    restir.temporal, restir.shade and the phase-1 spans (or the spans
+    `names`), 90 us each and 100 us apart; span k launches kernels of
+    10 * (k + 1) us in all (the temporal span two of 10 us, 40 us apart),
+    and one kernel of 7 us is launched in the frame outside the spans."""
     ev = []
     corr = [0]
 
@@ -215,8 +215,8 @@ def _chrome(with_spans=True):
         ev.append({"ph": "X", "cat": "kernel", "name": name, "ts": start,
                    "dur": dur, "args": {"correlation": corr[0]}})
 
-    names = ["restir.initial", "restir.temporal", "restir.shade",
-             "phase1.interval", "phase1.boxcull", "phase1.sort"]
+    names = names or ["restir.initial", "restir.temporal", "restir.shade",
+                      "phase1.interval", "phase1.boxcull", "phase1.sort"]
     for u in range(2):
         base = 10_000.0 * u
         if with_spans:
@@ -262,6 +262,64 @@ def test_each_span_metric_reads_its_span(metric, ms, launches, idle):
     none = trace.Traced(device=absent.device, spans=None, counts={},
                         count_units=0, missing={})
     assert mod.read(none) is None and mod.describe(none)
+
+
+# on CUDA tensors phase 1's keys are one K9 launch in `phase1.keys`, in
+# place of the plain version's `phase1.interval` and `phase1.boxcull`
+CUDA_SPANS = ["restir.initial", "restir.temporal", "restir.shade",
+              "phase1.keys", "phase1.sort"]
+
+
+@pytest.mark.parametrize("metric,ms", [
+    ("phase1_ms.keys", 0.040), ("phase1_ms.sort", 0.050),
+    ("phase1_ms.interval", None), ("phase1_ms.boxcull", None)])
+def test_the_keys_span_metric_reads_the_cuda_path(metric, ms):
+    """`phase1_ms.keys` reads the kernels launched in `phase1.keys`; on a
+    trace of the CUDA path the interval and box-cull spans are absent, so
+    their metrics read nothing; a trace without the span (a program
+    before K9) leaves `phase1_ms.keys` out too."""
+    mod = harness.metric_module(metric)
+    assert mod.SPANS == []
+    traced = _traced(_chrome(names=CUDA_SPANS))
+    got = mod.read(traced)
+    if ms is None:
+        assert got is None and "0 calls" in mod.describe(traced)
+        return
+    assert got == pytest.approx(ms)
+    assert f"1 calls, 1 launches, kernels {ms:.3f} ms" in \
+        mod.describe(traced)
+    if metric == "phase1_ms.keys":
+        assert mod.read(_traced(_chrome())) is None
+        assert mod.read(_traced(_chrome(names=CUDA_SPANS,
+                                        with_spans=False))) is None
+
+
+def test_the_keys_kernel_count_is_seeded_and_a_cpu_pack_launches_nothing(
+        monkeypatch):
+    """`launch.shortlist_keys` reads 0 from the import of its module; a
+    pack of CPU tensors takes the plain key build (its spans
+    `phase1.interval` and `phase1.boxcull`, no `phase1.keys`), builds and
+    launches nothing."""
+    assert "launch.shortlist_keys" in tracing.COUNTS
+    if not torch.cuda.is_available():
+        assert tracing.COUNTS["launch.shortlist_keys"] == 0
+
+    def refuse(*a, **k):
+        raise AssertionError("a kernel library loaded for CPU tensors")
+
+    monkeypatch.setattr(ct, "_lib", refuse)
+    lo, hi, o, d, tn, tf = _boxes_and_rays()
+    before = tracing.counted("launch.")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        pk = ct.pack(lo, hi, o, d, tn, tf, 1)
+    assert tracing.counted("launch.") == before
+    names = {e.name for e in prof.events()}
+    assert set(PHASE1) <= names and "phase1.keys" not in names
+    key, count = ct.packet_keys(pk.o, pk.d, pk.tnear, pk.tfar, lo, hi)
+    want_key, want_count = ct.shortlist_keys(pk.o, pk.d, pk.tnear, pk.tfar,
+                                             lo, hi)
+    assert torch.equal(key, want_key) and torch.equal(count, want_count)
+    assert torch.equal(count, pk.count)
 
 
 def test_idle_is_charged_to_the_innermost_program_span():

@@ -2,7 +2,8 @@
 // K6 any hit of packets of 256 rays over their own front-to-back cluster
 // shortlists (phase 1, `build_shortlists` in kernels/cluster_trace.py), by
 // fused Moller-Trumbore, and their Woop variant K7/K8 (`ptrace_mxu`), the
-// same traversal with K1's Woop test at factor 1.
+// same traversal with K1's Woop test at factor 1. And K9, phase 1's sort
+// keys before its sort (`shortlist_keys`; its own notes at the end).
 //
 // Replaces the Pallas TPU kernels tpu_restir/kernels/cluster_trace.py
 // `_closest_kernel` (K5), `_any_kernel` (K6), `_closest_kernel_mxu` (K7)
@@ -607,6 +608,280 @@ int launch(const Args& a, int n_packets, int woop, void* stream, float* t,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K9: phase 1's sort keys, `shortlist_keys` of kernels/cluster_trace.py
+// ---------------------------------------------------------------------------
+//
+// It replaces no TPU kernel: the JAX package's phase 1 is XLA code, and the
+// port's plain version ran it as ~210 eager launches a query over dense
+// (packets, clusters) grids, each written to device memory and read back.
+// K9 does in one launch what precedes the sort: each packet's interval
+// summary (`_packet_bounds`: the origin, direction and t bounds of its live
+// rays, the hulls of their 9 t-slice points, whether every live ray is
+// bounded), then for each (super)cluster box the interval pass with its
+// entry distance (`_interval_pass_entry`), the swept sub-box cull
+// (`box_overlap` under the `bounded` mask), the key (the entry distance,
+// at least the packet's least tnear, where both pass; +inf elsewhere) and
+// the count of passing boxes.
+//
+// What bounds it on the H100: the key writes (4 bytes a pair) and the
+// operations, ~30 an axis of the interval test, 6 a slice box, and ~150 a
+// live ray for its points and their folds; device memory sees each ray
+// once and each key once.
+//
+// Design: one block per packet, one ray a thread. Each thread loads its
+// ray once and computes `live` and its 9 points; the packet's 68 minima
+// and maxima fold across each warp (two transposing butterflies, 31
+// shuffles for 32 values each, and four plain folds), then across the 8
+// warps in shared memory; three threads derive each axis's clamped
+// reciprocal interval, 24 the slice boxes. Then the threads sweep the
+// boxes, thread t boxes t, t + 256, ... (the boxes stay in L1 and L2: each
+// block reads each box once): the interval test axis by axis, stopping at
+// the first axis after which the pair fails (entry only grows and exit
+// only shrinks, and a NaN stays, so no later axis can pass it), and the
+// slice boxes only for a passing pair of a bounded packet, stopping at the
+// first that overlaps (an OR). A warp's key writes are consecutive floats
+// of the packet's row; a block sum gives the count.
+//
+// Rounding: the plain version's operations in its order, the division
+// IEEE and nothing contracted (--fmad=false), so key and count are
+// bit-identical to `shortlist_keys` on CUDA tensors. Minima and maxima
+// propagate NaN as torch.minimum, maximum, amin, amax and clamp do (fminf
+// and fmaxf drop it, and a dead packet's plane distances are inf * 0), and
+// take -0 below +0, as torch.minimum and maximum do on the card. amin and
+// amax instead keep the operand their reduction order meets first among
+// equal values: a packet whose live rays hold both +0 and -0 in one origin
+// component, or in tnear, can get the other zero there (K9 takes -0 for
+// the least, +0 for the greatest); it changes a key only where a box
+// face lies at -0 with the origins on it, or where that zero is the key.
+
+constexpr int kWarps = kP / 32;
+constexpr int kSlices = 8;        // swept sub-boxes a packet (_N_SLICES)
+// A packet's summary, in a table of minima and one of maxima of its live
+// rays' values (slots): the 9 t-slice points (slot 3 s + axis), the
+// origin (27-29), the direction (30-32) and tnear (minima) or tfar
+// (maxima) (33). Slots 0-31 of each table fold across a warp by a
+// transposing butterfly (31 shuffles for the 32 slots, lane l ending
+// with slot l), the other two by plain warp folds.
+constexpr int kSlots = 34;
+constexpr int kOrigin = 27, kDir = 30, kT = 33;
+constexpr float kBig = 3.0e38f;        // _BIG of the interval pass
+constexpr float kSpan0 = 1e-12f;       // a direction interval near zero
+constexpr float kRecipMax = 1e12f;     // the reciprocal bounds' clamp
+
+// min and max that propagate NaN (one instruction on sm_80 and later)
+__device__ __forceinline__ float nan_min(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+template <bool kMin>
+__device__ __forceinline__ float nan_fold(float a, float b) {
+  return kMin ? nan_min(a, b) : nan_max(a, b);
+}
+
+// A ray's value of summary slot k, +inf (minima) or -inf (maxima) for a
+// ray that is not live. Point s is o + d (tnear + (tfar - tnear) s / 8),
+// `_packet_bounds`' order (linspace(0, 1, 9) is exact).
+template <bool kMin>
+__device__ __forceinline__ float ray_slot(int k, const float (&ro)[3],
+                                          const float (&rd)[3], float tn,
+                                          float tf, bool live) {
+  float x;
+  if (k < kOrigin)
+    x = ro[k % 3] + rd[k % 3] * (tn + (tf - tn) * (0.125f * (k / 3)));
+  else if (k < kDir)
+    x = ro[k - kOrigin];
+  else if (k < kT)
+    x = rd[k - kDir];
+  else
+    x = kMin ? tn : tf;
+  return live ? x : (kMin ? INFINITY : -INFINITY);
+}
+
+// A step of the transposing butterfly: the lane keeps half of its O * 2
+// slots, sends its partner (lane ^ O) the half it gives up and folds in
+// the partner's copy of the half it keeps.
+template <bool kMin, int O>
+__device__ __forceinline__ void butterfly(float (&v)[32], int lane) {
+  const bool upper = lane & O;
+#pragma unroll
+  for (int j = 0; j < O; ++j) {
+    const float send = upper ? v[j] : v[j + O];
+    const float keep = upper ? v[j + O] : v[j];
+    v[j] = nan_fold<kMin>(keep, __shfl_xor_sync(kFull, send, O));
+  }
+}
+
+// Fold the ray's summary slots over its warp into the warp's row of part
+// (kMin: the minima).
+template <bool kMin>
+__device__ __forceinline__ void fold_summary(float (*part)[kSlots],
+                                             const float (&ro)[3],
+                                             const float (&rd)[3], float tn,
+                                             float tf, bool live) {
+  const int lane = threadIdx.x & 31;
+  float v[32];
+#pragma unroll
+  for (int k = 0; k < 32; ++k) v[k] = ray_slot<kMin>(k, ro, rd, tn, tf, live);
+  butterfly<kMin, 16>(v, lane);
+  butterfly<kMin, 8>(v, lane);
+  butterfly<kMin, 4>(v, lane);
+  butterfly<kMin, 2>(v, lane);
+  butterfly<kMin, 1>(v, lane);
+  float* row = part[2 * (threadIdx.x >> 5) + (kMin ? 0 : 1)];
+  row[lane] = v[0];
+#pragma unroll
+  for (int k = 32; k < kSlots; ++k) {
+    float x = ray_slot<kMin>(k, ro, rd, tn, tf, live);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      x = nan_fold<kMin>(x, __shfl_xor_sync(kFull, x, off));
+    if (lane == 0) row[k] = x;
+  }
+}
+
+// An axis of the packet's interval summary: its origin bounds and the
+// clamped reciprocal bounds of its direction interval, unless that spans
+// zero (spans0: the axis constrains nothing).
+struct KeyAxis {
+  float omin, omax, rlo, rhi;
+  bool spans0;
+};
+
+// The plane distances of one box bound b on the axis: the least and the
+// greatest of the four corner products.
+__device__ __forceinline__ void plane_span(float b, const KeyAxis& x,
+                                           float& lo, float& hi) {
+  const float blo_n = b - x.omax;
+  const float bhi_n = b - x.omin;
+  const float q1 = blo_n * x.rlo;
+  const float q2 = blo_n * x.rhi;
+  const float q3 = bhi_n * x.rlo;
+  const float q4 = bhi_n * x.rhi;
+  lo = nan_min(nan_min(q1, q2), nan_min(q3, q4));
+  hi = nan_max(nan_max(q1, q2), nan_max(q3, q4));
+}
+
+// One axis of the interval pass, folded into the pair's entry and exit
+// bounds; whether the pair still passes: entry_lo <= exit_hi, exit_hi >=
+// tn, entry_lo <= tf.
+__device__ __forceinline__ bool interval_axis(const KeyAxis& x, float blo,
+                                              float bhi, float tn, float tf,
+                                              float& entry_lo,
+                                              float& exit_hi) {
+  float a_entry = -kBig, a_exit = kBig;
+  if (!x.spans0) {
+    float t1lo, t1hi, t2lo, t2hi;
+    plane_span(blo, x, t1lo, t1hi);
+    plane_span(bhi, x, t2lo, t2hi);
+    a_entry = nan_min(t1lo, t2lo);
+    a_exit = nan_max(t1hi, t2hi);
+  }
+  entry_lo = nan_max(entry_lo, a_entry);
+  exit_hi = nan_min(exit_hi, a_exit);
+  return entry_lo <= exit_hi && exit_hi >= tn && entry_lo <= tf;
+}
+
+// One block per packet, one ray a thread.
+__global__ void __launch_bounds__(kP)
+    shortlist_keys_kernel(const float* __restrict__ o,
+                          const float* __restrict__ d,
+                          const float* __restrict__ tnear,
+                          const float* __restrict__ tfar,
+                          const float* __restrict__ cmin,
+                          const float* __restrict__ cmax, int n_clusters,
+                          float* __restrict__ key, int* __restrict__ count) {
+  __shared__ float part[2 * kWarps][kSlots];   // per warp: minima, maxima
+  __shared__ float smin[kSlots], smax[kSlots];
+  __shared__ KeyAxis axes[3];
+  __shared__ float emin[kSlices][3], emax[kSlices][3];
+  __shared__ int warp_pass[kWarps];
+  const int p = blockIdx.x;
+  const long long i = (long long)p * kP + threadIdx.x;
+
+  // the packet summary (`_packet_bounds`): dead rays (tfar < tnear) and
+  // rays with a non-finite origin or direction stay out
+  float ro[3], rd[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    ro[a] = o[3 * i + a];
+    rd[a] = d[3 * i + a];
+  }
+  const float tn = tnear[i], tf = tfar[i];
+  const bool live = tf >= tn && isfinite(ro[0]) && isfinite(ro[1]) &&
+                    isfinite(ro[2]) && isfinite(rd[0]) && isfinite(rd[1]) &&
+                    isfinite(rd[2]);
+  fold_summary<true>(part, ro, rd, tn, tf, live);
+  fold_summary<false>(part, ro, rd, tn, tf, live);
+  const bool bounded = __syncthreads_and(!live || isfinite(tf));
+  if (threadIdx.x < 2 * kSlots) {
+    const bool is_min = threadIdx.x < kSlots;
+    const int k = is_min ? threadIdx.x : threadIdx.x - kSlots;
+    float v = part[is_min ? 0 : 1][k];
+    for (int w = 1; w < kWarps; ++w)
+      v = is_min ? nan_min(v, part[2 * w][k])
+                 : nan_max(v, part[2 * w + 1][k]);
+    (is_min ? smin : smax)[k] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < 3) {
+    const int a = threadIdx.x;
+    const float dlo = smin[kDir + a], dhi = smax[kDir + a];
+    KeyAxis x;
+    x.spans0 = dlo <= kSpan0 && dhi >= -kSpan0;
+    const float ilo = 1.0f / (x.spans0 ? 1.0f : dlo);
+    const float ihi = 1.0f / (x.spans0 ? 1.0f : dhi);
+    // torch.clamp: NaN stays
+    x.rlo = nan_min(nan_max(nan_min(ilo, ihi), -kRecipMax), kRecipMax);
+    x.rhi = nan_min(nan_max(nan_max(ilo, ihi), -kRecipMax), kRecipMax);
+    x.omin = smin[kOrigin + a];
+    x.omax = smax[kOrigin + a];
+    axes[a] = x;
+  } else if (threadIdx.x >= 32 && threadIdx.x < 32 + 3 * kSlices) {
+    // slice s: the hull of points s and s + 1
+    const int k = threadIdx.x - 32;
+    emin[k / 3][k % 3] = nan_min(smin[k], smin[k + 3]);
+    emax[k / 3][k % 3] = nan_max(smax[k], smax[k + 3]);
+  }
+  __syncthreads();
+
+  // the sweep over the boxes
+  const KeyAxis x0 = axes[0], x1 = axes[1], x2 = axes[2];
+  const float ptn = smin[kT], ptf = smax[kT];
+  float* row = key + (long long)p * n_clusters;
+  int n_pass = 0;
+  for (int c = threadIdx.x; c < n_clusters; c += kP) {
+    const float lx = cmin[3 * c], ly = cmin[3 * c + 1], lz = cmin[3 * c + 2];
+    const float hx = cmax[3 * c], hy = cmax[3 * c + 1], hz = cmax[3 * c + 2];
+    float entry_lo = -kBig, exit_hi = kBig;
+    bool pass = interval_axis(x0, lx, hx, ptn, ptf, entry_lo, exit_hi) &&
+                interval_axis(x1, ly, hy, ptn, ptf, entry_lo, exit_hi) &&
+                interval_axis(x2, lz, hz, ptn, ptf, entry_lo, exit_hi);
+    if (pass && bounded) {
+      pass = false;
+      for (int s = 0; s < kSlices && !pass; ++s)
+        pass = emin[s][0] <= hx && emin[s][1] <= hy && emin[s][2] <= hz &&
+               emax[s][0] >= lx && emax[s][1] >= ly && emax[s][2] >= lz;
+    }
+    row[c] = pass ? nan_max(entry_lo, ptn) : INFINITY;
+    n_pass += pass;
+  }
+  n_pass = __reduce_add_sync(kFull, n_pass);
+  if ((threadIdx.x & 31) == 0) warp_pass[threadIdx.x >> 5] = n_pass;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int w = 0; w < kWarps; ++w) total += warp_pass[w];
+    count[p] = total;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -644,6 +919,21 @@ int cluster_trace_any(const void* o, const void* d, const void* tnear,
                            n_clusters, block, factor, skip);
   return launch<false>(a, n_packets, woop, stream, nullptr, nullptr, nullptr,
                        nullptr, (bool*)occ);
+}
+
+// K9: packed rays (n_packets * 256; o, d (., 3), tnear, tfar), the
+// (super)cluster boxes cmin, cmax (n_clusters, 3) -> key (n_packets,
+// n_clusters) float32 and count (n_packets,) int32.
+int cluster_shortlist_keys(const void* o, const void* d, const void* tnear,
+                           const void* tfar, int n_packets, const void* cmin,
+                           const void* cmax, int n_clusters, void* key,
+                           void* count, void* stream) {
+  if (n_packets > 0)
+    shortlist_keys_kernel<<<n_packets, kP, 0, (cudaStream_t)stream>>>(
+        (const float*)o, (const float*)d, (const float*)tnear,
+        (const float*)tfar, (const float*)cmin, (const float*)cmax,
+        n_clusters, (float*)key, (int*)count);
+  return (int)cudaGetLastError();
 }
 
 const char* cluster_trace_error_string(int err) {

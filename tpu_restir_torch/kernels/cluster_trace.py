@@ -6,14 +6,17 @@ and their Woop variant K7/K8 (`_closest_kernel_mxu`, `_any_kernel_mxu`).
 Rays are grouped into packets of P = 256 consecutive rays (an 8x32 pixel
 tile after `render.intersect`'s swizzle).
 
-  Phase 1 (plain PyTorch tensor ops, XLA code in the JAX package): each
-  packet's interval hull is slab-tested against every (super)cluster AABB,
-  with a conservative entry distance per passing pair, and one stable
-  sort per packet orders the passing clusters front to back: a shortlist
-  and a count per packet (`build_shortlists`). The interval pass, the
-  swept sub-box cull and the sort are spans of their own (`phase1.*`,
-  `tracing.span`); `pack` counts the packets, the pairs tested and the
-  pairs listed (`tracing.count`).
+  Phase 1 (XLA code in the JAX package): each packet's interval hull is
+  slab-tested against every (super)cluster AABB, with a conservative entry
+  distance per passing pair, and one stable sort per packet orders the
+  passing clusters front to back: a shortlist and a count per packet
+  (`build_shortlists`). The sort keys before the sort are one kernel, K9
+  (`csrc/cluster_trace.cu`), on CUDA tensors (`packet_keys`, span
+  `phase1.keys`, `launch.shortlist_keys`), and plain PyTorch tensor ops,
+  `shortlist_keys`, on CPU tensors (spans `phase1.interval` and
+  `phase1.boxcull`); the sort is PyTorch's on both (`phase1.sort`).
+  `pack` counts the packets, the pairs tested and the pairs listed
+  (`tracing.count`).
 
   Phase 2 (the kernels of `csrc/cluster_trace.cu` on CUDA tensors, the
   plain versions `trace_closest_ref` / `trace_any_ref` on CPU tensors):
@@ -78,12 +81,44 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 tracing.COUNTS.update(dict.fromkeys(
     ("launch.trace_closest", "launch.trace_any", "launch.trace_closest_mxu",
-     "launch.trace_any_mxu"), 0))
+     "launch.trace_any_mxu", "launch.shortlist_keys"), 0))
 
 
 # ---------------------------------------------------------------------------
 # Phase 1: dense packet-vs-cluster culling with entry distances
 # ---------------------------------------------------------------------------
+
+def _interval_axis(a: int, omin, omax, dmin, dmax, cmin, cmax):
+    """Axis a of the interval pass: spans0 (Rp, 1), whether the packet's
+    direction interval comes within 1e-12 of zero (the axis then
+    constrains nothing), and the axis's entry and exit bounds (Rp, C):
+    -_BIG and _BIG where spans0, else the least and the greatest plane
+    distance of the packet's hull to the box's two planes."""
+    dlo = dmin[:, a:a + 1]
+    dhi = dmax[:, a:a + 1]
+    spans0 = (dlo <= 1e-12) & (dhi >= -1e-12)
+    safe_lo = torch.where(spans0, 1.0, dlo)
+    safe_hi = torch.where(spans0, 1.0, dhi)
+    rlo = torch.minimum(1.0 / safe_lo, 1.0 / safe_hi)
+    rhi = torch.maximum(1.0 / safe_lo, 1.0 / safe_hi)
+    rlo = torch.clamp(rlo, -1e12, 1e12)
+    rhi = torch.clamp(rhi, -1e12, 1e12)
+    planes = []
+    for bound in (cmin, cmax):
+        blo_n = bound[None, :, a] - omax[:, a:a + 1]
+        bhi_n = bound[None, :, a] - omin[:, a:a + 1]
+        q1 = blo_n * rlo
+        q2 = blo_n * rhi
+        q3 = bhi_n * rlo
+        q4 = bhi_n * rhi
+        planes.append((
+            torch.minimum(torch.minimum(q1, q2), torch.minimum(q3, q4)),
+            torch.maximum(torch.maximum(q1, q2), torch.maximum(q3, q4))))
+    (t1lo, t1hi), (t2lo, t2hi) = planes
+    return (spans0,
+            torch.where(spans0, -_BIG, torch.minimum(t1lo, t2lo)),
+            torch.where(spans0, _BIG, torch.maximum(t1hi, t2hi)))
+
 
 def _interval_pass_entry(omin, omax, dmin, dmax, tnmin, tfmax, cmin, cmax):
     """Conservative packet-vs-cluster slab test by interval arithmetic
@@ -96,30 +131,8 @@ def _interval_pass_entry(omin, omax, dmin, dmax, tnmin, tfmax, cmin, cmax):
     entry_lo = torch.full((rp, c), -_BIG, device=dev)
     exit_hi = torch.full((rp, c), _BIG, device=dev)
     for a in range(3):
-        dlo = dmin[:, a:a + 1]
-        dhi = dmax[:, a:a + 1]
-        # a direction interval near zero leaves the axis unconstrained
-        spans0 = (dlo <= 1e-12) & (dhi >= -1e-12)
-        safe_lo = torch.where(spans0, 1.0, dlo)
-        safe_hi = torch.where(spans0, 1.0, dhi)
-        rlo = torch.minimum(1.0 / safe_lo, 1.0 / safe_hi)
-        rhi = torch.maximum(1.0 / safe_lo, 1.0 / safe_hi)
-        rlo = torch.clamp(rlo, -1e12, 1e12)
-        rhi = torch.clamp(rhi, -1e12, 1e12)
-        planes = []
-        for bound in (cmin, cmax):
-            blo_n = bound[None, :, a] - omax[:, a:a + 1]
-            bhi_n = bound[None, :, a] - omin[:, a:a + 1]
-            q1 = blo_n * rlo
-            q2 = blo_n * rhi
-            q3 = bhi_n * rlo
-            q4 = bhi_n * rhi
-            planes.append((
-                torch.minimum(torch.minimum(q1, q2), torch.minimum(q3, q4)),
-                torch.maximum(torch.maximum(q1, q2), torch.maximum(q3, q4))))
-        (t1lo, t1hi), (t2lo, t2hi) = planes
-        a_entry_lo = torch.where(spans0, -_BIG, torch.minimum(t1lo, t2lo))
-        a_exit_hi = torch.where(spans0, _BIG, torch.maximum(t1hi, t2hi))
+        _spans0, a_entry_lo, a_exit_hi = _interval_axis(a, omin, omax, dmin,
+                                                        dmax, cmin, cmax)
         entry_lo = torch.maximum(entry_lo, a_entry_lo)
         exit_hi = torch.minimum(exit_hi, a_exit_hi)
     passes = ((entry_lo <= exit_hi)
@@ -145,7 +158,8 @@ def shortlist_keys(o, d, tnear, tfar, cmin, cmax, p: int = P):
     key (Rp, C) float32 of each (packet, cluster) pair, its conservative
     entry distance (at least the packet's least tnear) where the interval
     pass and the swept sub-box cull pass it, +inf elsewhere, and the count
-    (Rp,) int32 of passing clusters."""
+    (Rp,) int32 of passing clusters. The plain version of K9
+    (`packet_keys`)."""
     (omin, omax, dmin, dmax, tn, tf,
      bounded, emin, emax) = _packet_bounds(o, d, tnear, tfar, p)
     with tracing.span("phase1.interval"):
@@ -157,14 +171,14 @@ def shortlist_keys(o, d, tnear, tfar, cmin, cmax, p: int = P):
     return key, passes.sum(1, dtype=torch.int32)
 
 
-def build_shortlists(o, d, tnear, tfar, cmin, cmax, p: int = P):
-    """Rays (R, 3), R a multiple of p -> per-packet front-to-back cluster
+def build_shortlists(o, d, tnear, tfar, cmin, cmax):
+    """Rays (R, 3), R a multiple of P -> per-packet front-to-back cluster
     shortlists (cluster_trace.py:191-221): count (Rp,) int32, shortlist
     (Rp, C) int32 and entry (Rp, C) float32 ascending, +inf past count.
     Conservative: every cluster that a ray of the packet could hit within
     [tnear, tfar] is listed. Equal entries keep cluster order (a stable
     sort, as lax.sort with one key), which decides ties between hits."""
-    key, count = shortlist_keys(o, d, tnear, tfar, cmin, cmax, p)
+    key, count = packet_keys(o, d, tnear, tfar, cmin, cmax)
     with tracing.span("phase1.sort"):
         ent_sorted, sl = torch.sort(key, dim=1, stable=True)
     return count, sl.to(torch.int32), ent_sorted
@@ -240,7 +254,7 @@ def pack(cmin, cmax, o, d, tnear, tfar, factor: int) -> Packets:
     dead) and build the shortlists against the supercluster AABBs, as
     `_pack` (cluster_trace.py:962-994) without the TPU's channel blocks."""
     r = o.shape[0]
-    scmin, scmax = _super_boxes(cmin, cmax, factor)
+    scmin, scmax = (x.contiguous() for x in _super_boxes(cmin, cmax, factor))
     tnear = tnear.expand(r)
     tfar = _clamp_tfar_bbox(o, d, tnear, tfar.expand(r), scmin.amin(0),
                             scmax.amax(0))
@@ -250,15 +264,15 @@ def pack(cmin, cmax, o, d, tnear, tfar, factor: int) -> Packets:
         d = torch.cat([d, d.new_zeros((pad, 3))])
         tnear = torch.cat([tnear, tnear.new_zeros((pad,))])
         tfar = torch.cat([tfar, tfar.new_full((pad,), -1.0)])
-    cnt, sl, ent = build_shortlists(o, d, tnear, tfar, scmin, scmax, P)
+    o, d, tnear, tfar = (x.contiguous() for x in (o, d, tnear, tfar))
+    cnt, sl, ent = build_shortlists(o, d, tnear, tfar, scmin, scmax)
     rp = cnt.shape[0]
     tracing.count("phase1.listed", cnt)
     tracing.count("phase1.packets", rp)
     tracing.count("phase1.pairs", rp * scmin.shape[0])
-    return Packets(o=o.contiguous(), d=d.contiguous(),
-                   tnear=tnear.contiguous(), tfar=tfar.contiguous(),
-                   count=cnt, shortlist=sl.contiguous(),
-                   entry=ent.contiguous(), factor=factor, n_rays=r)
+    return Packets(o=o, d=d, tnear=tnear, tfar=tfar, count=cnt,
+                   shortlist=sl.contiguous(), entry=ent.contiguous(),
+                   factor=factor, n_rays=r)
 
 
 def cull_boxes(cmin, cmax, factor: int):
@@ -480,17 +494,19 @@ def build_cluster_woop(woop, block: int):
 
 
 # ---------------------------------------------------------------------------
-# Phase 2, the kernels (csrc/cluster_trace.cu: K5-K8)
+# The kernels (csrc/cluster_trace.cu: phase 1's keys K9, phase 2's K5-K8)
 # ---------------------------------------------------------------------------
 
 _IN = [_P] * 7 + [_I, _I] + [_P, _P, _I] + [_P] + [_I] * 5
 _SIGNATURES = {
     "cluster_trace_closest": (_IN + [_P] * 5, ctypes.c_int),
     "cluster_trace_any": (_IN + [_P] * 2, ctypes.c_int),
+    "cluster_shortlist_keys": ([_P] * 4 + [_I, _P, _P, _I] + [_P] * 3,
+                               ctypes.c_int),
     "cluster_trace_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
-# K5-K8 keep the plain version's rounding: no contracted multiply-adds
+# K5-K9 keep the plain version's rounding: no contracted multiply-adds
 FLAGS = ("--fmad=false",)
 
 # kind -> (C entry, Woop test)
@@ -504,26 +520,32 @@ def _lib():
     return build.load("cluster_trace", _SIGNATURES, extra_flags=FLAGS)
 
 
+def _check(who: str, dev, want: dict):
+    """Raise unless each named tensor (name -> (tensor, shape, dtype)) is
+    a contiguous tensor of its shape and dtype on dev."""
+    for name, (x, shape, dtype) in want.items():
+        if x.device != dev or x.dtype != dtype \
+                or tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(
+                f"{who}: {name} must be a contiguous {dtype} tensor of shape "
+                f"{shape} on {dev}; got {x.dtype} {tuple(x.shape)} on "
+                f"{x.device}")
+
+
 def _check_tensors(pk: Packets, **blocks):
     """Validate the packed rays, phase 1's tables and the named blocks
     (name -> (tensor, shape, dtype)): one device, contiguous."""
     n = pk.o.shape[0]
     rp = pk.count.shape[0]
     s = pk.shortlist.shape[1]
-    want = {"o": (pk.o, (rp * P, 3), torch.float32),
-            "d": (pk.d, (n, 3), torch.float32),
-            "tnear": (pk.tnear, (n,), torch.float32),
-            "tfar": (pk.tfar, (n,), torch.float32),
-            "count": (pk.count, (rp,), torch.int32),
-            "shortlist": (pk.shortlist, (rp, s), torch.int32),
-            "entry": (pk.entry, (rp, s), torch.float32), **blocks}
-    for name, (x, shape, dtype) in want.items():
-        if x.device != pk.o.device or x.dtype != dtype \
-                or tuple(x.shape) != shape or not x.is_contiguous():
-            raise ValueError(
-                f"cluster_trace: {name} must be a contiguous {dtype} tensor "
-                f"of shape {shape} on {pk.o.device}; got {x.dtype} "
-                f"{tuple(x.shape)} on {x.device}")
+    _check("cluster_trace", pk.o.device, {
+        "o": (pk.o, (rp * P, 3), torch.float32),
+        "d": (pk.d, (n, 3), torch.float32),
+        "tnear": (pk.tnear, (n,), torch.float32),
+        "tfar": (pk.tfar, (n,), torch.float32),
+        "count": (pk.count, (rp,), torch.int32),
+        "shortlist": (pk.shortlist, (rp, s), torch.int32),
+        "entry": (pk.entry, (rp, s), torch.float32), **blocks})
 
 
 def _launch(kind, blocks, pk: Packets, outs, cmin=None, cmax=None):
@@ -581,6 +603,43 @@ def _on_cuda(x) -> bool:
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"cluster_trace: unsupported device {x.device}")
     return x.device.type == "cuda"
+
+
+def packet_keys(o, d, tnear, tfar, cmin, cmax):
+    """Phase 1 before its sort, `shortlist_keys`' key (Rp, C) float32 and
+    count (Rp,) int32, of packed rays o, d (Rp*P, 3), tnear, tfar (Rp*P,)
+    against the (super)cluster boxes cmin, cmax (C, 3): K9 on CUDA
+    tensors, one launch in the span `phase1.keys`, bit-identical to the
+    plain version, which CPU tensors take."""
+    if not _on_cuda(o):
+        return shortlist_keys(o, d, tnear, tfar, cmin, cmax)
+    n = o.shape[0]
+    if n % P:
+        raise ValueError(f"shortlist_keys: {n} rays are not whole packets "
+                         f"of {P}")
+    rp, c = n // P, cmin.shape[0]
+    _check("shortlist_keys", o.device, {
+        "o": (o, (n, 3), torch.float32), "d": (d, (n, 3), torch.float32),
+        "tnear": (tnear, (n,), torch.float32),
+        "tfar": (tfar, (n,), torch.float32),
+        "cmin": (cmin, (c, 3), torch.float32),
+        "cmax": (cmax, (c, 3), torch.float32)})
+    key = torch.empty((rp, c), dtype=torch.float32, device=o.device)
+    count = torch.empty((rp,), dtype=torch.int32, device=o.device)
+    if not rp:
+        return key, count
+    lib = _lib()
+    with tracing.span("phase1.keys"), torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        err = lib.cluster_shortlist_keys(
+            o.data_ptr(), d.data_ptr(), tnear.data_ptr(), tfar.data_ptr(),
+            rp, cmin.data_ptr(), cmax.data_ptr(), c, key.data_ptr(),
+            count.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"shortlist_keys: launch failed: "
+                           f"{lib.cluster_trace_error_string(err).decode()}")
+    tracing.count("launch.shortlist_keys", 1)
+    return key, count
 
 
 def closest_packets(ctris, cmin, cmax, pk: Packets):

@@ -51,6 +51,23 @@ HIT_BYTES = 16     # t, u, v, tri of one closest hit
 TRI_ROW_BYTES = 36  # v0, e1, e2 of one cluster row (the (C, B, 9) blocks)
 WOOP_ROW_BYTES = 48  # one triangle's 3x4 Woop map
 
+# K9, phase 1's keys (`shortlist_keys`), counted from the plain test as the
+# kernel runs it (`chip_smoke.key_work`); here compares count, as the
+# slice boxes are nothing else:
+KEY_AXIS_OPS = 31       # an axis of the interval test: the distances to the
+#                         box's two planes (2 x (2 subtractions, 4 products,
+#                         3 min, 3 max)), the axis's entry and exit (2),
+#                         their folds into the pair's (2), three compares
+KEY_SPAN0_AXIS_OPS = 5  # an axis whose direction interval spans zero: the
+#                         folds (2) and the compares (3)
+KEY_SLICE_OPS = 6       # a slice box of the sub-box cull: six compares
+KEY_PAIR_OPS = 1        # the key: max(entry, tn)
+KEY_RAY_OPS = 148       # a live ray: the live test (7), its t span (1), 9
+#                         points (9 x 8) and 68 values folded into the
+#                         packet's summary
+KEY_BYTES = 4           # a key written
+BOX_BYTES = 24          # a (super)cluster box read
+
 # The JAX package's count of its phase-1 interval test of one (packet,
 # cluster) pair (150) and of one swept slice box (6), and of one packet
 # summary a ray (60): operation counts of the same algorithm, not rates.

@@ -10,7 +10,10 @@ functions (`accel/fcluster.py` `_packet_bounds`, `_clamp_tfar_bbox`;
 `kernels/cluster_trace.py` `_interval_pass_entry`, `box_overlap`,
 `shortlist_keys`, `build_shortlists`), it times:
   * the key build: the clamp, the bounds, the interval pass and the swept
-    sub-box cull, to the (Rp, C) sort keys (`shortlist_keys`);
+    sub-box cull, to the (Rp, C) sort keys (`shortlist_keys`, the eager
+    plain version), and the clamp and the same keys by K9 (`packet_keys`,
+    phase 1's own on the card; on the CPU the plain version again), with
+    the keys and counts in which the two differ (0 expected);
   * the full stable sort of the (Rp, C) keys, phase 1's own;
   * `torch.topk` of the k = 32 and 64 least keys, then a small stable sort
     of the k;
@@ -86,12 +89,21 @@ def measure(device, n_tris: int = 100_000, width: int = 1920,
         tfc = _clamp_tfar_bbox(o, d, tn, tf, lo, hi)
         return ct.shortlist_keys(o, d, tn, tfc, cmin, cmax)
 
+    def keys_k9():
+        tfc = _clamp_tfar_bbox(o, d, tn, tf, lo, hi)
+        return ct.packet_keys(o, d, tn, tfc, cmin, cmax)
+
     out = {"device": torch.cuda.get_device_name(device)
            if device.type == "cuda" else "cpu",
            "triangles": scene.num_tris,
            "clusters": scene.cluster_tris.shape[0],
            "factor": factor, "rays": o.shape[0], "reps": reps}
     out["key_build_ms"], (key, cnt) = median_ms(keys, reps, device)
+    out["key_build_k9_ms"], (k9_key, k9_cnt) = median_ms(keys_k9, reps,
+                                                         device)
+    out["key_build_k9_mismatches"] = int(
+        (k9_key.view(torch.int32) != key.view(torch.int32)).sum()
+        + (k9_cnt != cnt).sum())
     tfc = _clamp_tfar_bbox(o, d, tn, tf, lo, hi)
     _cnt, ref_sl, ref_ent = ct.build_shortlists(o, d, tn, tfc, cmin, cmax)
     rp, c = key.shape
@@ -149,6 +161,8 @@ def report(r: dict) -> str:
     """The JAX tool's lines, with the slot agreement beside each."""
     rp, c = r["key_shape"]
     lines = [f"key build (bounds+interval+box): {r['key_build_ms']:.1f} ms",
+             f"key build by K9: {r['key_build_k9_ms']:.3f} ms (keys and "
+             f"counts differing {r['key_build_k9_mismatches']})",
              f"full sort ({rp}x{c}): {r['full_sort_ms']:.1f} ms "
              f"(slot mismatches against build_shortlists "
              f"{r['full_sort_mismatches']})"]

@@ -123,8 +123,8 @@ def frame_model(scene, cam, cam_cfg, qlog, cen, device):
             torch.arange(H, dtype=torch.int32, device=device),
             torch.arange(W, dtype=torch.int32, device=device), indexing="ij")
         o, d = cam_mod.generate_rays_at(cam, cam_cfg, 1, ys, xs)
-        of = o.reshape(-1, 3)
-        df = d.reshape(-1, 3)
+        of = o.reshape(-1, 3).contiguous()
+        df = d.reshape(-1, 3).contiguous()
         tn = torch.full((N_PIX,), 0.01, device=device)
         tf = _clamp_tfar_bbox(of, df, tn, torch.full((N_PIX,), 1e30,
                                                      device=device),
