@@ -884,7 +884,8 @@ def test_shortlist_keys_kernel_matches_plain(cuda, case):
 def test_pack_on_cuda_opens_the_keys_span_and_launches_k9_once(cuda):
     """On CUDA tensors phase 1's keys are one K9 launch inside the span
     `phase1.keys` (the plain version's `phase1.interval` and
-    `phase1.boxcull` stay shut), then the sort's span, each once a pack."""
+    `phase1.boxcull` stay shut), after the span of the (super)cluster and
+    scene boxes and before the sort's span, each once a pack."""
     from torch.profiler import ProfilerActivity, profile
     lo, hi, *rays = box_rays(cuda, 300, 3 * ct.P + 5, 9)
     before = tracing.COUNTS["launch.shortlist_keys"]
@@ -895,7 +896,7 @@ def test_pack_on_cuda_opens_the_keys_span_and_launches_k9_once(cuda):
     spans = [e.name for e in sorted(prof.events(),
                                     key=lambda e: e.time_range.start)
              if e.name.startswith("phase1.")]
-    assert spans == ["phase1.keys", "phase1.sort"] * 2
+    assert spans == ["phase1.superboxes", "phase1.keys", "phase1.sort"] * 2
 
 
 def test_shortlist_keys_kernel_refuses_bad_inputs(cuda):

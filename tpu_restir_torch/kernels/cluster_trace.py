@@ -16,7 +16,9 @@ tile after `render.intersect`'s swizzle).
   `shortlist_keys`, on CPU tensors (spans `phase1.interval` and
   `phase1.boxcull`); the sort is PyTorch's on both (`phase1.sort`).
   `pack` counts the packets, the pairs tested and the pairs listed
-  (`tracing.count`).
+  (`tracing.count`), and the slots phase 2 is given (`phase2.slots`, the
+  listed pairs times the supercluster factor); its supercluster and
+  scene boxes are the span `phase1.superboxes`.
 
   Phase 2 (the kernels of `csrc/cluster_trace.cu` on CUDA tensors, the
   plain versions `trace_closest_ref` / `trace_any_ref` on CPU tensors):
@@ -29,7 +31,8 @@ tile after `render.intersect`'s swizzle).
   that no ray's own slab test can reach (mode 5); the plain versions test
   every listed slot, so they are the exact definition the kernels must
   reproduce bit for bit. Each kernel launch counts `launch.<wrapper>`
-  (`launch.trace_closest`, ..., `tracing.count`).
+  (`launch.trace_closest`, ..., `tracing.count`), and each launch that
+  culls in mode 5 `cull.<wrapper>` too.
 
 Scenes above SUPER_MAX clusters group F = pick_factor(C) consecutive
 leaf-order clusters into one supercluster for phase 1; shortlist slot s
@@ -81,7 +84,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 tracing.COUNTS.update(dict.fromkeys(
     ("launch.trace_closest", "launch.trace_any", "launch.trace_closest_mxu",
-     "launch.trace_any_mxu", "launch.shortlist_keys"), 0))
+     "launch.trace_any_mxu", "launch.shortlist_keys", "cull.trace_closest",
+     "cull.trace_any", "cull.trace_any_mxu"), 0))
 
 
 # ---------------------------------------------------------------------------
@@ -254,10 +258,12 @@ def pack(cmin, cmax, o, d, tnear, tfar, factor: int) -> Packets:
     dead) and build the shortlists against the supercluster AABBs, as
     `_pack` (cluster_trace.py:962-994) without the TPU's channel blocks."""
     r = o.shape[0]
-    scmin, scmax = (x.contiguous() for x in _super_boxes(cmin, cmax, factor))
+    with tracing.span("phase1.superboxes"):
+        scmin, scmax = (x.contiguous()
+                        for x in _super_boxes(cmin, cmax, factor))
+        lo, hi = scmin.amin(0), scmax.amax(0)
     tnear = tnear.expand(r)
-    tfar = _clamp_tfar_bbox(o, d, tnear, tfar.expand(r), scmin.amin(0),
-                            scmax.amax(0))
+    tfar = _clamp_tfar_bbox(o, d, tnear, tfar.expand(r), lo, hi)
     pad = (-r) % P
     if pad:
         o = torch.cat([o, o.new_zeros((pad, 3))])
@@ -270,6 +276,9 @@ def pack(cmin, cmax, o, d, tnear, tfar, factor: int) -> Packets:
     tracing.count("phase1.listed", cnt)
     tracing.count("phase1.packets", rp)
     tracing.count("phase1.pairs", rp * scmin.shape[0])
+    # each listed supercluster expands to `factor` slots; a view, no launch
+    tracing.count("phase2.slots",
+                  cnt if factor == 1 else cnt.expand(factor, rp))
     return Packets(o=o, d=d, tnear=tnear, tfar=tfar, count=cnt,
                    shortlist=sl.contiguous(), entry=ent.contiguous(),
                    factor=factor, n_rays=r)
@@ -596,6 +605,8 @@ def _launch(kind, blocks, pk: Packets, outs, cmin=None, cmax=None):
         raise RuntimeError(f"cluster_trace {kind}: launch failed: "
                            f"{lib.cluster_trace_error_string(err).decode()}")
     tracing.count("launch." + kind, 1)
+    if skip:
+        tracing.count("cull." + kind, 1)
 
 
 def _on_cuda(x) -> bool:

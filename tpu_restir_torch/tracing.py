@@ -11,12 +11,13 @@ sees it too. Otherwise it is a shared null context, after two flag reads.
 
 `count(name, value)` is the one counter registry, `COUNTS`: kernel
 launches of the CUDA wrappers (`launch.*`, each read 0 from the import
-of its module), host reads of the plain backends' loop conditions
-(`sync.*`) and phase 1's shortlists (`phase1.*`). An int value is always
-added. A tensor value, a count that lives on the device, is never
-touched here, so it launches nothing and waits for nothing: callers look
-`count` up on this module at each call, so a wrapper put in its place
-sees every call and may sum it.
+of its module), the clustered kernels' launches that cull in mode 5
+(`cull.*`), host reads of the plain backends' loop conditions
+(`sync.*`), phase 1's shortlists (`phase1.*`) and the slots phase 2 is
+given (`phase2.slots`). An int value is always added. A tensor value, a
+count that lives on the device, is never touched here, so it launches
+nothing and waits for nothing: callers look `count` up on this module at
+each call, so a wrapper put in its place sees every call and may sum it.
 """
 
 from __future__ import annotations
