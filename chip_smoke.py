@@ -840,7 +840,7 @@ def trace_ops(kind, scene, pk, out, slab=False):
     of every listed cluster, each occluded ray one whole test; a dead ray
     none. Rows by mt_row_ops, or woop_row_ops under ptrace_mxu (closest
     hit: the least hit t carried from slot to slot). slab (cull mode 5:
-    K6 and K8, and K5 at F > 1): a ray that would test a cluster pays its
+    K5, K6 and K8 above 64 clusters): a ray that would test a cluster pays its
     reciprocal direction once and one box test (SLAB_OPS) per such
     cluster, and the rows of only the clusters whose cull box
     `slab_live_ref` leaves it, since the slab test rules the others out
@@ -898,7 +898,7 @@ def trace_ops(kind, scene, pk, out, slab=False):
 
 def cull_boxes(scene, woop, factor=1):
     """The boxes of the mode-5 cull -> (bmin, bmax, per_cluster): the
-    cluster AABBs (K6, and K5 at factor > 1) while the kernels cull per
+    cluster AABBs (K5 and K6) while the kernels cull per
     cluster, else the supercluster AABBs (`cluster_trace.cull_boxes`); or
     K8's, the cluster AABBs grown by the Woop test's reach
     (`cluster_trace.woop_cull_boxes`)."""
@@ -1057,8 +1057,7 @@ def hold_trace(name, scene, kind, label, pk, results):
             f"{int((live & ~want).sum())}"
     ms = cuda_ms(lambda: kernel(pk), 5)
     dead = int((~live[:pk.n_rays]).sum())
-    mode = ct._skip_for("closest" if closest else "any",
-                        scene.cluster_tris.shape[0], pk.factor)
+    mode = ct.launch_mode(kind, scene.cluster_tris.shape[0], pk.factor)
     slab = mode == 5
     bnd, whole = trace_bound(kind, scene, pk, got, slab=slab)
     extra = ""
@@ -1073,6 +1072,10 @@ def hold_trace(name, scene, kind, label, pk, results):
     extra += "; the whole test on every pair: " + ", ".join(
         f"{n} {what} (bound {b[0]:.3f} ms)"
         for what, (n, b) in whole.items())
+    if closest:
+        staged = staged_slots(lambda: kernel(pk))
+        extra += f"; slots staged a packet {staged:.2f} of " \
+            f"{float(pk.count.float().mean()) * pk.factor:.2f} given"
     if slab and not closest:
         listed_n, live_share, warp_share, kept_share = slab_live_share(
             scene, pk, want, woop=kind.endswith("_mxu"))
@@ -1112,6 +1115,28 @@ def hold_trace(name, scene, kind, label, pk, results):
     if not closest:
         return bool(n_pos) and bool((live & ~want).any())
     return None
+
+
+def staged_slots(fn):
+    """Run fn, closest-hit launches; -> the slots they staged a packet
+    (the counters `phase2.staged` over `phase2.closest_packets`, seen by
+    wrapping `tracing.count` for the call)."""
+    from tpu_restir_torch import tracing
+    got = {"phase2.staged": 0.0, "phase2.closest_packets": 0.0}
+    orig = tracing.count
+
+    def wrapper(name, value):
+        if name in got:
+            got[name] += float(value.sum()) if hasattr(value, "sum") \
+                else float(value)
+        orig(name, value)
+
+    tracing.count = wrapper
+    try:
+        fn()
+    finally:
+        tracing.count = orig
+    return got["phase2.staged"] / max(got["phase2.closest_packets"], 1.0)
 
 
 def key_work(o, d, tnear, tfar, cmin, cmax):
@@ -1252,9 +1277,11 @@ def phase_ptrace_kernels(dev, results,
     require(not lacking, f"any-hit kernels not held to a query with both "
             f"occluded and visible rays: {sorted(lacking)}")
 
-    # superclusters: factor 4 forced against factor 1 (closest-hit cull
-    # mode 5 at factor > 1); random rays, so no exact t ties between
-    # clusters, whose order the grouping may change
+    # superclusters: factor 4 forced against factor 1 (the closest-hit
+    # slab cull, mode 5, on cluster boxes at both; their slot loops
+    # differ), and factor 1 held to the plain version on its first
+    # packets; random rays, so no exact t ties between clusters, whose
+    # order the grouping may change
     small = terrain_scene(dev, 20_000)
     gen = torch.Generator(device=dev)
     gen.manual_seed(35)
@@ -1271,13 +1298,22 @@ def phase_ptrace_kernels(dev, results,
     a4 = ct.trace_any(*args, torch.full((n,), 3.0, device=dev), factor=4)
     same_c = all(torch.equal(x, y) for x, y in zip(c1, c4))
     same_a = bool(torch.equal(a1, a4))
+    m = 32 * ct.P
+    pk = ct.pack(small.cluster_min, small.cluster_max, o[:m], d[:m], tn[:m],
+                 torch.full((m,), 1e4, device=dev), 1)
+    plain = ct.trace_closest_ref(small.cluster_tris, pk)
+    same_ref = all(torch.equal(x[:m], y[:m]) for x, y in zip(c1, plain))
     c = small.cluster_tris.shape[0]
     print(f"[K5/K6 factor] terrain_scene(20_000), C={c}: {n} random rays, "
-          f"factor 4 (cull mode {ct._skip_for('closest', c, 4)}) "
-          f"against factor 1: closest identical {same_c} "
+          f"closest hit in cull mode {ct._skip_for('closest', c, 1)} at "
+          f"factor 1 and {ct._skip_for('closest', c, 4)} at factor 4; "
+          f"factor 4 against factor 1: closest identical {same_c} "
           f"({int((c1[3] >= 0).sum())} hits), any identical {same_a} "
-          f"({int(a1.sum())} occluded)", flush=True)
+          f"({int(a1.sum())} occluded); factor 1 closest against the "
+          f"plain version on its first {m} rays: identical {same_ref}",
+          flush=True)
     require(same_c and same_a, "factor 4 differs from factor 1")
+    require(same_ref, "factor 1 closest hit differs from trace_closest_ref")
 
 
 def run_frames(scene, cfg, dev, n_frames, seed=0):

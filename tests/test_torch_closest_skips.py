@@ -414,7 +414,8 @@ def _emulate_k7(cwoop, pk, stats):
     """K7's traversal at factor 1 in groups of 32 rays, as
     csrc/cluster_trace.cu runs it: each ray's [tnear, tfar] folded (a dead
     ray, or a NaN bound, gets an empty range); per slot the block's vote
-    (some ray's min(best t, tfar) reaches the entry distance) and the same
+    (some live ray's min(best t, tfar) reaches the entry distance, less the
+    slab test's slack: the kernel's within_reach) and the same
     condition per group; per row the t-first skip (no lane with t in range
     and below its best t) and the u-first skip (no such lane with u in
     [-1e-5, 1.001]); a strictly smaller t replaces. -> (t, u, v, tri),
@@ -433,7 +434,10 @@ def _emulate_k7(cwoop, pk, stats):
     rays = ct._packet_rays(pk)
     for j in range(int(pk.count.max())):
         a = torch.nonzero(going & (pk.count > j))[:, 0]
-        act = pk.entry[a, j, None] <= torch.minimum(bt[a], tf_f[a])
+        reach = torch.minimum(bt[a], tf_f[a])
+        ent = pk.entry[a, j, None]
+        act = live[a] & (ent - (1e-4 * (ent.abs() + reach.abs()) + 1e-5)
+                         <= reach)
         stop = ~act.any(1)
         stats["packets stopped by the vote"] += int(stop.sum())
         going[a[stop]] = False

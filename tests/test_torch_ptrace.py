@@ -430,10 +430,16 @@ def test_backend_selection():
                                       (5000, 2), (15_700, 4),
                                       (20_000, 5)])
 def test_cull_mode_and_factor_match_jax(c, factor):
+    """The factor and any hit's cull mode are the JAX package's; closest
+    hit's too, except at factor 1 above SMALL_C clusters, where the port
+    culls in mode 5 on the cluster boxes and the TPU default is 0."""
     assert tct.pick_factor(c) == jct.pick_factor(c)
-    for kind in ("closest", "any"):
-        assert tct._skip_for(kind, c, factor) == jct._skip_for(kind, c,
-                                                               factor)
+    assert tct._skip_for("any", c, factor) == jct._skip_for("any", c, factor)
+    want = jct._skip_for("closest", c, factor)
+    if factor == 1 and c > tct.SMALL_C:
+        assert want == 0
+        want = 5
+    assert tct._skip_for("closest", c, factor) == want
 
 
 def test_plain_versions_on_cpu_only():

@@ -206,14 +206,18 @@ class _FakeLib:
 
 # kind, factor, clusters -> culled in mode 5
 @pytest.mark.parametrize("kind,factor,c,culled", [
-    ("trace_closest", 1, 100, False), ("trace_closest", 4, 100, True),
+    ("trace_closest", 1, 100, True), ("trace_closest", 4, 100, True),
     ("trace_closest", 4, 40, False), ("trace_any", 1, 100, True),
-    ("trace_any", 4, 100, True), ("trace_any", 1, 40, False)])
+    ("trace_any", 4, 100, True), ("trace_any", 1, 40, False),
+    ("trace_closest_mxu", 1, 100, False), ("trace_any_mxu", 1, 100, True)])
 def test_a_launch_that_culls_in_mode5_is_counted(monkeypatch, kind, factor,
                                                  c, culled):
     """`cull.<kind>` counts the K5/K6 launches whose per-ray cull mode is
-    5: closest hit only above factor 1, any hit above SMALL_C clusters.
-    The launch itself is stubbed (no card here)."""
+    5: closest hit and any hit above SMALL_C clusters (closest hit on
+    per-cluster boxes, so at factor 1 too); the Woop closest hit (K7)
+    keeps mode 0 on the same scene, its own decision (`launch_mode`), and
+    the Woop any hit (K8) culls. The launch itself is stubbed (no card
+    here)."""
     lib = _FakeLib()
     monkeypatch.setattr(ct, "_lib", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device",
@@ -223,14 +227,15 @@ def test_a_launch_that_culls_in_mode5_is_counted(monkeypatch, kind, factor,
     g = torch.Generator().manual_seed(2)
     lo = torch.rand((c, 3), generator=g)
     hi = lo + 0.1
-    ctris = torch.rand((c, 8, 9), generator=g)
+    ctris = torch.rand((c, 4, 3 * ct.WOOP_BLOCK) if kind.endswith("_mxu")
+                       else (c, 8, 9), generator=g)
     o = torch.rand((ct.P, 3), generator=g)
     d = torch.rand((ct.P, 3), generator=g)
     pk = ct.pack(lo, hi, o, d, torch.zeros(()), torch.full((), 10.0),
                  factor)
     outs = ((torch.empty(ct.P), torch.empty(ct.P), torch.empty(ct.P),
              torch.empty(ct.P, dtype=torch.int32))
-            if kind == "trace_closest"
+            if kind.startswith("trace_closest")
             else (torch.empty(ct.P, dtype=torch.bool),))
     before = tracing.COUNTS.copy()
     ct._launch(kind, ctris, pk, outs, lo, hi)

@@ -38,14 +38,20 @@
 //      (__syncthreads_or, the TPU kernel's packet watermark); any hit stops
 //      once every ray is occluded or dead, tfar < tnear (__syncthreads_and,
 //      its all-occluded exit);
-//   2. in mode 5 (K6 and K8 above 64 clusters, K5 once superclusters
-//      expand; never K7, as on the TPU, where K8 has no cull either) votes
-//      on the per-ray slab test of the slot's box with the TPU kernel's
-//      slack (and an exit that a clamped direction component cannot
-//      shorten: slab_exit), and skips the slot only if no live ray passes
-//      it. K8 grows each cluster box by the Woop test's reach as it reads
-//      it (cull_box, `woop_cull_boxes` in kernels/cluster_trace.py): the
-//      test's slack of 1e-5 in u, v and 1 - u - v lets a hit lie just
+//   2. in mode 5 (above 64 clusters: K6 and K8, and K5 wherever it culls
+//      on per-cluster boxes, factor 1 or at most BOX_MAX clusters; never
+//      K7, as on the TPU, where K8 has no cull either) votes on the
+//      per-ray slab test of the slot's box with the TPU kernel's slack
+//      (and an exit that a clamped direction component cannot shorten:
+//      slab_exit), and skips the slot only if no ray passes it that could
+//      still change its result there (K5: a live ray, tested up to
+//      min(best_t, tfar); K6/K8: a live unoccluded ray, up to tfar). On
+//      incoherent packets (path-tracer bounces: ~1,000 clusters listed a
+//      packet on a 100k-triangle terrain) this is where K5's time goes: a
+//      slot costs a 64-row stage and a barrier, and few of the listed
+//      boxes lie on any ray of the packet. K8 grows each cluster box by the Woop test's reach as it
+//      reads it (cull_box, `woop_cull_boxes` in kernels/cluster_trace.py):
+//      the test's slack of 1e-5 in u, v and 1 - u - v lets a hit lie just
 //      outside its triangle;
 //   3. stages the cluster's block in shared memory, a row as three 16-byte
 //      broadcasts: a Moller-Trumbore row padded to 12 floats; a Woop row
@@ -53,15 +59,18 @@
 //      gathered from the (4, 384) block by coalesced scalar reads (a warp
 //      reads 32 consecutive floats of one coefficient row) and stored as
 //      one float4 (eight consecutive rows cover the 32 banks); each thread
-//      tests its ray against the rows.
+//      tests its ray against the rows. Closest hit writes the number of
+//      slots a packet staged (`staged`, one store a block), which the
+//      wrapper hands to the counter `phase2.staged` unread.
 // The vote barriers also fence the tile: no thread overwrites it before
 // every thread has finished the previous slot.
 // Inside the slot all four work at the warp's grain:
 //   - a warp none of whose rays can change its result in the slot skips
-//     its rows: K5 and K7 where the entry distance passes every ray's
-//     min(best_t, tfar), the block vote's condition per warp; K6 and K8
-//     where no ray is live, unoccluded and (mode 5) slab-live, and a
-//     slab-dead ray is no candidate in the rows either;
+//     its rows: K5 and K7 where the entry distance passes every live
+//     ray's min(best_t, tfar) (within_reach), or (mode 5) no ray is live and slab-live: the
+//     block votes' conditions per warp; K6 and K8 where no ray is live,
+//     unoccluded and (mode 5) slab-live; in K5, K6 and K8 a slab-dead lane
+//     is no candidate in the rows either;
 //   - Moller-Trumbore rows (K5/K6): u comes first (p, det, tv and u: 24
 //     of the 46 operations); a warp with no candidate lane whose u can lie
 //     in [0, 1] skips q, v, t and the compares (why that is exact:
@@ -153,6 +162,7 @@ struct Args {
   int block;               // B
   int factor;              // F
   int skip;                // 0: no cull, 5: per-ray slab cull
+  int* staged;             // (Rp,) slots staged a packet (closest hit)
 };
 
 __device__ __forceinline__ Ray load_ray(const Args& a, long long i) {
@@ -319,19 +329,23 @@ __device__ __forceinline__ void any_rows_woop(const Ray& r, const float4* rows,
 }
 
 // K5's rows: the thread's ray against the `rows` staged rows of cluster c,
-// folded into b; `live` is false for a dead ray (tfar < tnear).
-__device__ __forceinline__ void closest_rows_mt(const Ray& r, bool live,
+// folded into b; `want` is false for a ray that cannot improve in the
+// slot: dead (tfar < tnear), or (mode 5) slab-dead for the slot's box up
+// to min(best_t, tfar).
+__device__ __forceinline__ void closest_rows_mt(const Ray& r, bool want,
                                                 const float4* tile, int rows,
                                                 int c, Best& b) {
   for (int j = 0; j < rows; ++j) {
     const float4 x = tile[3 * j], y = tile[3 * j + 1], z = tile[3 * j + 2];
     const MtHalf m = mt_u(r, x, y, z);
-    const bool cand = live & m.ok_det & (m.u >= 0.f) & (m.u <= 1.f);
+    const bool cand = want & m.ok_det & (m.u >= 0.f) & (m.u <= 1.f);
     // u first. The test asks ok_det, u >= 0, v >= 0 and fl(u + v) <= 1.
     // With v >= 0, fl(u + v) >= u, because rounding is monotone and
     // fl(u) = u; so a hit needs u <= 1 (and a NaN u fails u >= 0). A dead
-    // ray (tfar < tnear) fails the t range. So where no lane has a live
-    // ray with ok_det and 0 <= u <= 1, no ray of the warp hits this row,
+    // ray (tfar < tnear) fails the t range; a slab-dead ray has no hit
+    // up to min(best_t, tfar), so none that the strict fold would take.
+    // So where no lane wants the slot and has
+    // ok_det and 0 <= u <= 1, no result of the warp changes in this row,
     // and skipping q, v, t and the compares changes nothing.
     if (!__any_sync(kFull, cand)) continue;
     float v, t;
@@ -340,6 +354,21 @@ __device__ __forceinline__ void closest_rows_mt(const Ray& r, bool live,
         t < b.t)
       b = Best{t, m.u, v, c * rows + j};
   }
+}
+
+// The closest-hit early exits: can a slot whose entry distance is `ent`
+// hold a hit of a live ray up to `reach` = min(best_t, tfar)? `ent`
+// bounds the packet hull's entry into the slot's box, but a float32 hit
+// can lie just outside its cluster's box, and the plain versions take it:
+// Moller-Trumbore by rounding (terrain1M's G-buffer query: v rounded to 0
+// on an edge that the ray misses by 3e-3 of the triangle, 1.8e-4 before
+// the box's entry and before the hit the ray really has in an earlier
+// slot), the Woop test by its slack of 1e-5 in u, v and 1 - u - v. So the
+// compare carries the slab test's slack (slab_live). A dead ray is asked
+// nothing: K7's folded range gives it tfar = -inf, whose slack is
+// infinite.
+__device__ __forceinline__ bool within_reach(float ent, float reach) {
+  return ent - (1e-4f * (fabsf(ent) + fabsf(reach)) + 1e-5f) <= reach;
 }
 
 // Safe reciprocal direction of `_ray_inv`: near-zero components become
@@ -507,14 +536,16 @@ __global__ void __launch_bounds__(kP)
   Best b{INFINITY, 0.f, 0.f, -1};
   bool occ = false;
   bool slab = true;   // mode 5: the ray is live and reaches the slot's box
+  int n_staged = 0;   // slots the block staged (block-uniform)
   for (int s = 0; s < n_slots; ++s) {
     const int q = min(s / a.factor, a.n_super - 1);
     // closest hit: can the ray still improve in this slot?
     bool act = false;
     if (kClosest) {
       // front-to-back order: no ray can improve once the next entry
-      // passes min(best_t, tfar) of every ray
-      act = ent[q] <= fminf(b.t, r.tf);
+      // passes min(best_t, tfar) of every live ray, beyond the slack of
+      // within_reach
+      act = live && within_reach(ent[q], fminf(b.t, r.tf));
       if (!__syncthreads_or(act)) break;
     } else {
       if (__syncthreads_and(occ || !live)) break;
@@ -524,6 +555,7 @@ __global__ void __launch_bounds__(kP)
                                 : min(sc * a.factor + s % a.factor,
                                       a.n_clusters - 1);
     if (a.skip == 5) {
+      // closest hit: only a hit up to min(best_t, tfar) improves the ray
       const float upper = kClosest ? fminf(b.t, r.tf) : r.tf;
       slab = live && (kClosest || !occ) &&
              slab_live(r, ix, iy, iz,
@@ -532,6 +564,7 @@ __global__ void __launch_bounds__(kP)
                        upper);
       if (!__syncthreads_or(slab)) continue;
     }
+    ++n_staged;
     if (kWoop) {
       stage_woop(tile, a.ctris + (long long)c * 4 * kWoopRow);
     } else {       // coalesced reads; row j at tile[3 j]
@@ -542,14 +575,19 @@ __global__ void __launch_bounds__(kP)
     }
     __syncthreads();
     if (kClosest) {
-      // the block vote's condition per warp: the entry distance bounds
-      // from below every hit in the slot of every ray of the packet
-      if (!__any_sync(kFull, act)) continue;
+      // the block votes' conditions per warp: the entry distance passes
+      // every ray's min(best_t, tfar), or no ray is live and (mode 5)
+      // slab-live; and per lane the second alone: a slab-dead ray has no
+      // hit in the slot's box up to min(best_t, tfar), the test's slack
+      // covering its rounding. `act` stays per warp: the per-ray slab
+      // test is the sharper bound
+      const bool want = live && slab;
+      if (!__any_sync(kFull, act) || !__any_sync(kFull, want)) continue;
       if (kWoop) {
         for (int j = 0; j < rows; j += kWoopGroup)
           closest_rows_woop<kWoopGroup>(r, tile + 3 * j, c * rows + j, b);
       } else {
-        closest_rows_mt(r, live, tile, rows, c, b);
+        closest_rows_mt(r, want, tile, rows, c, b);
       }
     } else {
       // a warp none of whose rays is live, unoccluded and (mode 5)
@@ -570,6 +608,7 @@ __global__ void __launch_bounds__(kP)
     u_out[i] = b.u;
     v_out[i] = b.v;
     tri_out[i] = b.tri;
+    if (a.staged && threadIdx.x == 0) a.staged[p] = n_staged;
   } else {
     occ_out[i] = occ;
   }
@@ -579,7 +618,8 @@ Args make_args(const void* o, const void* d, const void* tnear,
                const void* tfar, const void* count, const void* shortlist,
                const void* entry, int n_super, const void* bmin,
                const void* bmax, int box_per_cluster, const void* ctris,
-               int n_clusters, int block, int factor, int skip) {
+               int n_clusters, int block, int factor, int skip,
+               int* staged) {
   Args a;
   a.o = (const float*)o; a.d = (const float*)d;
   a.tnear = (const float*)tnear; a.tfar = (const float*)tfar;
@@ -589,6 +629,7 @@ Args make_args(const void* o, const void* d, const void* tnear,
   a.box_per_cluster = box_per_cluster; a.ctris = (const float*)ctris;
   a.n_clusters = n_clusters; a.block = block; a.factor = factor;
   a.skip = skip;
+  a.staged = staged;
   return a;
 }
 
@@ -890,7 +931,8 @@ extern "C" {
 // the slab-cull boxes, the cluster blocks and woop: 0 for the (C, B, 9)
 // blocks of K5/K6, 1 for the (C, 4, 384) Woop blocks of K7/K8 (block 128,
 // factor 1; skip 0, or 5 for K8 with the cluster boxes, which it grows).
-// Outputs t, u, v (float32) and tri (int32), each n_packets * 256.
+// Outputs t, u, v (float32) and tri (int32), each n_packets * 256, and
+// staged (int32, n_packets, or null): the slots each packet staged.
 int cluster_trace_closest(const void* o, const void* d, const void* tnear,
                           const void* tfar, const void* count,
                           const void* shortlist, const void* entry,
@@ -898,10 +940,10 @@ int cluster_trace_closest(const void* o, const void* d, const void* tnear,
                           const void* bmax, int box_per_cluster,
                           const void* ctris, int n_clusters, int block,
                           int factor, int skip, int woop, void* t, void* u,
-                          void* v, void* tri, void* stream) {
+                          void* v, void* tri, void* staged, void* stream) {
   const Args a = make_args(o, d, tnear, tfar, count, shortlist, entry,
                            n_super, bmin, bmax, box_per_cluster, ctris,
-                           n_clusters, block, factor, skip);
+                           n_clusters, block, factor, skip, (int*)staged);
   return launch<true>(a, n_packets, woop, stream, (float*)t, (float*)u,
                       (float*)v, (int*)tri, nullptr);
 }
@@ -916,7 +958,7 @@ int cluster_trace_any(const void* o, const void* d, const void* tnear,
                       void* stream) {
   const Args a = make_args(o, d, tnear, tfar, count, shortlist, entry,
                            n_super, bmin, bmax, box_per_cluster, ctris,
-                           n_clusters, block, factor, skip);
+                           n_clusters, block, factor, skip, nullptr);
   return launch<false>(a, n_packets, woop, stream, nullptr, nullptr, nullptr,
                        nullptr, (bool*)occ);
 }

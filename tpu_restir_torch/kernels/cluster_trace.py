@@ -28,11 +28,17 @@ tile after `render.intersect`'s swizzle).
   the earlier-listed cluster. The kernels stop early (closest: once the
   next entry distance passes every ray's min(best_t, tfar); any: once
   every live ray is occluded) and, above SMALL_C clusters, skip a slot
-  that no ray's own slab test can reach (mode 5); the plain versions test
-  every listed slot, so they are the exact definition the kernels must
-  reproduce bit for bit. Each kernel launch counts `launch.<wrapper>`
-  (`launch.trace_closest`, ..., `tracing.count`), and each launch that
-  culls in mode 5 `cull.<wrapper>` too.
+  that no ray's own slab test can reach (mode 5: K6 always, K5 wherever
+  its cull boxes are the clusters' own, so on every factor-1 scene; the
+  TPU runs closest hit there without a cull, but on the card a slot
+  costs K5 a 64-row stage and a barrier, and incoherent bounce packets
+  list hundreds of clusters that none of their rays reach); the plain
+  versions test every listed slot, so they are the exact definition the
+  kernels must reproduce bit for bit. Each kernel launch counts
+  `launch.<wrapper>` (`launch.trace_closest`, ..., `tracing.count`), each
+  launch that culls in mode 5 `cull.<wrapper>` too, and a closest-hit
+  launch the slots its packets staged (`phase2.staged`, a tensor the
+  kernel writes) and its packets (`phase2.closest_packets`).
 
 Scenes above SUPER_MAX clusters group F = pick_factor(C) consecutive
 leaf-order clusters into one supercluster for phase 1; shortlist slot s
@@ -210,15 +216,27 @@ def pick_factor(n_clusters: int) -> int:
 
 
 def _skip_for(kind: str, c: int, factor: int = 1) -> int:
-    """Per-ray cull mode of the JAX package's production defaults
-    (cluster_trace.py:1100-1109): 0 (none) at C <= SMALL_C; 5 (slab cull)
-    for any-hit, and for closest hit once superclusters expand (factor > 1,
-    C <= BOX_MAX); 0 for closest hit otherwise."""
+    """Per-ray cull mode of K5/K6: 0 (none) at C <= SMALL_C; 5 (slab cull)
+    for any hit, and for closest hit where the cull boxes are per cluster
+    (`cull_boxes`: factor 1, or C <= BOX_MAX); 0 for closest hit on
+    supercluster boxes. The JAX package's production defaults
+    (cluster_trace.py:1100-1109) but for closest hit at factor 1, which
+    the TPU runs in mode 0."""
     if c <= SMALL_C:
         return 0
-    if factor > 1 and c <= BOX_MAX:
+    if kind == "any" or factor == 1 or c <= BOX_MAX:
         return 5
-    return 0 if kind == "closest" else 5
+    return 0
+
+
+def launch_mode(kind: str, c: int, factor: int = 1) -> int:
+    """The cull mode a launch of `kind` (a key of `_KINDS`) runs in: K7
+    none, whose exactness under a cull on the Woop test's grown boxes has
+    been shown for any hit alone; the others `_skip_for`'s."""
+    if kind == "trace_closest_mxu":
+        return 0
+    return _skip_for("closest" if kind == "trace_closest" else "any", c,
+                     factor)
 
 
 @dataclasses.dataclass
@@ -508,7 +526,7 @@ def build_cluster_woop(woop, block: int):
 
 _IN = [_P] * 7 + [_I, _I] + [_P, _P, _I] + [_P] + [_I] * 5
 _SIGNATURES = {
-    "cluster_trace_closest": (_IN + [_P] * 5, ctypes.c_int),
+    "cluster_trace_closest": (_IN + [_P] * 6, ctypes.c_int),
     "cluster_trace_any": (_IN + [_P] * 2, ctypes.c_int),
     "cluster_shortlist_keys": ([_P] * 4 + [_I, _P, _P, _I] + [_P] * 3,
                                ctypes.c_int),
@@ -568,8 +586,7 @@ def _launch(kind, blocks, pk: Packets, outs, cmin=None, cmax=None):
             raise ValueError(f"cluster_trace: the Woop kernels take factor "
                              f"1, got {pk.factor}")
         b = WOOP_BLOCK
-        skip = _skip_for("closest" if kind == "trace_closest_mxu" else "any",
-                         c)
+        skip = launch_mode(kind, c)
         cwoop = (blocks, (c, 4, 3 * b), torch.float32)
         if skip:
             _check_tensors(pk, cwoop=cwoop,
@@ -589,9 +606,11 @@ def _launch(kind, blocks, pk: Packets, outs, cmin=None, cmax=None):
         if b * 12 * 4 > 48 * 1024:   # rows staged as 12 floats
             raise ValueError(f"cluster_trace: cluster size {b} exceeds the "
                              "kernel's 48 KB shared-memory tile")
-        skip = _skip_for("closest" if kind == "trace_closest" else "any", c,
-                         pk.factor)
+        skip = launch_mode(kind, c, pk.factor)
         boxes = (bmin.data_ptr(), bmax.data_ptr(), int(per_cluster))
+    # closest hit: the slots each packet staged, written by the kernel
+    staged = (torch.empty_like(pk.count) if entry == "cluster_trace_closest"
+              else None)
     lib = _lib()
     with torch.cuda.device(pk.o.device):
         stream = torch.cuda.current_stream(pk.o.device).cuda_stream
@@ -600,13 +619,17 @@ def _launch(kind, blocks, pk: Packets, outs, cmin=None, cmax=None):
             pk.tfar.data_ptr(), pk.count.data_ptr(), pk.shortlist.data_ptr(),
             pk.entry.data_ptr(), pk.count.shape[0], pk.shortlist.shape[1],
             *boxes, blocks.data_ptr(), c, b, pk.factor, skip, int(woop),
-            *[x.data_ptr() for x in outs], stream)
+            *[x.data_ptr() for x in outs],
+            *(() if staged is None else (staged.data_ptr(),)), stream)
     if err:
         raise RuntimeError(f"cluster_trace {kind}: launch failed: "
                            f"{lib.cluster_trace_error_string(err).decode()}")
     tracing.count("launch." + kind, 1)
     if skip:
         tracing.count("cull." + kind, 1)
+    if staged is not None:
+        tracing.count("phase2.staged", staged)
+        tracing.count("phase2.closest_packets", staged.shape[0])
 
 
 def _on_cuda(x) -> bool:

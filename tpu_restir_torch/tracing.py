@@ -13,8 +13,10 @@ sees it too. Otherwise it is a shared null context, after two flag reads.
 launches of the CUDA wrappers (`launch.*`, each read 0 from the import
 of its module), the clustered kernels' launches that cull in mode 5
 (`cull.*`), host reads of the plain backends' loop conditions
-(`sync.*`), phase 1's shortlists (`phase1.*`) and the slots phase 2 is
-given (`phase2.slots`). An int value is always added. A tensor value, a
+(`sync.*`), phase 1's shortlists (`phase1.*`), the slots phase 2 is
+given (`phase2.slots`), and the slots the closest-hit kernels staged
+over their packets (`phase2.staged`, `phase2.closest_packets`). An int
+value is always added. A tensor value, a
 count that lives on the device, is never touched here, so it launches
 nothing and waits for nothing: callers look `count` up on this module at
 each call, so a wrapper put in its place sees every call and may sum it.
