@@ -157,8 +157,9 @@ line is not printed:
      (lights1k), cuda against cpu within rtol 1e-4 + 1e-5 of the largest
      entry. Each run prints its ms (CUDA events after a synchronize), peak
      memory, host syncs (`sync.*` of tracing.COUNTS) and the query census of
-     roofline.summarize_query_log; the collapse of terrain100k's wide BVH
-     is timed on the host. Its kernel launches are not in the JSON line.
+     roofline.summarize_query_log (its recorded `rays.` counts); the
+     collapse of terrain100k's wide BVH is timed on the host. Its kernel
+     launches are not in the JSON line.
  14. [tools], the JAX system's profilers and scaling bench as the port
      has them (`tpu_restir_torch.tools`): profile_ptrace and
      profile_phase1 on terrain100k's 1080p primary-ray query (the phase
@@ -1119,23 +1120,16 @@ def hold_trace(name, scene, kind, label, pk, results):
 
 def staged_slots(fn):
     """Run fn, closest-hit launches; -> the slots they staged a packet
-    (the counters `phase2.staged` over `phase2.closest_packets`, seen by
-    wrapping `tracing.count` for the call)."""
+    (the counters `phase2.staged` over `phase2.closest_packets`, recorded
+    for the call)."""
     from tpu_restir_torch import tracing
     got = {"phase2.staged": 0.0, "phase2.closest_packets": 0.0}
-    orig = tracing.count
-
-    def wrapper(name, value):
+    with tracing.recording() as rec:
+        fn()
+    for name, value in rec:
         if name in got:
             got[name] += float(value.sum()) if hasattr(value, "sum") \
                 else float(value)
-        orig(name, value)
-
-    tracing.count = wrapper
-    try:
-        fn()
-    finally:
-        tracing.count = orig
     return got["phase2.staged"] / max(got["phase2.closest_packets"], 1.0)
 
 
@@ -1336,10 +1330,11 @@ def timed_frames(scene, cfg, dev, n_frames, warm=True):
     """The frame yardstick: Renderer.run of n_frames frames after a
     one-frame warm-up on another Renderer (allocator, libraries; warm
     False: the caller ran one), the kernel launch counts zeroed and the
-    query log opened just before it -> (renderer, image, seconds, query
-    log). run ends in a synchronize."""
+    counts recorded from just before it -> (renderer, image, seconds, its
+    queries, `intersect.queries`). run ends in a synchronize."""
     import torch
 
+    from tpu_restir_torch import tracing
     from tpu_restir_torch.render import intersect
     from tpu_restir_torch.renderer import Renderer
     if warm:
@@ -1347,14 +1342,11 @@ def timed_frames(scene, cfg, dev, n_frames, warm=True):
     torch.cuda.synchronize()
     renderer = Renderer(scene, cfg, device=dev)
     _zero_launches()
-    intersect.QUERY_LOG = qlog = []
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    try:
+    with tracing.recording() as rec:
+        t0 = time.perf_counter()
         img = renderer.run(n_frames)
-    finally:
-        intersect.QUERY_LOG = None
-    return renderer, img, time.perf_counter() - t0, qlog
+    return renderer, img, time.perf_counter() - t0, intersect.queries(rec)
 
 
 def scene_and_view(label, dev):
@@ -1709,17 +1701,15 @@ def path_queries(scene, cfg, label, dev):
     import numpy as np
     import torch
 
+    from tpu_restir_torch import tracing
     from tpu_restir_torch.kernels import cluster_trace as ct
     from tpu_restir_torch.render import intersect
     roles = QUERY_ROLES[label]
     chunk = cfg.intersector.ptrace_chunk
     calls = []
-    intersect.QUERY_LOG = qlog = []
-    try:
-        with all_packets(calls):
-            _path_frame(scene, cfg, dev, 1)
-    finally:
-        intersect.QUERY_LOG = None
+    with tracing.recording() as rec, all_packets(calls):
+        _path_frame(scene, cfg, dev, 1)
+    qlog = intersect.queries(rec)
     c = scene.cluster_tris.shape[0]
     require(len(calls) == sum(-(-e["rays"] // chunk) for e in qlog)
             and len(qlog) % len(roles) == 0,
@@ -2534,23 +2524,22 @@ def phase_fwd_bwd(dev, smi):
     median of 3 timed steps; the launches and traced rays of the last."""
     import torch
 
-    from tpu_restir_torch import metrics
+    from tpu_restir_torch import metrics, tracing
     from tpu_restir_torch.render import intersect
     vg, params = bench_step(dev, WIDTH, HEIGHT)
     vg(params)                                   # warm-up
     torch.cuda.synchronize()
     times = []
     for i in range(3):
-        last = i == 2
-        if last:
+        if i == 2:
             torch.cuda.reset_peak_memory_stats()
             _zero_launches()
-            intersect.QUERY_LOG = qlog = []
-        t0 = time.perf_counter()
-        loss, grads = vg(params)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    intersect.QUERY_LOG = None
+        with tracing.recording() as rec:     # the last step's is kept
+            t0 = time.perf_counter()
+            loss, grads = vg(params)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    qlog = intersect.queries(rec)
     launches = {k: v for k, v in _launches().items()
                 if k != "shortlist_keys" and not k.startswith("trace_")}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3034,15 +3023,12 @@ def _backend_frame(scene, view, backend, dev, smi):
     torch.cuda.reset_peak_memory_stats()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    intersect.QUERY_LOG = qlog = []
-    try:
-        with queries_of(WIDTH * HEIGHT, got):
-            a.record()
-            img, _state = run_frames(scene, cfg, dev, 1)
-            b.record()
-            torch.cuda.synchronize()
-    finally:
-        intersect.QUERY_LOG = None
+    with tracing.recording() as rec, queries_of(WIDTH * HEIGHT, got):
+        a.record()
+        img, _state = run_frames(scene, cfg, dev, 1)
+        b.record()
+        torch.cuda.synchronize()
+    qlog = intersect.queries(rec)
     ms = a.elapsed_time(b)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     rpp = sum(e["rays"] for e in qlog) / float(WIDTH * HEIGHT)
@@ -3054,7 +3040,7 @@ def _backend_frame(scene, view, backend, dev, smi):
           f"{WIDTH}x{HEIGHT}: {ms:.1f} ms ({smi}), peak memory {peak:.2f} "
           f"GiB, host syncs {synced}; traced rays/pixel {rpp} (analytic "
           f"{metrics.rays_per_pixel(cfg)}); queries "
-          f"{roofline.summarize_query_log(qlog)}", flush=True)
+          f"{roofline.summarize_query_log(rec)}", flush=True)
     require(tuple(img.shape) == (HEIGHT, WIDTH, 3)
             and bool(torch.isfinite(img).all()),
             f"{backend}: a bad image")

@@ -46,16 +46,6 @@ def built():
     return {k: (j(), t()) for k, (j, t, _c) in SCENES.items()}
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the plain versions run many small tensor ops,
-    where PyTorch's threads only contend with the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _compare_scene(port: SceneArrays, ref):
     """Every field of the port's scene against the JAX scene, exactly; the
     port's cluster blocks are the first 9 channels of the JAX ones."""

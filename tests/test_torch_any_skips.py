@@ -47,17 +47,8 @@ from tpu_restir_torch.kernels import ray_tri
 from tpu_restir_torch.kernels.woop import build_woop_matrices
 from tpu_restir_torch.scene.cornell import many_lights_scene
 from tpu_restir_torch.scene.procedural import terrain_scene
+from torch_kernel_emulation import per_group, woop_terrain
 from torch_ray_families import ANY_FAMILIES, FAMILIES, family
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the emulation runs many small tensor ops,
-    where PyTorch's threads only contend with the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pairs(name, woop=False):
@@ -175,13 +166,6 @@ def test_u_test_without_division_is_conservative(name):
         assert int((pre & ~cand).sum()) > 0
 
 
-def _per_group(x):
-    """(A, P) -> (A, P): any lane of the ray's group of 32 (a warp)."""
-    a = x.shape[0]
-    return x.view(a, ct.P // 32, 32).any(-1, keepdim=True) \
-        .expand(a, ct.P // 32, 32).reshape(a, ct.P)
-
-
 def _emulate_k6(ctris, cmin, cmax, pk, stats):
     """K6's traversal at factor 1 in groups of 32 rays, as
     csrc/cluster_trace.cu runs it: per slot the block's all-occluded exit
@@ -209,9 +193,9 @@ def _emulate_k6(ctris, cmin, cmax, pk, stats):
             staged = slab.any(1)
             a, cl, open_, slab = a[staged], cl[staged], open_[staged], \
                 slab[staged]
-        want = open_ & slab & _per_group(open_ & slab)
+        want = open_ & slab & per_group(open_ & slab)
         stats["groups skipped by the slab"] += int(
-            (_per_group(open_) & ~_per_group(open_ & slab)).sum()) // 32
+            (per_group(open_) & ~per_group(open_ & slab)).sum()) // 32
         tr = ctris[cl]
         r = [x[a] for x in rays]
         ok = ct._mt(tr, *r)[3]
@@ -220,15 +204,15 @@ def _emulate_k6(ctris, cmin, cmax, pk, stats):
         hit_a = torch.zeros_like(want)
         for row in range(tr.shape[1]):
             cand = want & pre[:, row]
-            tested = _per_group(cand)
+            tested = per_group(cand)
             stats["rows skipped by u"] += int(
-                (_per_group(want) & ~tested).sum()) // 32
+                (per_group(want) & ~tested).sum()) // 32
             hit = tested & cand & ok[:, row]
             hit_a |= hit
-            left = _per_group(want)
+            left = per_group(want)
             want &= ~hit
             stats["groups left early"] += int(
-                (left & ~_per_group(want)).sum()) // 32 \
+                (left & ~per_group(want)).sum()) // 32 \
                 if row < tr.shape[1] - 1 else 0
         occ[a] |= hit_a
     return occ.reshape(-1)
@@ -331,27 +315,27 @@ def _emulate_k8(cwoop, cmin, cmax, pk, stats):
             stats["slots skipped by the vote"] += int((~staged).sum())
             a, cl, open_, slab = a[staged], cl[staged], open_[staged], \
                 slab[staged]
-        want = open_ & slab & _per_group(open_ & slab)
+        want = open_ & slab & per_group(open_ & slab)
         stats["groups skipped by the slab"] += int(
-            (_per_group(open_) & ~_per_group(want)).sum()) // 32
+            (per_group(open_) & ~per_group(want)).sum()) // 32
         t, u, _v, ok = ct._woop(cwoop[cl], *(x[a] for x in rays))
         in_range = torch.isfinite(t) & (t >= tn[a, None]) \
             & (t <= tf[a, None])
         hit_a = torch.zeros_like(want)
         for g0 in range(0, ct.WOOP_BLOCK, K8_GROUP):
-            going = _per_group(want)
+            going = per_group(want)
             if g0:
                 stats["groups left early"] += int(
                     (left & ~going).sum()) // 32
             left = going
             for row in range(g0, g0 + K8_GROUP):
                 test = want & in_range[:, row]
-                tested = _per_group(test)
+                tested = per_group(test)
                 stats["rows skipped by t"] += int(
                     (going & ~tested).sum()) // 32
                 cand = tested & test & (u[:, row] >= -1e-5) \
                     & (u[:, row] <= 1.001)
-                u_ok = _per_group(cand)
+                u_ok = per_group(cand)
                 stats["rows skipped by u"] += int(
                     (tested & ~u_ok).sum()) // 32
                 hit = u_ok & cand & ok[:, row]
@@ -361,21 +345,15 @@ def _emulate_k8(cwoop, cmin, cmax, pk, stats):
     return occ.reshape(-1)
 
 
-@pytest.fixture(scope="module")
-def woop_terrain():
-    """terrain_scene(10_000) rebuilt at cluster size 128: 79 clusters."""
-    return chip_smoke._woop_rebuild(terrain_scene("cpu", 10_000), "cpu")
-
-
 @pytest.mark.parametrize("name", ANY_FAMILIES + ["terrain"])
-def test_k8_skips_emulated_match_plain(woop_terrain, name):
+def test_k8_skips_emulated_match_plain(name):
     """K8's skips, emulated in groups of 32 rays, give
     `trace_any_mxu_ref`'s mask on the Woop terrain (cull mode 5), for the
     rays of each family (their own triangles left out) and for the
     terrain camera's rays as occlusion rays with random segments; the
     slab, t-first and u-first skips fire, and (but for tiny_det's rays,
     which list one cluster and hit nothing) the slot vote and the exit."""
-    scene = woop_terrain
+    scene = woop_terrain()
     assert ct._skip_for("any", scene.cluster_woop.shape[0]) == 5
     if name == "terrain":
         rays = _terrain_rays(scene, 1024, 11)

@@ -74,16 +74,6 @@ def scenes():
     return {k: (j(), t()) for k, (j, t) in SCENES.items()}
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: many small tensor ops, where PyTorch's threads
-    only contend with the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _rays(seed, n=N_RAYS, grid=None):
     """Random rays from the box [-1, 1]^2 x [0, 2], or (grid = (h, w)) a
     pinhole fan from the Cornell camera; tnear 1e-3, tfar 1e4 (closest)
@@ -141,11 +131,9 @@ def test_backend_matches_jax(scenes, scene, backend, extra, grid, kind):
     o, d = _rays(len(scene) + len(backend), grid=grid)
     jcfg = JConfig(backend=backend, **extra)
     tcfg = IntersectorConfig(backend=backend, **extra)
-    tintersect.QUERY_LOG = log = []
-    try:
+    with tracing.recording() as rec:
         want, got = _query(kind, js, ts, o, d, jcfg, tcfg)
-    finally:
-        tintersect.QUERY_LOG = None
+    log = tintersect.queries(rec)
     assert log == [{"kind": kind, "backend": backend,
                     "rays": int(np.prod(o.shape[:-1]))}]
     if kind == "any":

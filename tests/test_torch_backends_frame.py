@@ -28,6 +28,7 @@ from tpu_restir.render.integrators.restir import pipeline as jpipe
 from tpu_restir.scene.cornell import many_lights_scene as j_many_lights
 from tpu_restir_torch import convert
 from tpu_restir_torch import rng as trng
+from tpu_restir_torch import tracing
 from tpu_restir_torch.config import (CameraConfig, IntersectorConfig,
                                      RenderConfig, RenderParams,
                                      RestirParams)
@@ -47,14 +48,6 @@ CORNELL_VIEW = ((0.0, -3.9, 1.0), (0.0, 0.0, 1.0))
 @pytest.fixture(scope="module")
 def scenes():
     return {"lights200": (j_many_lights(200), t_many_lights("cpu", 200))}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _frame_cfg(backend, jax_side, w=32, h=16):
@@ -94,14 +87,12 @@ def test_restir_frame_under_fcluster(scenes):
     want, jstate = jax.jit(jpipe.restir_step, static_argnames=("cfg",))(
         js, jcam.make_camera(jcfg.camera), jcfg, jrng.make_frame_seed(0, 0),
         jpipe.init_restir_state(h, w), jnp.asarray(0))
-    tintersect.QUERY_LOG = log = []
-    try:
+    with tracing.recording() as rec:
         got, tstate = tpipe.restir_step(
             ts, tcam.make_camera(tcfg.camera, "cpu"), tcfg,
             trng.make_frame_seed(0, 0), tpipe.init_restir_state(h, w, "cpu"),
             0)
-    finally:
-        tintersect.QUERY_LOG = None
+    log = tintersect.queries(rec)
     assert {e["backend"] for e in log} == {"fcluster"} and len(log) >= 10
     want, got = np.asarray(want), got.numpy()
     pix = want.mean(-1)
@@ -133,15 +124,13 @@ def test_gbuffer_and_initial_passes(scenes, backend):
     jgbuf = jax.tree.map(np.asarray, jgbuf)
     tys = torch.from_numpy(np.array(ys, np.int32))
     txs = torch.from_numpy(np.array(xs, np.int32))
-    tintersect.QUERY_LOG = log = []
-    try:
+    with tracing.recording() as rec:
         got = tgb.gbuffer_fill(ts, tcam.make_camera(tcfg.camera, "cpu"),
                                tcfg, int(np.asarray(seed)), tys, txs)
         res = tinit.initial_pass(int(np.asarray(seed)), ts,
                                  convert.from_tree(GBuffer, jgbuf, "cpu"),
                                  tcfg, tys, txs)
-    finally:
-        tintersect.QUERY_LOG = None
+    log = tintersect.queries(rec)
     assert {e["backend"] for e in log} == {backend}
     same = got.mat_type.numpy() == jgbuf.mat_type
     same &= np.abs(got.depth.numpy() - jgbuf.depth) <= 1e-4

@@ -29,16 +29,6 @@ from tpu_restir_torch.kernels import ray_tri
 from tpu_restir_torch.scene.procedural import terrain_scene
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread, so as not to contend with the other test
-    workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _edge_rays(scene, n=384, seed=0):
     """Rays in the plane of the scene box's max-x face (d.x = +0 or -0),
     from above onto points of the terrain's boundary edges in that plane

@@ -42,18 +42,8 @@ from tpu_restir_torch import rng
 from tpu_restir_torch.render import camera as cam_mod
 from tpu_restir_torch.render import intersect
 from tpu_restir_torch.scene.procedural import terrain_scene
+from torch_kernel_emulation import per_group, woop_terrain
 from torch_ray_families import FAMILIES, family
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the counts and the emulation run many small
-    tensor ops, where PyTorch's threads only contend with the other test
-    workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _mt_inputs(tris, o, d, tn, tf):
@@ -403,13 +393,6 @@ def test_slab_aware_woop_ops_match_a_loop():
     _check_slab_ops("trace_any_mxu", _ptrace_scene("trace_any_mxu"))
 
 
-def _per_group(x):
-    """(A, P) -> (A, P): any lane of the ray's group of 32 (a warp)."""
-    a = x.shape[0]
-    return x.view(a, ct.P // 32, 32).any(-1, keepdim=True) \
-        .expand(a, ct.P // 32, 32).reshape(a, ct.P)
-
-
 def _emulate_k7(cwoop, pk, stats):
     """K7's traversal at factor 1 in groups of 32 rays, as
     csrc/cluster_trace.cu runs it: each ray's [tnear, tfar] folded (a dead
@@ -442,7 +425,7 @@ def _emulate_k7(cwoop, pk, stats):
         stats["packets stopped by the vote"] += int(stop.sum())
         going[a[stop]] = False
         a, act = a[~stop], act[~stop]
-        warp = _per_group(act)
+        warp = per_group(act)
         stats["groups skipped by the slot"] += int((~warp).sum()) // 32
         cl = pk.shortlist[a, j].long()
         t, u, v, ok = ct._woop(cwoop[cl], *(x[a] for x in rays))
@@ -451,10 +434,10 @@ def _emulate_k7(cwoop, pk, stats):
         b_t, b_u, b_v, b_tri = bt[a], bu[a], bv[a], btri[a]
         for row in range(ct.WOOP_BLOCK):
             test = warp & in_range[:, row] & (t[:, row] < b_t)
-            t_ok = _per_group(test)
+            t_ok = per_group(test)
             stats["rows skipped by t"] += int((warp & ~t_ok).sum()) // 32
             cand = t_ok & test & (u[:, row] >= -1e-5) & (u[:, row] <= 1.001)
-            u_ok = _per_group(cand)
+            u_ok = per_group(cand)
             stats["rows skipped by u"] += int((t_ok & ~u_ok).sum()) // 32
             better = u_ok & cand & ok[:, row]
             b_t = torch.where(better, t[:, row], b_t)
@@ -466,21 +449,15 @@ def _emulate_k7(cwoop, pk, stats):
     return bt.reshape(-1), bu.reshape(-1), bv.reshape(-1), btri.reshape(-1)
 
 
-@pytest.fixture(scope="module")
-def woop_terrain():
-    """terrain_scene(10_000) rebuilt at cluster size 128: 79 clusters."""
-    return chip_smoke._woop_rebuild(terrain_scene("cpu", 10_000), "cpu")
-
-
 @pytest.mark.parametrize("name", FAMILIES + ["terrain"])
-def test_k7_skips_emulated_match_plain(woop_terrain, name):
+def test_k7_skips_emulated_match_plain(name):
     """K7's skips, emulated in groups of 32 rays, give
     `trace_closest_mxu_ref`'s (t, u, v, tri) bit for bit on the Woop
     terrain, for the rays of each family (their own triangles left out)
     and for the terrain camera's rays; the t-first and u-first row skips
     fire, and on the camera's coherent packets the block vote and the
     per-warp slot skip."""
-    scene = woop_terrain
+    scene = woop_terrain()
     if name == "terrain":
         pk = _terrain_packets(scene)
         pk.tfar[::17] = -1.0                 # dead rays inside live packets

@@ -34,7 +34,7 @@ from tpu_restir.render.integrators import render_naive as j_naive
 from tpu_restir.render.integrators import render_nee as j_nee
 from tpu_restir.scene import cornell_box as j_cornell_box
 from tpu_restir_torch import config as tc
-from tpu_restir_torch import rng
+from tpu_restir_torch import rng, tracing
 from tpu_restir_torch.render import camera as tcam
 from tpu_restir_torch.render import intersect
 from tpu_restir_torch.render.integrators import render_naive, render_nee
@@ -109,12 +109,10 @@ def test_traced_rays_match_the_analytic_count(integrator, kw, want):
     (B = 4 here)."""
     cfg = _cfg(tc, integrator, bounces=4, **kw)
     fn = render_naive if integrator == "naive" else render_nee
-    intersect.QUERY_LOG = log = []
-    try:
+    with tracing.recording() as rec:
         fn(cornell_box("cpu"), tcam.make_camera(cfg.camera, "cpu"), cfg,
            rng.frame_key(0, 0))
-    finally:
-        intersect.QUERY_LOG = None
+    log = intersect.queries(rec)
     assert chip_smoke.path_rays_per_pixel(cfg) == want
     assert sum(e["rays"] for e in log) == want * W * H
 

@@ -38,7 +38,7 @@ from tpu_restir.render.integrators import render_nee as j_nee
 from tpu_restir.scene.cornell import many_lights_scene as j_lights
 from tpu_restir.scene.procedural import terrain_scene as j_terrain
 from tpu_restir_torch import config as tc
-from tpu_restir_torch import rng
+from tpu_restir_torch import rng, tracing
 from tpu_restir_torch.kernels import cluster_trace as tct
 from tpu_restir_torch.render import camera as tcam
 from tpu_restir_torch.render import intersect
@@ -69,14 +69,6 @@ def _scenes(name):
         j, t, view = _SCENE_FNS[name]
         _BUILT[name] = (j(), t(), view)
     return _BUILT[name]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -159,12 +151,10 @@ def test_clustered_frame_matches_jax(case, jax_queries, monkeypatch):
     with jax.disable_jit():
         want = np.asarray(jfn(js, jcam.make_camera(jcfg.camera), jcfg,
                               jrng.frame_key(0, 5)))
-    intersect.QUERY_LOG = log = []
-    try:
+    with tracing.recording() as rec:
         got = tfn(ts, tcam.make_camera(tcfg.camera, "cpu"), tcfg,
                   rng.frame_key(0, 5))
-    finally:
-        intersect.QUERY_LOG = None
+    log = intersect.queries(rec)
     assert tuple(got.shape) == (H, W, 3) and torch.isfinite(got).all()
     share = float(np.isclose(got.numpy(), want, **TOL).all(-1).mean())
     assert share >= MIN_SHARE, share

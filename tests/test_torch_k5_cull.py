@@ -46,27 +46,10 @@ from tpu_restir_torch.render import intersect
 from tpu_restir_torch.scene.materials import MaterialSpec
 from tpu_restir_torch.scene.procedural import terrain_scene
 from tpu_restir_torch.scene.scene import build_scene
+from torch_kernel_emulation import per_group
 from torch_phase1_cases import max_face_rays, patches_scene
 
 P = ct.P
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the emulation runs many small tensor ops,
-    where PyTorch's threads only contend with the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def _per_group(x):
-    """(A, ..., P) -> the same shape: any lane of the ray's group of 32
-    (a warp of K5) along the last axis."""
-    shape = x.shape
-    g = x.reshape(*shape[:-1], P // 32, 32).any(-1, keepdim=True)
-    return g.expand(*shape[:-1], P // 32, 32).reshape(shape)
 
 
 def _emulate_k5(scene, pk, stats):
@@ -119,13 +102,13 @@ def _emulate_k5(scene, pk, stats):
         stats["slots culled by the vote"] += int((~staged).sum())
         a, cl, want, act = a[staged], cl[staged], want[staged], act[staged]
         stats["slots staged"] += int(a.shape[0])
-        warp = _per_group(act) & _per_group(want)
+        warp = per_group(act) & per_group(want)
         stats["groups skipped by the slot"] += int((~warp).sum()) // 32
         r = [x[a] for x in rays]
         t, u, v, ok = ct._mt(ctris[cl], *r)            # (A, B, P)
         ok_det = torch.abs(chip_smoke.mt_det(ctris[cl], *r[3:6])) > 1e-18
         cand = (warp & want)[:, None] & ok_det & (u >= 0.0) & (u <= 1.0)
-        u_ok = _per_group(cand)
+        u_ok = per_group(cand)
         stats["rows skipped by u"] += \
             int((warp[:, None] & ~u_ok).sum()) // 32
         # the kernel's fold: row by row, a strictly smaller t replaces; so
@@ -468,12 +451,9 @@ def test_k5_mode5_on_terrain100k_gbuffer_and_bounce_queries(cuda):
     cfg = chip_smoke.path_cfg(1920, 1080, "nee", view,
                               direct_strategy="mis")
     calls = []
-    intersect.QUERY_LOG = qlog = []
-    try:
-        with chip_smoke.all_packets(calls):
-            chip_smoke._path_frame(scene, cfg, cuda, 1)
-    finally:
-        intersect.QUERY_LOG = None
+    with tracing.recording() as rec, chip_smoke.all_packets(calls):
+        chip_smoke._path_frame(scene, cfg, cuda, 1)
+    qlog = intersect.queries(rec)
     roles = chip_smoke.QUERY_ROLES["nee-mis"]
     # the first chunk of bounce 1's path query: its queries' calls in order
     chunk = cfg.intersector.ptrace_chunk

@@ -24,6 +24,12 @@ maps, the HDR sky) against the JAX package's, on the CPU.
     texels: the backward of its incomplete beta is infinite at x = 1 and
     meets a zero cotangent), and within rtol 0.08 of a central finite
     difference on the three strongest texels.
+
+The plain ray/triangle versions build (rays, triangles) tensors above
+PyTorch's parallel grain; under parallel test workers each such op waits
+on the thread pool unless the process runs one thread, as
+`tests/conftest.py` makes every test process do (the CLI golden took
+50-90 s so, 1.3 s on one thread).
 """
 
 import dataclasses
@@ -51,6 +57,7 @@ from tpu_restir_torch import cli as tcli
 from tpu_restir_torch import config as tc
 from tpu_restir_torch import convert
 from tpu_restir_torch import rng as trng
+from tpu_restir_torch import tracing
 from tpu_restir_torch.diff.params import extract_params
 from tpu_restir_torch.diff.render import loss_fn, make_value_and_grad
 from tpu_restir_torch.io.png import read_png
@@ -78,19 +85,6 @@ GOLDEN_REGIONS = [[0.7129, 0.5927, 0.5785, 0.7047],
                   [0.6801, 0.5566, 0.5822, 0.6730],
                   [0.3819, 0.3869, 0.4031, 0.4196],
                   [0.3443, 0.4356, 0.4319, 0.3574]]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """PyTorch's CPU ops run on one thread in this module: the plain
-    ray/triangle versions build (rays, triangles) tensors above its
-    parallel grain, and on a host loaded by parallel test workers each
-    such op then waits on the thread pool (the CLI golden took 50-90 s
-    so, 1.3 s on one thread, with the same image)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfg(mod, integrator="restir", w=W, h=H):
@@ -349,8 +343,7 @@ def test_forced_ptrace_equals_fused_on_the_demo(demo):
     cfg = _cfg(tc, w=64, h=32)
     o, d = tcam.generate_rays(tcam.make_camera(cfg.camera, "cpu"),
                               cfg.camera, trng.frame_key(0, 0))
-    intersect.QUERY_LOG = log = []
-    try:
+    with tracing.recording() as rec:
         fused = intersect.intersect_closest(ts, o, d, 1e-4, torch.inf)
         # half of the hits lie within this reach: occluded and visible rays
         reach = float(fused.t[fused.hit].median())
@@ -358,8 +351,7 @@ def test_forced_ptrace_equals_fused_on_the_demo(demo):
         pt = tc.IntersectorConfig(backend="ptrace")
         traced = intersect.intersect_closest(ts, o, d, 1e-4, torch.inf, pt)
         occ_p = intersect.intersect_any(ts, o, d, 1e-4, reach, pt)
-    finally:
-        intersect.QUERY_LOG = None
+    log = intersect.queries(rec)
     assert [e["backend"] for e in log] == ["fused"] * 2 + ["ptrace"] * 2
     assert torch.equal(fused.tri, traced.tri) and fused.hit.any()
     np.testing.assert_allclose(traced.t.numpy(), fused.t.numpy(), rtol=1e-5,

@@ -77,16 +77,6 @@ def _interpret_kernels():
     jct.INTERPRET = False
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the plain versions run many small tensor ops,
-    where PyTorch's threads only contend with the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 _BUILDERS = {
     "terrain3k": (lambda: j_terrain(3_000), lambda: t_terrain("cpu", 3_000)),
     "soup1500": (lambda: j_soup(1_500), lambda: t_soup("cpu", 1_500)),
@@ -417,12 +407,10 @@ def test_backend_selection():
     assert tintersect._backend(big, T_MXU) == "ptrace"
     assert tintersect._backend(
         big, IntersectorConfig(backend="fcluster")) == "fcluster"
-    tintersect.QUERY_LOG = log = []
-    try:
+    with tracing.recording() as rec:
         o, d, tn, tf = _t(*_random_rays(37, 10, 2.0))
         tintersect.intersect_any(big, o, d, tn, tf)
-    finally:
-        tintersect.QUERY_LOG = None
+    log = tintersect.queries(rec)
     assert log == [{"kind": "any", "backend": "ptrace", "rays": 10}]
 
 

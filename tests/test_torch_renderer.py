@@ -23,7 +23,7 @@ import torch
 from tpu_restir.config import (CameraConfig, RenderConfig, RenderParams,
                                RestirParams)
 from tpu_restir.renderer import display_image as j_display_image
-from tpu_restir_torch import convert, metrics, rng
+from tpu_restir_torch import convert, metrics, rng, tracing
 from tpu_restir_torch.render import camera as tcam
 from tpu_restir_torch.render import intersect
 from tpu_restir_torch.render.integrators.restir import pipeline as tpipe
@@ -343,12 +343,10 @@ def test_traced_rays_match_the_analytic_count(scene, restir):
 
     cfg = _cfg(restir)
     assert metrics.rays_per_pixel(cfg) == bench.rays_per_pixel(cfg)
-    intersect.QUERY_LOG = log = []
-    try:
+    with tracing.recording() as rec:
         tpipe.render_restir_frames(scene, tcam.make_camera(CCFG, "cpu"),
                                    cfg, 0, 1, "cpu")
-    finally:
-        intersect.QUERY_LOG = None
+    log = intersect.queries(rec)
     assert sum(e["rays"] for e in log) == metrics.rays_per_pixel(cfg) * 192
 
 

@@ -45,6 +45,7 @@ from tpu_restir.scene.procedural import terrain_scene as j_terrain
 from tpu_restir.scene.scene import build_scene as j_build_scene
 from tpu_restir_torch import convert
 from tpu_restir_torch import rng as trng
+from tpu_restir_torch import tracing
 from tpu_restir_torch.kernels import cluster_trace as tct
 from tpu_restir_torch.render import camera as tcam
 from tpu_restir_torch.render import intersect as tintersect
@@ -130,16 +131,6 @@ def _interpret_kernels():
     jrt.INTERPRET = False
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the plain versions run many small tensor ops,
-    where PyTorch's threads only contend with the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 _REFS = {}
 
 
@@ -197,12 +188,10 @@ def _spy_woop(monkeypatch):
 def test_gbuffer_pass_on_clustered_scenes(name, monkeypatch):
     r = _ref(name)
     calls = _spy_woop(monkeypatch)
-    tintersect.QUERY_LOG = log = []
-    try:
+    with tracing.recording() as rec:
         got = tgb.gbuffer_fill(r["ts"], r["cam"], r["cfg"], r["seed"],
                                r["ys"], r["xs"])
-    finally:
-        tintersect.QUERY_LOG = None
+    log = tintersect.queries(rec)
     assert [e["backend"] for e in log] == ["ptrace"]
     assert calls == ["closest_packets_mxu" if name == "woop5k"
                      else "closest_packets"]
@@ -227,12 +216,10 @@ def test_initial_pass_on_clustered_scenes(name, monkeypatch):
     r = _ref(name)
     gb = convert.from_tree(GBuffer, r["gb"], "cpu")
     calls = _spy_woop(monkeypatch)
-    tintersect.QUERY_LOG = log = []
-    try:
+    with tracing.recording() as rec:
         got = tinit.initial_pass(r["seed"], r["ts"], gb, r["cfg"], r["ys"],
                                  r["xs"])
-    finally:
-        tintersect.QUERY_LOG = None
+    log = tintersect.queries(rec)
     assert {e["backend"] for e in log} <= {"ptrace"}
     if name == "woop5k":
         assert calls and set(calls) == {"any_packets_mxu"}
@@ -288,8 +275,7 @@ def test_woop_whole_frames():
     jstate = jpipe.init_restir_state(h, w)
     tc = tcam.make_camera(cfg.camera, "cpu")
     tstate = tpipe.init_restir_state(h, w, "cpu")
-    tintersect.QUERY_LOG = log = []
-    try:
+    with tracing.recording() as rec:
         for f in range(2):
             want, jstate = step(js, jc, cfg, jrng.make_frame_seed(0, f),
                                 jstate, jnp.asarray(f))
@@ -301,8 +287,7 @@ def test_woop_whole_frames():
             stderr = pix.std() / np.sqrt(pix.size)
             assert np.isfinite(got).all() and want.mean() > 0.1
             assert abs(got.mean() - want.mean()) <= stderr
-    finally:
-        tintersect.QUERY_LOG = None
+    log = tintersect.queries(rec)
     assert {e["backend"] for e in log} == {"ptrace"} and len(log) == 56
     want_res = jax.tree.map(np.asarray, jstate.res_prev)
     same = (np.abs(tstate.res_prev.sample.point.numpy()

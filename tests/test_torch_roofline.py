@@ -1,9 +1,10 @@
 """The port's roofline.py: the JAX module's API on the H100's ceilings.
 
-`summarize_query_log` equals the JAX package's on the same log; the
-ceilings that `chip_smoke.bound` divides by are roofline.py's (patched
-there, the bound follows); no constant of `tpu_restir/roofline.py` (the
-TPU's rates and its cost model) appears in the port's module.
+`summarize_query_log` of the queries' `rays.` counts equals the JAX
+package's on the same queries' log; the ceilings that `chip_smoke.bound`
+divides by are roofline.py's (patched there, the bound follows); no
+constant of `tpu_restir/roofline.py` (the TPU's rates and its cost
+model) appears in the port's module.
 """
 
 import ast
@@ -31,11 +32,16 @@ def test_same_api_as_jax():
 
 
 def test_summarize_query_log_matches_jax():
+    """The port's summary of a recording's `rays.<kind>.<backend>` counts
+    equals the JAX package's of the same queries' log; the recording's
+    other counts are not queries."""
     log = [{"kind": "closest", "backend": "fused", "rays": 2_073_600},
            {"kind": "any", "backend": "fused", "rays": 2_073_600},
            {"kind": "any", "backend": "ptrace", "rays": 10},
            {"kind": "closest", "backend": "fcluster", "rays": 7}]
-    assert roofline.summarize_query_log(log) \
+    recorded = [(f"rays.{e['kind']}.{e['backend']}", e["rays"]) for e in log]
+    recorded.insert(1, ("launch.closest_hit", 1))
+    assert roofline.summarize_query_log(recorded) \
         == jroofline.summarize_query_log(log)
     assert roofline.summarize_query_log([]) \
         == jroofline.summarize_query_log([])

@@ -7,6 +7,9 @@ counters of the factor > 1 path (`phase1.superboxes`, `phase2.slots`,
 `gpu`, runs the cell at 64x32 on the card with the full scene. The file
 imports nothing of JAX or of the JAX package, so it also runs where they
 are absent (`python -m pytest --noconftest -q tests/test_torch_terrain1m.py`).
+Its plain K5/K6 loops run many mid-sized ops, which under parallel test
+workers wait on PyTorch's thread pool: the one-thread rule of
+`tests/conftest.py` is what keeps them fast.
 """
 
 import contextlib
@@ -29,19 +32,6 @@ CPU = torch.device("cpu")
 SMALL = (64, 32)
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: the plain K5/K6 loops run many mid-sized ops,
-    and a worker whose OpenMP pool spans every core slows the other test
-    workers sharing those cores by orders of magnitude."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
 def _cell(**scene_args):
     cell = harness.find_cell(harness.load_spec(), CELL)
     cfg = dict(cell.config, scene_args=dict(cell.config["scene_args"],
@@ -49,30 +39,14 @@ def _cell(**scene_args):
     return dataclasses.replace(cell, config=cfg)
 
 
-@contextlib.contextmanager
-def _seen_counts():
-    """Every call of `tracing.count` inside the block, as (name, value),
-    a tensor value summed (as the benchmark's wrappers do)."""
-    seen = []
-    orig = tracing.count
-
-    def wrapper(name, value):
-        seen.append((name, float(value.sum()) if hasattr(value, "sum")
-                     else float(value)))
-        orig(name, value)
-
-    tracing.count = wrapper
-    try:
-        yield seen
-    finally:
-        tracing.count = orig
-
-
-def _totals(seen, prefix=""):
+def _totals(recorded, prefix=""):
+    """The counts of a `tracing.recording()` summed by name, a tensor value
+    summed over its elements (as the benchmark's wrappers do)."""
     out = {}
-    for name, v in seen:
+    for name, v in recorded:
         if name.startswith(prefix):
-            out[name] = out.get(name, 0.0) + v
+            out[name] = out.get(name, 0.0) + (
+                float(v.sum()) if hasattr(v, "sum") else float(v))
     return out
 
 
@@ -94,7 +68,7 @@ def test_factor4_frames_through_the_harness_equal_the_reference(monkeypatch):
     assert ct.cull_boxes(prog.scene.cluster_min, prog.scene.cluster_max,
                          4)[2]
     r = Renderer(prog.scene, prog.cfg, CPU)
-    with _seen_counts() as seen:
+    with tracing.recording() as seen:
         port = [r.step().clone() for _ in range(3)]
     got = _totals(seen)
     # the slots given to phase 2 are the listed superclusters times 4
@@ -166,7 +140,7 @@ def test_the_slots_are_the_listed_count_times_the_factor(factor):
     handed to the registry as a tensor that it leaves untouched."""
     lo, hi, o, d, tn, tf = _boxes_and_rays()
     before = tracing.COUNTS.copy()
-    with _seen_counts() as seen:
+    with tracing.recording() as seen:
         pk = ct.pack(lo, hi, o, d, tn, tf, factor)
     got = _totals(seen)
     assert got["phase2.slots"] == factor * float(pk.count.sum()) > 0

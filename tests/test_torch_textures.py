@@ -61,18 +61,6 @@ _DEMO = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 TEXEL_TOL = dict(rtol=1e-6, atol=1e-6)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """PyTorch's CPU ops run on one thread in this module: on a host
-    loaded by parallel test workers, ops above PyTorch's parallel grain
-    (the plain ray/triangle versions' (rays, triangles) tensors) wait on
-    its thread pool for longer than they compute."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 # ---------------------------------------------------------------- PNG
 
 

@@ -6,19 +6,25 @@ Without a profiler or a pass collector a span is the shared null
 context; the registry never touches a tensor count; under torch.profiler
 a ReSTIR frame holds each pass span once, in pipeline order, inside
 `frame`, and a clustered query each phase-1 span once a `pack`; the
-counts equal the packets' own; frames are bit-identical with tracing on
-and off; `profile_passes` runs `restir_step` once a frame."""
+counts equal the packets' own; a recording keeps every count in call
+order, and a Cornell frame's `rays.` counts are its 28 rays a pixel;
+frames are bit-identical with tracing on and off; `profile_passes` runs
+`restir_step` once a frame."""
 
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from perfbench import harness, program_spans, trace
-from tpu_restir_torch import metrics, tracing
+from tpu_restir_torch import bench, metrics, rng, roofline, tracing
 from tpu_restir_torch import renderer as renderer_mod
 from tpu_restir_torch.config import (CameraConfig, RenderConfig,
                                      RenderParams, RestirParams)
 from tpu_restir_torch.kernels import cluster_trace as ct
+from tpu_restir_torch.render import intersect
+from tpu_restir_torch.render.camera import make_camera
+from tpu_restir_torch.render.integrators.restir.pipeline import (
+    init_restir_state, restir_step)
 from tpu_restir_torch.renderer import Renderer
 from tpu_restir_torch.scene.cornell import cornell_box
 
@@ -141,6 +147,60 @@ def test_the_counts_are_the_packets_own(monkeypatch):
     assert tracing.COUNTS["phase1.listed"] == before["phase1.listed"]
     assert tracing.COUNTS["phase1.packets"] == before["phase1.packets"] \
         + rp
+
+
+def test_a_recording_keeps_every_count_in_call_order():
+    """`recording()` keeps each count() call of its block, an int or a
+    tensor value as it was given (never read), in call order; COUNTS
+    moves as count alone moves it; a recording opened inside another
+    takes the calls of its own block."""
+    before = tracing.COUNTS.copy()
+
+    class Untouchable:
+        def sum(self, *a, **k):
+            raise AssertionError("a recording read a tensor count")
+
+    x, u = torch.arange(3), Untouchable()
+    with tracing.recording() as outer:
+        tracing.count("test.rec_int", 2)
+        with tracing.recording() as inner:
+            tracing.count("test.rec_tensor", x)
+            tracing.count("test.rec_tensor", u)
+        tracing.count("test.rec_int", 3)
+    tracing.count("test.rec_int", 4)
+    assert inner == [("test.rec_tensor", x), ("test.rec_tensor", u)]
+    assert inner[0][1] is x and inner[1][1] is u
+    assert outer == [("test.rec_int", 2), ("test.rec_int", 3)]
+    assert tracing._recording is None
+    assert tracing.COUNTS["test.rec_int"] == before["test.rec_int"] + 9
+    assert tracing.COUNTS["test.rec_tensor"] == before["test.rec_tensor"]
+
+
+def test_the_census_of_a_cornell_frame_is_28_rays_a_pixel(scene):
+    """The `rays.` counts of one 16x16 Cornell frame of the bench
+    configuration, recorded: the G-buffer's closest-hit query and 27
+    any-hit queries, each of every pixel, through the fused backend: 28
+    rays a pixel, the count of `metrics.rays_per_pixel` and of the
+    repository's bench.py. `summarize_query_log` reads the same split,
+    and COUNTS gains the same rays."""
+    cfg = bench.bench_cfg(16, 16)
+    n = 16 * 16
+    before = tracing.counted("rays.")
+    with tracing.recording() as rec:
+        restir_step(scene, make_camera(cfg.camera, "cpu"), cfg,
+                    rng.make_frame_seed(0, 0), init_restir_state(16, 16,
+                                                                 "cpu"), 0)
+    queries = intersect.queries(rec)
+    assert [e["kind"] for e in queries] == ["closest"] + ["any"] * 27
+    assert all(e["backend"] == "fused" and e["rays"] == n for e in queries)
+    assert metrics.rays_per_pixel(cfg) == 28
+    assert roofline.summarize_query_log(rec) == {
+        "closest": {"queries": 1, "rays": n},
+        "any": {"queries": 27, "rays": 27 * n}, "total_rays": 28 * n}
+    gained = {k: v - before.get(k, 0)
+              for k, v in tracing.counted("rays.").items()}
+    assert {k: v for k, v in gained.items() if v} \
+        == {"rays.closest.fused": n, "rays.any.fused": 27 * n}
 
 
 def test_frames_are_identical_with_tracing_on_and_off(scene):

@@ -33,7 +33,7 @@ import traceback
 
 import torch
 
-from tpu_restir_torch import rng
+from tpu_restir_torch import rng, tracing
 from tpu_restir_torch.config import (CameraConfig, IntersectorConfig,
                                      RenderConfig, RenderParams, RestirParams)
 from tpu_restir_torch.metrics import rays_per_pixel, sync
@@ -130,28 +130,25 @@ def fmt_gib(gib) -> str:
 
 
 def chained_frames(scene, cfg, device, n_frames: int):
-    """bench.py's frame loop: one warm-up frame with the query log open,
+    """bench.py's frame loop: one warm-up frame with its counts recorded,
     then n_frames restir_step frames, each taking the previous frame's
     state, and one synchronize after the loop -> dict of the traced rays
-    of a frame (the warm-up's log), the seconds of the n_frames, the last
-    frame, and the peak memory of the frames."""
+    of a frame (the warm-up's queries), the seconds of the n_frames, the
+    last frame, and the peak memory of the frames."""
     h, w = cfg.camera.height, cfg.camera.width
     cam = cam_mod.make_camera(cfg.camera, device)
     state = init_restir_state(h, w, device)
     reset_peak(device)
-    intersect.QUERY_LOG = qlog = []
-    try:
+    with tracing.recording() as rec:
         frame, state = restir_step(scene, cam, cfg, rng.make_frame_seed(0, 0),
                                    state, 0)
         sync(frame)
-    finally:
-        intersect.QUERY_LOG = None
     t0 = time.perf_counter()
     for f in range(1, n_frames + 1):
         frame, state = restir_step(scene, cam, cfg, rng.make_frame_seed(0, f),
                                    state, f)
     sync(frame)
-    return {"rays": sum(e["rays"] for e in qlog),
+    return {"rays": sum(e["rays"] for e in intersect.queries(rec)),
             "seconds": time.perf_counter() - t0, "frame": frame,
             "peak_gib": peak_gib(device)}
 
@@ -255,8 +252,8 @@ def run_bench(device, width: int = WIDTH, height: int = HEIGHT,
     record("cornell", main, n_frames)
     traced_rays = main["rays"]
     traced_rpp = traced_rays / n_pix
-    # throughput on the traced ray count; the analytic count where the
-    # log is empty (bench.py:107-108)
+    # throughput on the traced ray count; the analytic count where no
+    # query was counted (bench.py:107-108)
     rays_frame = traced_rays or rays_per_pixel(cfg) * width * height
     mrays_fwd = rays_frame * n_frames / main["seconds"] / 1e6
 

@@ -49,11 +49,6 @@ from tpu_restir_torch.accel import fcluster, wide
 from tpu_restir_torch.config import IntersectorConfig
 from tpu_restir_torch.kernels import cluster_trace, ray_tri, woop
 
-# Query log: set to a list and every closest/any query appends its ray
-# count, the per-frame ray totals behind the traced rays-per-pixel check.
-# None = off.
-QUERY_LOG = None
-
 _INF = float("inf")
 _DET_EPS = 1e-18
 BACKENDS = ("auto", "fused", "ptrace", "brute", "woop_mxu", "cluster",
@@ -437,10 +432,18 @@ def _any_chunk_cluster(o, d, tnear, tfar, scene, wb):
 # The queries
 # ---------------------------------------------------------------------------
 
-def _log_query(kind: str, backend: str, shape) -> None:
-    if QUERY_LOG is not None:
-        QUERY_LOG.append({"kind": kind, "backend": backend,
-                          "rays": int(np.prod(shape, dtype=np.int64))})
+def _count_query(kind: str, backend: str, shape) -> None:
+    """Count a query's rays as `rays.<kind>.<backend>`: the per-frame ray
+    totals behind the traced rays-per-pixel checks."""
+    tracing.count(f"rays.{kind}.{backend}",
+                  int(np.prod(shape, dtype=np.int64)))
+
+
+def queries(recorded) -> list:
+    """The queries among the entries of a `tracing.recording()`, in query
+    order: one {"kind", "backend", "rays"} dict each."""
+    return [dict(zip(("kind", "backend"), name.split(".")[1:]), rays=n)
+            for name, n in recorded if name.startswith("rays.")]
 
 
 def _query_fn(kind: str, backend: str, scene, cfg: IntersectorConfig):
@@ -489,7 +492,7 @@ def intersect_closest(scene, o, d, tnear, tfar,
                       cfg: IntersectorConfig = IntersectorConfig()) -> Hit:
     """Closest-hit query (reference Intersection::getClosestIntersection)."""
     backend = _backend(scene, cfg)
-    _log_query("closest", backend, o.shape[:-1])
+    _count_query("closest", backend, o.shape[:-1])
     shape, of, df, tn, tf = _flat_rays(o, d, tnear, tfar)
     if backend == "fused":
         bt, bu, bv, btri = ray_tri.closest_hit(scene, of, df, tn, tf)
@@ -518,7 +521,7 @@ def intersect_any(scene, o, d, tnear, tfar,
                   cfg: IntersectorConfig = IntersectorConfig()):
     """Any-hit (shadow) query (reference rtcOccluded1 path) -> bool."""
     backend = _backend(scene, cfg)
-    _log_query("any", backend, o.shape[:-1])
+    _count_query("any", backend, o.shape[:-1])
     shape, of, df, tn, tf = _flat_rays(o, d, tnear, tfar)
     if backend == "fused":
         return ray_tri.any_hit(scene, of, df, tn, tf).reshape(shape)

@@ -20,14 +20,14 @@ The per-test counts are those of the plain tests (`chip_smoke.py`
 `ray_tri_ops`, `trace_ops`): a Woop row 40 operations, a Moller-Trumbore
 row 46, a box test 28. A bound counts every input byte read once and
 every output byte written once. All functions are arithmetic over
-shapes and counts; the device-side count of what ran is the query log
-of `render.intersect` (`summarize_query_log`).
+shapes and counts; the device-side count of what ran is the ray census
+of `render.intersect`'s `rays.` counts (`summarize_query_log`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 # --- H100 SXM 80GB ceilings (NVIDIA's data sheet, 700 W) -----------------
 HBM_BYTES_PER_S = 3.35e12
@@ -206,14 +206,16 @@ class FrameModel:
         return "\n".join(lines)
 
 
-def summarize_query_log(log: List[Dict]) -> Dict:
-    """`render.intersect.QUERY_LOG` entries -> per-kind query and ray
-    totals, and "total_rays"."""
+def summarize_query_log(recorded: List[Tuple[str, int]]) -> Dict:
+    """The (name, value) entries of a `tracing.recording()` -> per-kind
+    query and ray totals of its `rays.<kind>.<backend>` entries (one a
+    query, `render.intersect`), and "total_rays"."""
     out: Dict[str, Dict[str, float]] = {}
-    for e in log:
-        k = out.setdefault(e["kind"], {"queries": 0, "rays": 0})
-        k["queries"] += 1
-        k["rays"] += e["rays"]
+    for name, rays in recorded:
+        if name.startswith("rays."):
+            k = out.setdefault(name.split(".")[1], {"queries": 0, "rays": 0})
+            k["queries"] += 1
+            k["rays"] += rays
     out["total_rays"] = sum(v["rays"] for v in out.values()
                             if isinstance(v, dict))
     return out

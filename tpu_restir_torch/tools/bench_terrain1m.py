@@ -8,7 +8,7 @@ terrain_scene(1_000_000) has 1,002,530 triangles in C ~ 15.7k clusters of
 64, so the supercluster factor is 4 (`cluster_trace.pick_factor`, at most
 SUPER_MAX = 4096 shortlist entries a packet) and every query runs K5/K6
 in cull mode 5 on per-cluster boxes (C <= BOX_MAX). One warm-up frame
-with the query log open, then 2 chained frames and one synchronize.
+with its counts recorded, then 2 chained frames and one synchronize.
 Earlier lines: the scene build's seconds by stage, C, the factor, S and
 the cull modes, then one "[terrain1M] {...}" JSON line of the run
 (`tpu_restir_torch.bench` reads it). The last line of stdout is
@@ -97,7 +97,7 @@ def scene_info(scene) -> dict:
 
 
 def run(scene, cfg, device, n_frames: int = N_FRAMES) -> dict:
-    """One warm-up frame with the query log open, then n_frames chained
+    """One warm-up frame with its counts recorded, then n_frames chained
     frames and one synchronize (`bench.chained_frames`) -> its dict with
     ms a frame, Mrays/s and the traced rays per pixel added."""
     out = bench.chained_frames(scene, cfg, device, n_frames)

@@ -10,7 +10,8 @@ Per scene (cornell, lights1k, terrain100k; the bench configuration at
     pass (cfg.profile_stop_after), INNER chained frames a prefix, summed
     over frame and state and ended in one synchronize, after a warm-up
     run; a pass's time is the difference of two prefixes;
-  * the query census of one frame (`intersect.QUERY_LOG`,
+  * the query census of one frame (the `rays.` counts of
+    `render.intersect` in a `tracing.recording()`,
     `roofline.summarize_query_log`);
   * model lines from `tpu_restir_torch.roofline` at the card's ceilings:
     the intersection queries (K1's fused spec or the clustered spec with
@@ -33,7 +34,7 @@ import time
 import numpy as np
 import torch
 
-from tpu_restir_torch import bench, rng, roofline
+from tpu_restir_torch import bench, rng, roofline, tracing
 from tpu_restir_torch.render import camera as cam_mod
 from tpu_restir_torch.render import intersect as intersect_mod
 from tpu_restir_torch.render.integrators.restir.pipeline import (
@@ -74,16 +75,14 @@ def measure_prefix(scene, cam, cfg, device) -> float:
 
 
 def census(scene, cam, device):
-    """The query log of one full frame -> (log, summarize_query_log)."""
-    intersect_mod.QUERY_LOG = qlog = []
-    try:
+    """The queries of one full frame, recorded -> (their
+    {"kind", "backend", "rays"} dicts, summarize_query_log)."""
+    with tracing.recording() as rec:
         fr, _st = restir_step(scene, cam, _cfg(None),
                               rng.make_frame_seed(0, 0),
                               init_restir_state(H, W, device), 0)
         bench.sync(fr)
-    finally:
-        intersect_mod.QUERY_LOG = None
-    return qlog, roofline.summarize_query_log(qlog)
+    return intersect_mod.queries(rec), roofline.summarize_query_log(rec)
 
 
 def _payload_channels(scene) -> int:

@@ -15,11 +15,19 @@ of its module), the clustered kernels' launches that cull in mode 5
 (`cull.*`), host reads of the plain backends' loop conditions
 (`sync.*`), phase 1's shortlists (`phase1.*`), the slots phase 2 is
 given (`phase2.slots`), and the slots the closest-hit kernels staged
-over their packets (`phase2.staged`, `phase2.closest_packets`). An int
-value is always added. A tensor value, a
-count that lives on the device, is never touched here, so it launches
-nothing and waits for nothing: callers look `count` up on this module at
-each call, so a wrapper put in its place sees every call and may sum it.
+over their packets (`phase2.staged`, `phase2.closest_packets`), and the
+rays of every intersection query (`rays.<kind>.<backend>`, one count a
+query, `render/intersect.py`). An int value is always added. A tensor
+value, a count that lives on the device, is never touched here, so it
+launches nothing and waits for nothing: callers look `count` up on this
+module at each call, so a wrapper put in its place sees every call and
+may sum it.
+
+`recording()` reads what one block of work counted, call by call: it
+yields a list, and every `count(name, value)` inside the block appends
+(name, value) to it, a tensor value as it is. The ray census of a frame
+is its `rays.` entries, one a query in query order
+(`intersect.queries`, `roofline.summarize_query_log`).
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ COUNTS: collections.Counter = collections.Counter()
 
 _NULL = contextlib.nullcontext()
 _collector = None   # callable(name) -> context manager, or None
+_recording = None   # the list of the open recording(), or None
 
 
 def span(name: str):
@@ -55,10 +64,12 @@ def _recorded(name: str):
 
 
 def count(name: str, value) -> None:
-    """Add an int value to COUNTS[name]; leave a tensor value untouched
-    (see the module's text)."""
+    """Add an int value to COUNTS[name]; leave a tensor value untouched;
+    append (name, value) to the open recording (see the module's text)."""
     if isinstance(value, int):
         COUNTS[name] += value
+    if _recording is not None:
+        _recording.append((name, value))
 
 
 def counted(prefix: str) -> dict:
@@ -76,3 +87,17 @@ def collecting(collector):
         yield
     finally:
         _collector = prev
+
+
+@contextlib.contextmanager
+def recording():
+    """Yield a list of the (name, value) of every count() call inside this
+    block, in call order; inside a recording opened within it, that one
+    gets them."""
+    global _recording
+    rec = []
+    prev, _recording = _recording, rec
+    try:
+        yield rec
+    finally:
+        _recording = prev
