@@ -6,7 +6,7 @@
 Phases; any failure raises, so the exit code is non-zero and the final
 line is not printed:
   1. device: require CUDA; print the card and its power limit; TF32 off.
-  2. build the CUDA kernels from csrc/ (four nvcc, sm_90a, started
+  2. build the CUDA kernels from csrc/ (five nvcc, sm_90a, started
      together) and the host BVH builder (g++); print times and registers.
   3. each kernel against its plain PyTorch version on the card, at the
      main path's shapes: exact ids, masks and copies; float error printed
@@ -45,6 +45,11 @@ line is not printed:
      blocks test (the first such share also in the kernel's JSON entry).
      K4 must equal its plain version bit for bit on integer cotangents
      and, on normal ones, the sum in its own order (its sha256 printed).
+     K10, calc_i_m's incomplete beta, against its plain version
+     `_ibeta_value` on one 1080p call (`check_ibeta`): lanes that differ
+     in float64 and in float32 (none expected; over 1 float32 ulp
+     raises), kernel and plain ms, the bound of its FP64 instructions,
+     and calc_i_m whole with K10 and with the plain chain.
   4. the main path: Renderer on the Cornell box at 1920x1080, the bench
      config (m_area=1, m_brdf=1, temporal, 5-neighbour pairwise spatial),
      8 frames; the traced rays per pixel must equal the analytic 28, every
@@ -236,7 +241,8 @@ from tpu_restir_torch.bench import (  # noqa: E402
 # data sheet at 700 W; the unfused float32 rate, as the ray/triangle
 # kernels build with --fmad=false): one place, tpu_restir_torch/roofline.py
 from tpu_restir_torch.roofline import (  # noqa: E402
-    BOX_BYTES, KEY_AXIS_OPS, KEY_BYTES, KEY_PAIR_OPS, KEY_RAY_OPS,
+    BOX_BYTES, FP64_OPS_PER_S, HBM_BYTES_PER_S, IBETA_LANE_BYTES,
+    IBETA_LANE_OPS, KEY_AXIS_OPS, KEY_BYTES, KEY_PAIR_OPS, KEY_RAY_OPS,
     KEY_SLICE_OPS, KEY_SPAN0_AXIS_OPS, MT_OPS, MT_U_OPS, RAY_BYTES,
     SAFE_INV_OPS, SLAB_OPS, WOOP_OPS, WOOP_T_OPS, WOOP_TU_OPS, KernelSpec)
 
@@ -371,7 +377,7 @@ def phase_device():
 
 
 def phase_build():
-    """The four CUDA libraries (one nvcc each, all started together) and
+    """The five CUDA libraries (one nvcc each, all started together) and
     the host BVH builder of the clustered scenes (g++)."""
     from tpu_restir_torch.accel import bvh
     from tpu_restir_torch.kernels import build
@@ -672,7 +678,64 @@ def phase_kernels(dev):
         require(err <= 1e-5, f"K4 C={c}: max error {err}")
         require(ordered, f"K4 C={c}: differs from the sum in its order")
         record("scatter_local", err, ms, plain, bnd, library)
+    check_ibeta(gen, dev, record)
     return results
+
+
+def check_ibeta(gen, dev, record):
+    """K10 against `_ibeta_value` on one 1080p call: cos(theta) uniform in
+    [0, 1), shininess uniform in [0, 128) (both sides of the symmetry
+    swap), b = 1/2 broadcast, the operands as calc_i_m hands them over."""
+    import torch
+
+    from tpu_restir_torch import tracing
+    from tpu_restir_torch.kernels import ibeta as k10
+    from tpu_restir_torch.mathx import special
+    n = WIDTH * HEIGHT
+    cost = torch.rand((HEIGHT, WIDTH), generator=gen, device=dev)
+    shin = torch.rand((HEIGHT, WIDTH), generator=gen, device=dev) * 128.0
+    x, a, b = special.ibeta_operands(1.0 - cost * cost, 0.5 * shin, 0.5)
+    before = tracing.COUNTS["launch.ibeta"]
+    got = k10.ibeta(x, a, b)
+    want = special._ibeta_value(x, a, b)
+    torch.cuda.synchronize()
+    require(tracing.COUNTS["launch.ibeta"] == before + 1,
+            "K10: not one launch a call")
+
+    def differ(g, w, ints):
+        return int(((g.view(ints) != w.view(ints))
+                    & ~(torch.isnan(g) & torch.isnan(w))).sum())
+
+    d64 = differ(got, want, torch.int64)
+    g32, w32 = got.to(torch.float32), want.to(torch.float32)
+    d32 = differ(g32, w32, torch.int32)
+    both_nan = torch.isnan(g32) & torch.isnan(w32)
+    ulps = int(torch.where(both_nan, 0, (g32.view(torch.int32).long()
+                                         - w32.view(torch.int32).long())
+                           .abs()).max())
+    err = float((g32 - w32).abs().max())
+    ms = cuda_ms(lambda: k10.ibeta(x, a, b), 20)
+    plain = cuda_ms(lambda: special._ibeta_value(x, a, b), 3)
+    bnd_ops = n * IBETA_LANE_OPS / FP64_OPS_PER_S * 1e3
+    bnd_bytes = n * IBETA_LANE_BYTES / HBM_BYTES_PER_S * 1e3
+    bnd = (bnd_ops, "operations") if bnd_ops >= bnd_bytes \
+        else (bnd_bytes, "bytes")
+    i_m = cuda_ms(lambda: special.calc_i_m(cost, shin), 20)
+    saved = k10.ibeta
+    k10.ibeta = special._ibeta_value
+    try:
+        i_m_plain = cuda_ms(lambda: special.calc_i_m(cost, shin), 3)
+    finally:
+        k10.ibeta = saved
+    print(f"[K10 ibeta] {HEIGHT}x{WIDTH} lanes, a = shininess / 2 in "
+          f"[0, 64), b = 1/2 broadcast: lanes differing from the plain "
+          f"version {d64} in float64, {d32} in float32 (max {ulps} ulp, "
+          f"|err| {err:.3g}); kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+          f"bound {bnd[0]:.3f} ms ({bnd[1]}: {IBETA_LANE_OPS} FP64 "
+          f"instructions a lane); calc_i_m whole {i_m:.3f} ms, with the "
+          f"plain chain {i_m_plain:.3f} ms", flush=True)
+    require(ulps <= 1, f"K10: {d32} float32 lanes differ, up to {ulps} ulp")
+    record("ibeta", err, ms, plain, bnd)
 
 
 _SCENES = {}
@@ -1625,7 +1688,9 @@ def phase_integrators(dev, smi):
                     for k in ("closest", "any")}
             # phase 1's K9: once a clustered chunk
             want["shortlist_keys"] = sum(want.values())
-        others = {k: v for k, v in got.items() if k not in want and v}
+        # K10: calc_i_m in every BSDF sample, beside the queries' kernels
+        others = {k: v for k, v in got.items()
+                  if k not in want and k != "ibeta" and v}
         finite = bool(torch.isfinite(img).all())
         mean = renderer.stats()[0]
         print(f"[integrators] {scene_label} {label} {WIDTH}x{HEIGHT}, "
@@ -1646,6 +1711,7 @@ def phase_integrators(dev, smi):
                 and next(iter(want.values())) > 0,
                 f"{tag}: launches {got} do not cover every logged query "
                 f"{want}")
+        require(got["ibeta"] > 0, f"{tag}: K10 never launched")
         require(not others, f"{tag}: other kernels launched: {others}")
         for k, v in want.items():
             launches[k] = launches.get(k, 0) + v
@@ -2167,7 +2233,7 @@ def _demo_load(dev):
 
 def _demo_restir(dev, scene, smi):
     """DEMO_FRAMES ReSTIR frames at 1080p after a warm-up: ms/frame,
-    Mrays/s at the analytic count, K1/K2/K3 launches per frame; every
+    Mrays/s at the analytic count, K1/K2/K3/K10 launches per frame; every
     query through the fused backend, no clustered kernel launched."""
     import torch
 
@@ -2181,16 +2247,17 @@ def _demo_restir(dev, scene, smi):
     backends = sorted({e["backend"] for e in qlog})
     finite = bool(torch.isfinite(img).all())
     mean = renderer.stats()[0]
-    path = {k: got[k] for k in ("closest_hit", "any_hit", "gather_local")}
+    path = {k: got[k] for k in ("closest_hit", "any_hit", "gather_local",
+                                "ibeta")}
     per_frame = {k: v / DEMO_FRAMES for k, v in path.items()}
     others = {k: v for k, v in got.items() if k not in path and v}
     print(f"[demo] ReSTIR {WIDTH}x{HEIGHT} (m_area 2, m_brdf 1, temporal, "
           f"5-neighbour pairwise spatial, sky), {DEMO_FRAMES} frames: "
           f"{dt / DEMO_FRAMES * 1e3:.2f} ms/frame, {rays / dt / 1e6:.2f} "
           f"Mrays/s at {analytic} rays/pixel ({smi}); traced rays/pixel "
-          f"{rpp} (analytic {analytic}); query backends {backends}; K1/K2/K3 "
-          f"launches per frame {per_frame}; image mean {mean:.6f}, finite "
-          f"{finite}", flush=True)
+          f"{rpp} (analytic {analytic}); query backends {backends}; "
+          f"K1/K2/K3/K10 launches per frame {per_frame}; image mean "
+          f"{mean:.6f}, finite {finite}", flush=True)
     require(tuple(img.shape) == (HEIGHT, WIDTH, 3) and finite,
             "demo: wrong shape or non-finite values")
     require(analytic == 29 and rpp == float(analytic),
@@ -2481,8 +2548,9 @@ def phase_demo(dev, smi, results):
     and NEE-MIS frames, hold K1-K4 to their plain versions on the demo's
     own queries (errors folded into `results`), the CLI golden on cuda
     (and cpu), the texel and roughness gradients across devices, and the
-    demo forced through K5/K6. Returns the K1-K4 launches: K1/K2/K3 of
-    the ReSTIR frames, per frame, and those of the 64x32 texel step."""
+    demo forced through K5/K6. Returns the K1-K4 and K10 launches:
+    K1/K2/K3/K10 of the ReSTIR frames, per frame, and K4's of the 64x32
+    texel step."""
     record = recorder(results)
     scene = _demo_load(dev)
     path = _demo_restir(dev, scene, smi)
@@ -3798,6 +3866,8 @@ def main():
                           "tpu_restir/kernels/cluster_trace.py:888"),
         # phase 1's keys: XLA code in the JAX package, no Pallas kernel
         "shortlist_keys": ("tpu_restir_torch/csrc/cluster_trace.cu", None),
+        # calc_i_m's incomplete beta: XLA's betainc in the JAX package
+        "ibeta": ("tpu_restir_torch/csrc/ibeta.cu", None),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

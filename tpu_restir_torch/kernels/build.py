@@ -84,11 +84,13 @@ def load_all(specs) -> list:
 
 
 def load_kernels() -> list:
-    """Build and load the four libraries of `csrc/` at once (K1/K2, K3,
-    K4, K5-K8), with the flags and signatures of their modules."""
-    from tpu_restir_torch.kernels import cluster_trace, local_gather, ray_tri
+    """Build and load the five libraries of `csrc/` at once (K1/K2, K3,
+    K4, K5-K9, K10), with the flags and signatures of their modules."""
+    from tpu_restir_torch.kernels import (cluster_trace, ibeta, local_gather,
+                                          ray_tri)
     return load_all([("ray_tri", ray_tri._SIGNATURES, ray_tri.FLAGS),
                      ("local_gather", local_gather._SIGNATURES, ()),
                      ("local_scatter", local_gather._SCATTER_SIGNATURES, ()),
                      ("cluster_trace", cluster_trace._SIGNATURES,
-                      cluster_trace.FLAGS)])
+                      cluster_trace.FLAGS),
+                     ("ibeta", ibeta._SIGNATURES, ibeta.FLAGS)])

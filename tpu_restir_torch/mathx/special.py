@@ -5,7 +5,9 @@ Yuksel's I_M integral, built on the non-normalized incomplete beta
 B_x(a, b) (reference pg/MaterialPhong.cpp:224-248). PyTorch has no
 incomplete beta, so B_x(a, 1/2) is evaluated here as its continued
 fraction (modified Lentz, a fixed number of steps so that it runs as
-plain tensor ops) in float64, and cast to float32.
+plain tensor ops) in float64, and cast to float32. On CUDA tensors that
+value is one launch of K10 (`kernels/ibeta.py`), the same arithmetic in
+the same order; CPU tensors take the plain ops below.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from tpu_restir_torch.kernels import ibeta as _k10
 
 _TWO_PI = 2.0 * math.pi
 _ROOT_PI = math.sqrt(math.pi)
@@ -59,11 +63,14 @@ def _ibeta_value(x, a, b):
 class _IBetaX(torch.autograd.Function):
     """B_x(a, b) with the analytic x-derivative x^(a-1) (1-x)^(b-1) (the
     integrand; jax.scipy's betainc x-derivative times B(a, b)), so the 64
-    Lentz steps record no graph. a and b come detached."""
+    Lentz steps record no graph. a and b come detached. The value is K10's
+    on CUDA tensors, `_ibeta_value`'s on CPU tensors."""
 
     @staticmethod
     def forward(ctx, x, a, b):
         ctx.save_for_backward(x, a, b)
+        if x.device.type == "cuda":
+            return _k10.ibeta(x, a, b)
         return _ibeta_value(x, a, b)
 
     @staticmethod
@@ -75,6 +82,20 @@ class _IBetaX(torch.autograd.Function):
         return torch.where(g == 0.0, 0.0, g * dx), None, None
 
 
+def ibeta_operands(x, a, b):
+    """The float64 operands (x, a, b) of `ibeta_nonnorm`'s B_x(a, b): x
+    clipped to [0, 1], a at least 1e-12, a and b detached, all three
+    broadcast to one shape (b = 1/2 as one value of stride 0)."""
+    from tpu_restir_torch import mathx
+
+    x = mathx.clip(torch.as_tensor(x).to(torch.float64), 0.0, 1.0)
+    a = mathx.maximum(torch.as_tensor(a, device=x.device).detach()
+                      .to(torch.float64), 1e-12)
+    b = torch.as_tensor(b, device=x.device).detach().to(torch.float64)
+    a, b, x = torch.broadcast_tensors(a, b, x)
+    return x, a, b
+
+
 def ibeta_nonnorm(x, a, b):
     """Non-normalized incomplete beta B_x(a, b) = I_x(a, b) * B(a, b), the
     boost::math::beta(a, b, x) of pg/MaterialPhong.cpp:246-248.
@@ -83,14 +104,7 @@ def ibeta_nonnorm(x, a, b):
     Differentiable in x only: the shape parameters are detached, as the
     JAX function detaches them (its betainc has no a/b gradient), so the
     normalization's derivative through B_x's shape is dropped by design."""
-    from tpu_restir_torch import mathx
-
-    x = mathx.clip(torch.as_tensor(x).to(torch.float64), 0.0, 1.0)
-    a = mathx.maximum(torch.as_tensor(a, device=x.device).detach()
-                      .to(torch.float64), 1e-12)
-    b = torch.as_tensor(b, device=x.device).detach().to(torch.float64)
-    a, b, x = torch.broadcast_tensors(a, b, x)
-    return _IBetaX.apply(x, a, b).to(torch.float32)
+    return _IBetaX.apply(*ibeta_operands(x, a, b)).to(torch.float32)
 
 
 def calc_i_m(n_dot_v, n):

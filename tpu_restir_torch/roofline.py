@@ -15,6 +15,10 @@ load, so a bound is stated with the card's name and limit beside it
                    multiply-add as two). The ray/triangle kernels build
                    with --fmad=false, so each product and each sum is an
                    instruction of its own.
+  FP64_OPS_PER_S   16.75e12 float64 instructions/s: 132 SMs x 64 FP64
+                   lanes x 1.98 GHz (the data sheet's 33.5e12 float64
+                   FLOP/s counts a fused multiply-add as two); the bound of
+                   K10, the incomplete beta, which builds with --fmad=false.
 
 The per-test counts are those of the plain tests (`chip_smoke.py`
 `ray_tri_ops`, `trace_ops`): a Woop row 40 operations, a Moller-Trumbore
@@ -32,6 +36,7 @@ from typing import Dict, List, Optional, Tuple
 # --- H100 SXM 80GB ceilings (NVIDIA's data sheet, 700 W) -----------------
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 33.5e12
+FP64_OPS_PER_S = 16.75e12
 
 # --- float32 operations of one test, from the plain tests ----------------
 WOOP_OPS = 40      # a Woop row (K1/K2/K7/K8, 'woop_mxu', 'cluster')
@@ -67,6 +72,14 @@ KEY_RAY_OPS = 148       # a live ray: the live test (7), its t span (1), 9
 #                         packet's summary
 KEY_BYTES = 4           # a key written
 BOX_BYTES = 24          # a (super)cluster box read
+
+# K10, the incomplete beta of calc_i_m (`csrc/ibeta.cu`), one lane: 128
+# Lentz half-steps of 11 products and sums and 3 divisions, a division
+# counted as 10 FP64 instructions (its reciprocal seed and Newton steps),
+# 128 x (11 + 3 x 10); the lane's one log, log1p and exp and three lgamma
+# are not counted
+IBETA_LANE_OPS = 5248
+IBETA_LANE_BYTES = 24   # x and a read (b broadcast), the value written
 
 # The JAX package's count of its phase-1 interval test of one (packet,
 # cluster) pair (150) and of one swept slice box (6), and of one packet
